@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one GPU, end to end.
+
+    python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
+
+Phases (any failure exits non-zero; no phase's exception is caught):
+
+1. device: the card's name and power limit (nvidia-smi), TF32 off;
+2. build: the CUDA kernels from src/repro_torch/kernels/csrc, one nvcc per
+   source, all at once;
+3. main path: SearchEngine.build -> search at ann-benchmarks'
+   glove-100-angular shape (1,183,514 x 100, 10,000 queries) on synthetic
+   data, k = 10 and k = 100, checked against a brute force on the card.
+   Two corpora of that shape: a mixture of 64 clusters, where the bound
+   skips tiles, and one of 2,048 clusters, where it skips none.  Neither
+   is GloVe: they say nothing of the bound's power on the real vectors;
+4. K-loop and worst case: uniform data at nytimes-256-angular's shape
+   (290,000 x 256, 10,000 queries, k = 10), where the bound prunes little;
+5. each kernel against its plain PyTorch version on the card, at the main
+   path's operands and on small cases (ub_cap, element stats, holes in
+   row_valid, k = bn, empty-block sentinels), with times and bounds.
+
+Before the last line it prints one JSON object with a "kernels" list; the
+last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
+and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+#: NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+#: fp32 operations the Eq. 13 interval bound needs, an FMA counting 2 as in
+#: the peak rate, each term computed once at the coarsest index it depends
+#: on.  Per (query, tile, pivot): each end a*s + sqrt(1-a^2)*sqrt(1-s^2) as
+#: a multiply and an FMA (3 + 3), the larger end, two compares and their
+#: "and" for a inside [lo, hi], the select of 1, the min over pivots.
+BOUND_OPS_QBP = 12
+#: per (tile, pivot): sqrt(max(0, 1 - s*s)) at lo and at hi, and lo > hi
+BOUND_OPS_BP = 9
+#: per (query, pivot): sqrt(max(0, 1 - a*a))
+BOUND_OPS_QP = 4
+#: per (query, tile) in pruned_topk: margin add, compare with tau, and live
+SKIP_OPS = 3
+
+#: glove-100-angular's shape; 64 unit centres plus N(0, 0.05^2) noise per
+#: coordinate (10th-neighbour similarity ~0.86): the bound skips about a
+#: third of the tiles, so the path runs both the skip and the merge
+CLUSTERED64 = dict(name="clustered-64 at glove-100-angular shape", key="clustered64",
+                   n=1_183_514, d=100, m=10_000, ks=(10, 100), centers=64,
+                   noise=0.05)
+#: the same shape, 2,048 centres at noise 0.08: the bound skips no tile
+CLUSTERED2048 = dict(CLUSTERED64, name="clustered-2048 at glove-100-angular shape",
+                     key="clustered2048", ks=(10,), centers=2048, noise=0.08)
+UNIFORM256 = dict(name="uniform at nytimes-256-angular shape", key="uniform256",
+                  n=290_000, d=256, m=10_000, ks=(10,), centers=0, noise=0.0)
+REPS = 5
+#: rows of the corpus behind the small kernel cases
+SMALL_N = 20_000
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def synth(spec, seed):
+    """Datastore and queries of the spec's shape, from numpy's generator.
+    centers > 0: a clustered mixture, queries drawn from the same mixture
+    (not copied from rows); centers == 0: uniform on the sphere."""
+    rng = np.random.default_rng(seed)
+    n, d, m = spec["n"], spec["d"], spec["m"]
+    if spec["centers"] == 0:
+        return (rng.standard_normal((n, d), dtype=np.float32),
+                rng.standard_normal((m, d), dtype=np.float32))
+    c = rng.standard_normal((spec["centers"], d), dtype=np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+
+    def draw(count):
+        x = rng.standard_normal((count, d), dtype=np.float32)
+        x *= spec["noise"]
+        x += c[rng.integers(0, len(c), count)]
+        return x
+
+    return draw(n), draw(m)
+
+
+def cuda_ms(fn, reps):
+    """Per-call milliseconds of ``fn`` on the card (CUDA events), each call
+    timed alone; returns the list."""
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def brute_topk(qn, dbn, k, chunk=500):
+    """Exact top-k on the card: torch matmul + topk over query chunks."""
+    sims, ids = [], []
+    for s in range(0, qn.shape[0], chunk):
+        v, i = torch.topk(qn[s:s + chunk] @ dbn.T, k, dim=1)
+        sims.append(v)
+        ids.append(i)
+    return torch.cat(sims), torch.cat(ids)
+
+
+def tie_aware_mismatches(s_got, i_got, s_want, i_want, tol):
+    """Rows whose id sets differ beyond near-ties: every id in one set and
+    not the other must score within ``tol`` of that row's k-th best."""
+    bad = 0
+    for r in np.nonzero((np.sort(i_got, 1) != np.sort(i_want, 1)).any(1))[0]:
+        extra = set(i_got[r]) ^ set(i_want[r])
+        kth = min(s_got[r, -1], s_want[r, -1])
+        got = dict(zip(i_got[r], s_got[r]))
+        got.update(zip(i_want[r], s_want[r]))
+        if any(abs(got[i] - kth) > tol for i in extra):
+            bad += 1
+    return bad
+
+
+def bounds_diff(got, want):
+    """Max |difference| of two bound matrices; +inf when their -inf
+    (empty block) positions differ."""
+    if not bool((torch.isneginf(got) == torch.isneginf(want)).all()):
+        return float("inf")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def phase_search(spec, seed, SearchEngine, kernels):
+    """Build and search one corpus through the engine; counts every kernel
+    launch of this run.  Returns the engine, queries and the k=10 result."""
+    db_np, q_np = synth(spec, seed)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    eng = SearchEngine.build(db_np, n_pivots=16, block_size=128)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = torch.from_numpy(q_np).cuda()
+    out = {"build_s": build_s, "n_blocks": eng.n_blocks}
+    results = {}
+    for k in spec["ks"]:
+        eng.search(q, k)                                   # warm-up
+        ms = cuda_ms(lambda: eng.search(q, k), REPS)
+        sims, ids, st = eng.search(q, k)
+        results[k] = (sims, ids)
+        p50 = float(np.median(ms))
+        out[f"k{k}"] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3),
+                        "ms": ms, "block_prune_frac": float(st.block_prune_frac)}
+    out["launches"] = {kern.__name__: kern.launches for kern in kernels}
+    log(f"[{spec['name']}] build {build_s:.3f} s, {eng.n_blocks} blocks; "
+        + "; ".join(f"k={k}: p50 {out[f'k{k}']['p50_ms']:.3f} ms/call, "
+                    f"QPS {out[f'k{k}']['qps']:.1f}, block_prune_frac "
+                    f"{out[f'k{k}']['block_prune_frac']:.4f}" for k in spec["ks"])
+        + f"; launches {out['launches']}")
+    for name, count in out["launches"].items():
+        check(count > 0, f"{spec['name']}: kernel {name} never launched")
+
+    # exactness: result sets equal a brute force on the card
+    dbn = torch.nn.functional.normalize(torch.from_numpy(db_np).cuda(), dim=1)
+    qn = torch.nn.functional.normalize(q, dim=1)
+    for k, (sims, ids) in results.items():
+        s_b, i_b = brute_topk(qn, dbn, k)
+        s_g, i_g = sims.cpu().numpy(), ids.cpu().numpy()
+        check((i_g >= 0).all(), f"{spec['name']} k={k}: -1 id with k <= rows")
+        check(np.isfinite(s_g).all() and s_g.shape == (spec["m"], k),
+              f"{spec['name']} k={k}: non-finite or misshapen sims")
+        err = float(np.abs(s_g - s_b.cpu().numpy()).max())
+        bad = tie_aware_mismatches(s_g, i_g, s_b.cpu().numpy(),
+                                   i_b.cpu().numpy(), 1e-5)
+        log(f"[{spec['name']}] k={k} vs brute force: max |sim diff| {err:.3e}, "
+            f"rows differing beyond near-ties: {bad}")
+        check(err <= 1e-5 and bad == 0, f"{spec['name']} k={k}: not exact")
+        out[f"k{k}"]["max_abs_err_vs_brute"] = err
+    del dbn
+    return eng, q, out
+
+
+def compare_topk(got, want, tol, margin, gaps=None):
+    """Kernel vs plain pruned_topk outputs: max |sim diff| over finite
+    slots, tie-aware id sets, computed/elem agreement.
+
+    The bounds of both versions are equal bit for bit, but τ is a running
+    k-th best score, summed by the two in another order.  So a computed
+    flip is explained only where the plain version's ``gaps`` show that
+    tile's decision within 2·margin of τ, and an element count may differ
+    only by the tile's elements that lie that close; without ``gaps`` no
+    difference is explained."""
+    s_g, i_g, c_g, e_g = [None if x is None else x.cpu().numpy() for x in got]
+    s_w, i_w, c_w, e_w = [None if x is None else x.cpu().numpy() for x in want]
+    fin = np.isfinite(s_w)
+    same_inf = bool((np.isfinite(s_g) == fin).all())
+    err = float(np.abs(s_g[fin] - s_w[fin]).max()) if fin.any() else 0.0
+    bad = tie_aware_mismatches(np.where(fin, s_g, -9), np.where(fin, i_g, -1),
+                               np.where(fin, s_w, -9), np.where(fin, i_w, -1), tol)
+    flip = c_g != c_w
+    elem_diff = np.zeros_like(c_w) if e_w is None else np.abs(e_g - e_w)
+    if gaps is None:
+        flip_ok, near = np.zeros_like(flip), np.zeros_like(elem_diff)
+    else:
+        gap, near = (x.cpu().numpy() for x in gaps)
+        flip_ok = np.abs(gap) <= 2 * margin
+    minus_one = bool((i_g[~np.isfinite(s_g)] == -1).all())
+    return dict(max_abs_err=err, ids_equal=bad == 0 and same_inf,
+                computed_equal=not flip.any(), computed_flips=int(flip.sum()),
+                flips_unexplained=int((flip & ~flip_ok).sum()),
+                elem_abs_diff=int(elem_diff.sum()),
+                elem_unexplained=int(np.maximum(elem_diff - near, 0).sum()),
+                empty_slots_minus_one=minus_one, tiles=int(c_w.size))
+
+
+def check_topk(got, want, args, kwargs, tol, pruned_topk_plain):
+    """compare_topk; where computed or elem differ, run the plain version
+    again with its decision gaps to tell fp32 noise from a fault."""
+    margin = kwargs.get("margin", 4e-7)
+    r = compare_topk(got, want, tol, margin)
+    if r["computed_flips"] or r["elem_abs_diff"]:
+        *want, gap, near = pruned_topk_plain(*args, gaps=True, **kwargs)
+        r = compare_topk(got, want, tol, margin, gaps=(gap, near))
+    return r
+
+
+def topk_ok(r, tol):
+    return (r["max_abs_err"] <= tol and r["ids_equal"] and r["empty_slots_minus_one"]
+            and r["flips_unexplained"] == 0 and r["elem_unexplained"] == 0)
+
+
+def pruned_topk_costs(args, kwargs, computed):
+    """The least bytes and operations of this pruned_topk call on these
+    inputs: each input read once (db rows only of tiles some query tile
+    computes), each output written once; score flops only for computed
+    (query tile, db tile) pairs, bound operations for every pair."""
+    qn, db, qp, lo, hi, _ = args
+    m, d = qn.shape
+    p, bm, bn, k = qp.shape[1], kwargs["bm"], kwargs["bn"], kwargs["k"]
+    mt, nt = computed.shape
+    rows = torch.full((mt,), bm, dtype=torch.float64)
+    rows[-1] = m - (mt - 1) * bm
+    comp = computed.cpu().double()
+    flops = 2.0 * bn * d * float((comp * rows[:, None]).sum())
+    ops = flops + eq13_ops(m, nt, p) + float(m) * nt * SKIP_OPS
+    used_tiles = int((comp.sum(0) > 0).sum())
+    nbytes = 4 * (m * d + m * p + 2 * nt * p + m + mt * nt) + db.shape[0] \
+        + 4 * used_tiles * bn * d + 8 * m * k + 4 * mt * nt
+    if kwargs.get("ub_cap") is not None:
+        nbytes += 4 * m * nt
+        ops += float(m) * nt
+    return nbytes, ops
+
+
+def eq13_ops(m, nb, p):
+    """The least operations of the Eq. 13 interval bound, min over p
+    pivots, of m queries against nb blocks."""
+    return (float(m) * nb * p * BOUND_OPS_QBP + float(nb) * p * BOUND_OPS_BP
+            + float(m) * p * BOUND_OPS_QP)
+
+
+def bound_entry(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="build/chip_smoke.json",
+                    help="where the full report is written (JSON)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
+    from repro_torch.kernels.cosine_topk import pruned_topk, pruned_topk_plain
+    from repro_torch.search import SearchEngine
+    from repro_torch.search.backends import kernel_inputs, prep_queries
+
+    report = {}
+    t_start = time.perf_counter()
+
+    # 1. device
+    smi = subprocess.run(  # repro-lint: disable=R003 -- nvidia-smi, not python
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul is on")
+    torch.backends.cudnn.allow_tf32 = False
+    report["device"] = {"nvidia_smi": card, "torch": torch.__version__}
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = _build.build()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {report['build_s']:.2f} s for {sorted(built) or 'cached'}")
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    kernels = (pruned_topk, block_bounds)
+
+    # 3. the main path at full width
+    eng, q, report["clustered64"] = phase_search(CLUSTERED64, args.seed, SearchEngine,
+                                                 kernels)
+    launches = report["clustered64"]["launches"]
+
+    # 5a. the kernels at the main path's operands (k = 10)
+    qn, qp = prep_queries(eng.index, q)
+    kargs, kkw, _ = kernel_inputs(
+        eng.index, qn, qp, 10, bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
+        best_first=eng.best_first, margin=eng.margin,
+        warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+    got = pruned_topk(*kargs, **kkw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pruned_topk_plain(*kargs, **kkw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    r_topk = check_topk(got, want, kargs, kkw, 1e-5, pruned_topk_plain)
+    ms_topk = float(np.median(cuda_ms(lambda: pruned_topk(*kargs, **kkw), REPS)))
+    nbytes, ops = pruned_topk_costs(kargs, kkw, got[2])
+    lib = []
+    for s in range(0, kargs[0].shape[0], 2000):
+        qc = kargs[0][s:s + 2000]
+        lib += cuda_ms(lambda: torch.topk(
+            (qc @ kargs[1].T).masked_fill_(~eng.index.valid[None, :], float("-inf")),
+            10, dim=1), 1)
+    topk_entry = {
+        "name": "pruned_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pruned_topk.cu",
+        "replaces": "src/repro/kernels/cosine_topk.py:165",
+        "launches": launches["pruned_topk"], "max_abs_err": r_topk["max_abs_err"],
+        "ms": ms_topk, "plain_ms": plain_ms, **bound_entry(nbytes, ops),
+        "library_ms": float(sum(lib)),
+        "ids_equal": r_topk["ids_equal"], "computed_equal": r_topk["computed_equal"],
+        "computed_flips": r_topk["computed_flips"],
+        "flips_unexplained": r_topk["flips_unexplained"],
+        "tile_computed_frac": float(got[2].float().mean()),
+        "library": "torch.matmul + torch.topk over the same queries and rows, "
+                   "5 calls of 2,000 queries"}
+    log(f"[kernels] pruned_topk at main-path operands: {r_topk}, "
+        f"kernel {ms_topk:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{topk_entry['bound_ms']:.3f} ms ({topk_entry['bound_by']}), "
+        f"matmul+topk {topk_entry['library_ms']:.3f} ms")
+    check(topk_ok(r_topk, 1e-5), f"pruned_topk disagrees with its plain version: {r_topk}")
+
+    # 5b. block_bounds at the main path's [10,000 x 9,247 x 16]
+    lo, hi = kargs[3], kargs[4]
+    qps = kargs[2]
+    bb = block_bounds(qps, lo, hi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bb_plain = block_bounds_plain(qps, lo, hi)
+    torch.cuda.synchronize()
+    bb_plain_ms = (time.perf_counter() - t0) * 1e3
+    bb_err = bounds_diff(bb, bb_plain)
+    bb_ms = float(np.median(cuda_ms(lambda: block_bounds(qps, lo, hi), REPS)))
+    m_, nb_ = bb.shape
+    p_ = qps.shape[1]
+    bb_entry = {
+        "name": "block_bounds", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_bounds.cu",
+        "replaces": "src/repro/kernels/bound_prune.py:58",
+        "launches": launches["block_bounds"], "max_abs_err": bb_err,
+        "ms": bb_ms, "plain_ms": bb_plain_ms,
+        # the ops: Eq. 13, and per (query, block) the empty-block select
+        **bound_entry(4 * (m_ * p_ + 2 * nb_ * p_ + m_ * nb_),
+                      eq13_ops(m_, nb_, p_) + float(m_) * nb_),
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the Eq. 13 interval bound"}
+    log(f"[kernels] block_bounds [{m_} x {nb_} x {p_}]: max |diff| {bb_err:.3e}, "
+        f"kernel {bb_ms:.3f} ms, plain {bb_plain_ms:.1f} ms, bound "
+        f"{bb_entry['bound_ms']:.3f} ms ({bb_entry['bound_by']})")
+    check(bb_err <= 1e-6, "block_bounds disagrees with its plain version")
+    del got, want, bb, bb_plain, kargs, kkw, qn, qp, eng, q
+    torch.cuda.empty_cache()
+
+    # 5c. small cases: ub_cap, element stats, holes in row_valid, k = bn,
+    # empty-block sentinels
+    rng = np.random.default_rng(args.seed + 1)
+    small = SearchEngine.build(synth(dict(CLUSTERED64, n=SMALL_N, m=300), args.seed + 1)[0],
+                               n_pivots=16, block_size=128)
+    idx = small.index
+    holes = idx.valid & torch.from_numpy(rng.uniform(size=idx.valid.shape[0]) > 0.1).cuda()
+    idx = idx._replace(valid=holes)
+    qs = torch.from_numpy(rng.standard_normal((300, 100), dtype=np.float32)).cuda()
+    qs = qs + idx.db[torch.from_numpy(rng.integers(0, SMALL_N - 1000, 300)).cuda()] * 10
+    sqn, sqp = prep_queries(idx, qs)
+    cases = {}
+    for name, k, extra in [("ub_cap+elem+holes", 10, dict(n_pivots=8, element_stats=True)),
+                           ("k=bn", 128, dict()),
+                           ("no_prune", 5, dict(prune=False))]:
+        a_, kw_, _ = kernel_inputs(idx, sqn, sqp, k, bm=128, warm_start=True,
+                                   best_first=True, **extra)
+        r = check_topk(pruned_topk(*a_, **kw_), pruned_topk_plain(*a_, **kw_), a_, kw_,
+                       1e-5, pruned_topk_plain)
+        cases[name] = r
+        log(f"[kernels] pruned_topk small case {name}: {r}")
+        check(topk_ok(r, 1e-5), f"pruned_topk small case {name} disagrees: {r}")
+    lo_s, hi_s = idx.dp_min.clone(), idx.dp_max.clone()
+    lo_s[::7], hi_s[::7] = float("inf"), float("-inf")
+    cap = torch.rand(sqp.shape[0], lo_s.shape[0], device="cuda") + 0.5
+    for with_cap in (None, cap):
+        got_b = block_bounds(sqp, lo_s, hi_s, with_cap)
+        want_b = block_bounds_plain(sqp, lo_s, hi_s, with_cap)
+        err = bounds_diff(got_b, want_b)
+        cases[f"block_bounds sentinel{'+cap' if with_cap is not None else ''}"] = err
+        check(err <= 1e-6 and bool(torch.isneginf(got_b[:, ::7]).all()),
+              "block_bounds disagrees on sentinel blocks")
+    log(f"[kernels] block_bounds sentinel cases: max |diff| {err:.3e}")
+    report["small_cases"] = cases
+    del small, idx
+
+    # 3b. the main path's shape where the bound skips nothing
+    _, _, report["clustered2048"] = phase_search(CLUSTERED2048, args.seed + 3,
+                                                 SearchEngine, kernels)
+
+    # 4. K-loop over D = 256 and the worst case for the bound
+    _, _, report["uniform256"] = phase_search(UNIFORM256, args.seed + 2, SearchEngine,
+                                              kernels)
+
+    report["kernels"] = [topk_entry, bb_entry]
+    report["seconds"] = time.perf_counter() - t_start
+    out = ROOT / args.out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1, default=float))
+    log(f"[done] {report['seconds']:.1f} s; full report in {args.out}")
+    print(card)
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""Core: the paper's cosine triangle inequality and the block index.
+
+  bounds   — Eq. 7–13 elementwise bound functions (torch)
+  ref      — float64 numpy oracles (independent reference)
+  pivots   — pivot selection
+  index    — the block index (BlockIndex / build_index / search_brute)
+"""
+from repro_torch.core import bounds, ref  # noqa: F401
+from repro_torch.core.index import BlockIndex, build_index, search_brute  # noqa: F401
+from repro_torch.core.pivots import normalize, select_pivots_maxmin  # noqa: F401

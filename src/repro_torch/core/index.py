@@ -1,0 +1,209 @@
+"""Block-pruned exact cosine kNN: the index structure.
+
+PyTorch counterpart of :mod:`repro.core.index`.  The Eq. 13 upper bound
+over cached pivot similarities proves that a candidate cannot enter the
+top-k; the index applies it at block granularity so surviving work stays
+dense:
+
+  build:   normalize db, pick P pivots, cache ``dp = db @ pivots.T`` and the
+           per-block per-pivot interval ``[dp_min, dp_max]``; rows are
+           reordered so each block is angularly coherent.
+  search:  :class:`repro_torch.search.SearchEngine` (this module keeps the
+           structure, the bounds over it and the brute-force baseline).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from repro_torch.core.bounds import joint_row_upper_bound, ub_mult
+from repro_torch.core.pivots import (normalize, orthonormal_pivot_basis,
+                                     select_pivots_maxmin, select_pivots_random)
+from repro_torch.device import resolve_device
+
+__all__ = ["BlockIndex", "build_index", "search_brute", "interval_upper_bound",
+           "block_upper_bound", "reorder_perm", "multipivot_block_cap",
+           "index_from_reference"]
+
+
+class BlockIndex(NamedTuple):
+    """The search structure: a tuple of tensors on one device.
+
+    ``db`` is padded to a multiple of the block size; ``valid`` masks
+    padding.  ``dp_min/dp_max`` are the per-block pivot-similarity
+    intervals ``[n_blocks, P]``; ``block_size = db.shape[0] // n_blocks``.
+    ``ortho``/``beta``/``beta_nsq`` are the joint multi-pivot bound tables
+    (``None`` when absent).
+    """
+
+    db: Tensor        # [n_pad, d]  normalized, padded database (f32)
+    dp: Tensor        # [n_pad, P]  database-to-pivot similarities
+    pivots: Tensor    # [P, d]      normalized pivot vectors
+    dp_min: Tensor    # [n_blocks, P]
+    dp_max: Tensor    # [n_blocks, P]
+    valid: Tensor     # [n_pad]     bool, False on padding rows
+    row_ids: Tensor   # [n_pad]     i32 original row id of each row (-1 = pad)
+    ortho: Tensor | None = None     # [P, d]  orthonormalized pivot basis
+    beta: Tensor | None = None      # [n_pad, P]  db @ ortho.T
+    beta_nsq: Tensor | None = None  # [n_pad, P]  cumsum(beta**2, dim=1)
+
+    @property
+    def n_blocks(self) -> int:
+        return self.dp_min.shape[0]
+
+    @property
+    def block_size(self) -> int:
+        return self.db.shape[0] // self.n_blocks
+
+    @property
+    def n_pivots(self) -> int:
+        return self.pivots.shape[0]
+
+    @property
+    def bound_table_width(self) -> int:
+        """Max usable ``n_pivots`` for the joint bound (0 = no table)."""
+        return 0 if self.ortho is None else self.ortho.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.db.device
+
+    def to(self, device) -> "BlockIndex":
+        return BlockIndex(*(None if t is None else t.to(device) for t in self))
+
+
+def build_index(
+    db,
+    *,
+    n_pivots: int = 16,
+    block_size: int = 128,
+    pivot_method: str = "maxmin",
+    reorder: bool = True,
+    seed: int = 0,
+    device=None,
+) -> BlockIndex:
+    """Build the block index on ``device`` (``None`` means CUDA).
+
+    ``db`` is an ``[n, d]`` array or tensor.  ``reorder`` permutes rows so
+    that each block is angularly coherent (nearest pivot ascending, then
+    similarity to it descending, padding last); results map back to the
+    original ids through ``row_ids``.
+    """
+    dev = resolve_device(device)
+    dbn = normalize(torch.as_tensor(db, dtype=torch.float32, device=dev))
+    n, d = dbn.shape
+    n_pivots = max(1, min(int(n_pivots), n))
+    n_pad = -(-n // block_size) * block_size
+    dbn = torch.cat([dbn, dbn.new_zeros(n_pad - n, d)])
+    ar = torch.arange(n_pad, device=dev)
+    valid = ar < n
+    row_ids = torch.where(valid, ar, -1).to(torch.int32)
+
+    if pivot_method == "maxmin":
+        piv_idx = select_pivots_maxmin(dbn[:n], n_pivots)
+    elif pivot_method == "random":
+        piv_idx = select_pivots_random(n, n_pivots, seed).to(dev)
+    else:
+        raise ValueError(f"unknown pivot_method {pivot_method!r}")
+    pivots = dbn[piv_idx]                      # [P, d] (already unit norm)
+    dp = dbn @ pivots.T                        # [n_pad, P]
+
+    if reorder:
+        perm = reorder_perm(dp, valid, n_pivots)
+        dbn, dp, valid, row_ids = dbn[perm], dp[perm], valid[perm], row_ids[perm]
+    # padding rows (dp = 0) are excluded from the intervals; an all-padding
+    # block keeps the +inf/-inf identity: the empty-interval sentinel
+    nb = n_pad // block_size
+    inf = torch.tensor(float("inf"), device=dev)
+    dp_min = torch.where(valid[:, None], dp, inf).reshape(nb, block_size, -1).amin(1)
+    dp_max = torch.where(valid[:, None], dp, -inf).reshape(nb, block_size, -1).amax(1)
+
+    # joint multi-pivot tables: float64 at build, float32 stored, computed
+    # on the reordered rows so beta[i] matches db[i]
+    u64 = torch.from_numpy(orthonormal_pivot_basis(pivots)).to(dev)
+    beta64 = dbn.double() @ u64.T
+    return BlockIndex(dbn, dp, pivots, dp_min, dp_max, valid, row_ids,
+                      u64.float(), beta64.float(),
+                      torch.cumsum(beta64 * beta64, dim=1).float())
+
+
+def reorder_perm(dp: Tensor, valid: Tensor, n_pivots: int) -> Tensor:
+    """Row permutation making blocks angularly coherent.
+
+    Sorts by (nearest pivot asc, similarity to it desc), padding last — the
+    reference's ``jnp.lexsort`` as two stable sorts, secondary key first, so
+    the row order is identical.
+    """
+    near_sim, nearest = torch.max(dp, dim=1)
+    group = torch.where(valid, nearest, n_pivots)   # padding after every group
+    p1 = torch.argsort(-near_sim, stable=True)
+    return p1[torch.argsort(group[p1], stable=True)]
+
+
+def interval_upper_bound(qp: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """Max of Eq. 13 over ``b in [lo, hi]``, elementwise (pivot axis kept).
+
+    1 when ``b = qp`` is reachable, else the value at the nearer interval
+    end; an inverted interval (``lo > hi``, the empty-block sentinel) has no
+    reachable similarity and bounds at ``-inf``.
+    """
+    at_ends = torch.maximum(ub_mult(qp, lo), ub_mult(qp, hi))
+    inside = (qp >= lo) & (qp <= hi)
+    ub = torch.where(inside, torch.ones_like(at_ends), at_ends)
+    return torch.where(lo > hi, torch.full_like(ub, float("-inf")), ub)
+
+
+def block_upper_bound(qp: Tensor, dp_min: Tensor, dp_max: Tensor) -> Tensor:
+    """``[m]`` tightest bound over pivots for one block's ``[P]`` intervals."""
+    return interval_upper_bound(qp, dp_min[None, :], dp_max[None, :]).amin(-1)
+
+
+def multipivot_block_cap(index: BlockIndex, qn: Tensor, *, n_pivots: int) -> Tensor:
+    """Per-(query, block) joint multi-pivot upper bound ``[M, n_blocks]``.
+
+    The max over a block's valid rows of the joint row bound at prefix depth
+    ``n_pivots`` — a valid block bound because the max dominates every
+    member.
+    """
+    if index.ortho is None:
+        raise ValueError("index has no joint bound tables (ortho is None)")
+    j = int(n_pivots)
+    if not 1 <= j <= index.bound_table_width:
+        raise ValueError(f"n_pivots={j} outside [1, {index.bound_table_width}]")
+    alpha = qn.float() @ index.ortho[:j].T                      # [M, j]
+    row_ub = joint_row_upper_bound(
+        alpha, index.beta[:, :j], index.beta_nsq[:, j - 1])     # [M, n_pad]
+    row_ub = row_ub.masked_fill(~index.valid[None, :], float("-inf"))
+    return row_ub.reshape(row_ub.shape[0], index.n_blocks, -1).amax(-1)
+
+
+def search_brute(index: BlockIndex, queries, k: int):
+    """Brute-force exact top-k over the index: ``(sims, original ids)``."""
+    qn = normalize(torch.as_tensor(queries, dtype=torch.float32,
+                                   device=index.device))
+    scores = (qn @ index.db.T).masked_fill(~index.valid[None, :], float("-inf"))
+    sims, idx = torch.topk(scores, k, dim=1)
+    return sims, index.row_ids[idx]
+
+
+def index_from_reference(arrays: dict[str, np.ndarray], device=None) -> BlockIndex:
+    """The port's index from the reference's ``BlockIndex`` fields.
+
+    ``arrays`` maps each field name to a numpy array (``{f: np.asarray(
+    getattr(idx, f)) for f in idx._fields}``), so both packages can search
+    the identical index.  Missing or ``None`` joint tables stay ``None``.
+    """
+    dev = resolve_device(device)
+    dtypes = {"valid": torch.bool, "row_ids": torch.int32}
+
+    def conv(name):
+        a = arrays.get(name)
+        if a is None:
+            return None
+        return torch.tensor(np.asarray(a), dtype=dtypes.get(name, torch.float32),
+                            device=dev)
+
+    return BlockIndex(*(conv(f) for f in BlockIndex._fields))

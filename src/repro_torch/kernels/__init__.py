@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+  cosine_topk  — ``pruned_topk``: fused bound test, tile skip, fp32 scores
+                 and top-k merge (``csrc/pruned_topk.cu``)
+  bound_prune  — ``block_bounds``: the ``[M, NB]`` Eq. 13 bound matrix
+                 (``csrc/block_bounds.cu``)
+  ref          — plain oracles both build on
+  _build       — ``nvcc`` on first use, ``ctypes`` loading
+"""

@@ -1,0 +1,308 @@
+"""``pruned_topk``: fused block-pruned exact cosine top-k.
+
+Replaces the TPU kernel ``src/repro/kernels/cosine_topk.py:pruned_topk``
+(body ``_make_kernel``, ``pallas_call`` at line 310).  Per (query tile
+``bm``, db tile ``bn``), in ``block_order`` visit order:
+
+  1. the Eq. 13 interval bound, min over pivots (∩ optional ``ub_cap``);
+  2. skip the tile unless ``any((ub + margin >= τ) & live)`` for the rows'
+     running k-th best τ;
+  3. else fp32 ``q @ dbᵀ``, masked by ``row_valid``, merged into a running
+     top-k seeded with ``tau_init - 1e-6``.
+
+On CUDA tensors the wrapper launches the hand-written kernel in
+``csrc/pruned_topk.cu`` (its header says what bounds it on the H100 and
+how the design answers that); on CPU tensors it runs
+:func:`pruned_topk_plain`, a tile emulator with the same visit order, skip
+predicate and merge (it runs on the card too, where it is the kernel's
+yardstick).
+
+The merge keeps the first k of a stable descending sort of
+``concat(top, scores)``: an existing slot beats an equal new score, a lower
+column beats a higher one.  Slots that stay ``-inf`` carry id ``-1``, the
+documented ``(-inf, -1)`` contract (the reference's argmax extraction
+repeats lane 0's id there instead; ROADMAP Queue 3).
+
+``pruned_topk.launches`` counts kernel launches (never plain calls).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import Tensor
+
+from repro_torch.kernels._build import check_operand, library
+
+__all__ = ["pruned_topk", "pruned_topk_plain", "DEFAULT_BM", "DEFAULT_BN"]
+
+DEFAULT_BM = 128
+DEFAULT_BN = 256
+#: the kernel's limits: query rows per CTA and pivots per bound
+MAX_BM = 128
+MAX_PIVOTS = 64
+_NEG_INF = float("-inf")
+
+
+def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
+             tau: Tensor, block_order: Tensor, row_valid: Tensor,
+             ub_cap: Tensor | None, dp: Tensor | None, *, k: int, bm: int,
+             bn: int, m_valid: int, margin: float, prune: bool,
+             gaps: bool = False):
+    """Tile emulator of the kernel: loops over visit steps ``j`` and handles
+    every query tile at once, each gathering its own ``block_order[:, j]``
+    db tile.  ``tau`` [M] holds the already-lowered seeds (``-inf`` = none).
+
+    ``gaps=True`` also returns, per (query tile, db tile), how close each
+    decision came to the other side: ``gap`` [Mt, Nt] f32 is the largest
+    ``ub + margin - τ`` over live rows at the visit (with pruning on and
+    no NaN bound, ``computed`` is ``gap >= 0``), and ``near`` [Mt, Nt] i32 counts the elements whose
+    ``eub + margin`` lies within ``2·margin`` of τ.  A version whose τ
+    differs by fp32 summation order may flip only where these are small.
+    """
+    m, d = qn.shape
+    n, p = db.shape[0], qp.shape[1]
+    nt = n // bn
+    mt = -(-m // bm)
+    pad = mt * bm - m
+    dev = qn.device
+
+    def tiles(x, fill):
+        x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+        return x.reshape((mt, bm) + tuple(x.shape[1:]))
+
+    q_t = tiles(qn.float(), 0.0)                           # [mt, bm, d]
+    qp_t = tiles(qp.float(), 1.0)                          # [mt, bm, p]
+    rad_q = torch.clamp(1.0 - qp_t * qp_t, min=0.0)
+    live = (torch.arange(mt * bm, device=dev) < m_valid).reshape(mt, bm)
+    top_s = tiles(tau.float(), _NEG_INF)[:, :, None].repeat(1, 1, k)
+    top_i = torch.full((mt, bm, k), -1, dtype=torch.int32, device=dev)
+    cap_t = None if ub_cap is None else tiles(ub_cap.float(), 0.0)
+    computed = torch.zeros(mt, nt, dtype=torch.int32, device=dev)
+    elem = (None if dp is None
+            else torch.zeros(mt, nt, dtype=torch.int32, device=dev))
+    gap = torch.zeros(mt, nt, device=dev) if gaps else None
+    near = torch.zeros(mt, nt, dtype=torch.int32, device=dev) if gaps else None
+    db_t = db.float().reshape(nt, bn, d)
+    rv_t = row_valid.reshape(nt, bn).bool()
+    dp_t = None if dp is None else dp.float().reshape(nt, bn, p)
+    ar = torch.arange(mt, device=dev)
+    cols = torch.arange(bn, device=dev, dtype=torch.int32)
+    order = block_order.long()
+
+    for j in range(nt):
+        jb = order[:, j]                                   # [mt]
+        lo_j, hi_j = lo[jb].float()[:, None, :], hi[jb].float()[:, None, :]
+        ub_l = qp_t * lo_j + torch.sqrt(
+            rad_q * torch.clamp(1.0 - lo_j * lo_j, min=0.0))
+        ub_h = qp_t * hi_j + torch.sqrt(
+            rad_q * torch.clamp(1.0 - hi_j * hi_j, min=0.0))
+        inside = (qp_t >= lo_j) & (qp_t <= hi_j)
+        ub = torch.where(inside, torch.ones_like(ub_l),
+                         torch.maximum(ub_l, ub_h)).amin(-1)   # [mt, bm]
+        if cap_t is not None:
+            ub = torch.minimum(ub, cap_t[ar, :, jb])
+        tau_j = top_s[:, :, k - 1]
+        vmask = rv_t[jb]                                   # [mt, bn]
+        if prune:
+            needed = ((ub + margin >= tau_j) & live).any(1)
+        else:
+            needed = torch.ones(mt, dtype=torch.bool, device=dev)
+        computed[ar, jb] = needed.int()
+        if gap is not None:
+            gap[ar, jb] = torch.where(live, (ub + margin) - tau_j,
+                                      _NEG_INF).amax(1)
+        if elem is not None:
+            dpj = dp_t[jb]                                 # [mt, bn, p]
+            eub = None
+            for q in range(p):
+                b = dpj[:, None, :, q]                     # [mt, 1, bn]
+                rad = rad_q[:, :, q:q + 1] * torch.clamp(1.0 - b * b, min=0.0)
+                cand = qp_t[:, :, q:q + 1] * b + torch.sqrt(rad)
+                eub = cand if eub is None else torch.minimum(eub, cand)
+            counted = vmask[:, None, :] & live[:, :, None]
+            pruned = (eub + margin < tau_j[:, :, None]) & counted
+            elem[ar, jb] = pruned.sum((1, 2)).int()
+            if near is not None:
+                close = ((eub + margin) - tau_j[:, :, None]).abs() <= 2 * margin
+                near[ar, jb] = (close & counted).sum((1, 2)).int()
+        if not bool(needed.any()):
+            continue
+        scores = torch.bmm(q_t, db_t[jb].transpose(1, 2))  # [mt, bm, bn]
+        # masked rows, and every row of a skipped tile, merge as -inf,
+        # which leaves the running top-k unchanged
+        keep = vmask[:, None, :] & needed[:, None, None]
+        scores = scores.masked_fill(~keep, _NEG_INF)
+        col = (jb.int() * bn)[:, None] + cols              # [mt, bn]
+        cand_s = torch.cat([top_s, scores], -1)
+        cand_i = torch.cat([top_i, col[:, None, :].expand(mt, bm, bn)], -1)
+        top_s, sel = torch.sort(cand_s, dim=-1, descending=True, stable=True)
+        top_s, sel = top_s[..., :k].contiguous(), sel[..., :k]
+        top_i = torch.gather(cand_i, -1, sel)
+    out = (top_s.reshape(-1, k)[:m], top_i.reshape(-1, k)[:m], computed, elem)
+    return out + (gap, near) if gaps else out
+
+
+def _lib():
+    lib = library("pruned_topk")
+    if not getattr(lib, "_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.pruned_topk_launch.argtypes = (
+            [vp] * 14 + [i] * 8 + [ctypes.c_float, i, vp])
+        lib.pruned_topk_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
+            k, bm, bn, m_valid, margin, prune):
+    """Validate the operands and launch ``csrc/pruned_topk.cu``."""
+    m, d = qn.shape
+    n, p = db.shape[0], qp.shape[1]
+    nt, mt = n // bn, -(-m // bm)
+    dev = qn.device
+    if db.dtype != torch.float32:
+        raise TypeError(
+            f"pruned_topk's CUDA kernel takes float32 db rows, got {db.dtype} "
+            "(a bf16 variant is not ported yet)")
+    if not 1 <= bm <= MAX_BM:
+        raise ValueError(f"bm={bm} outside [1, {MAX_BM}] for the CUDA kernel")
+    if not 1 <= p <= MAX_PIVOTS:
+        raise ValueError(f"{p} pivots outside [1, {MAX_PIVOTS}]")
+    f32 = torch.float32
+    check_operand("qn", qn, (m, d), f32, dev)
+    check_operand("db", db, (n, d), f32, dev)
+    check_operand("qp", qp, (m, p), f32, dev)
+    check_operand("dp_min", lo, (nt, p), f32, dev)
+    check_operand("dp_max", hi, (nt, p), f32, dev)
+    check_operand("tau", tau, (m,), f32, dev)
+    check_operand("block_order", block_order, (mt, nt), torch.int32, dev)
+    check_operand("row_valid", row_valid, (n,), torch.bool, dev)
+    if ub_cap is not None:
+        check_operand("ub_cap", ub_cap, (m, nt), f32, dev)
+    if dp is not None:
+        check_operand("dp", dp, (n, p), f32, dev)
+    if int(block_order.min()) < 0 or int(block_order.max()) >= nt:
+        raise ValueError(f"block_order holds tile ids outside [0, {nt})")
+    top_s = torch.empty(m, k, dtype=f32, device=dev)
+    top_i = torch.empty(m, k, dtype=torch.int32, device=dev)
+    computed = torch.zeros(mt, nt, dtype=torch.int32, device=dev)
+    elem = (None if dp is None
+            else torch.zeros(mt, nt, dtype=torch.int32, device=dev))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = _lib().pruned_topk_launch(
+            ptr(qn), ptr(db), ptr(qp), ptr(lo), ptr(hi), ptr(tau),
+            ptr(block_order), ptr(row_valid), ptr(ub_cap), ptr(dp),
+            ptr(top_s), ptr(top_i), ptr(computed), ptr(elem),
+            m, m_valid, n, d, p, k, bm, bn, margin, int(prune),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"pruned_topk kernel launch failed: CUDA error {rc}")
+    pruned_topk.launches += 1
+    return top_s, top_i, computed, elem
+
+
+def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
+              tau_init=None, block_order=None, dp=None, ub_cap=None,
+              row_valid=None, *, k, bm=DEFAULT_BM, bn=DEFAULT_BN, margin=4e-7,
+              prune=True, element_stats=False):
+    """The reference wrapper's argument handling: defaults, the τ seeds
+    lowered by 1e-6 so genuine candidates at τ displace them, checks."""
+    m = qn.shape[0]
+    n = db.shape[0]
+    dev = qn.device
+    if n % bn or dp_min.shape[0] != n // bn:
+        raise ValueError(f"db rows {n} must be whole tiles of bn={bn} "
+                         f"matching dp_min {tuple(dp_min.shape)}")
+    if not 1 <= k <= bn:
+        raise ValueError(f"k={k} must be in [1, bn={bn}]")
+    if element_stats and dp is None:
+        raise ValueError("element_stats=True requires dp ([N, P] per-row "
+                         "pivot similarities)")
+    m_valid = m if m_valid is None else int(m_valid)
+    if row_valid is None:
+        row_valid = torch.arange(n, device=dev) < int(n_valid)
+    if tau_init is None:
+        tau = torch.full((m,), _NEG_INF, dtype=torch.float32, device=dev)
+    else:
+        tau = tau_init.float().reshape(m) - 1e-6
+    grid = (-(-m // bm), n // bn)
+    if block_order is None:
+        block_order = torch.arange(grid[1], dtype=torch.int32,
+                                   device=dev)[None, :].expand(grid)
+    if tuple(block_order.shape) != grid:
+        raise ValueError(f"block_order shape {tuple(block_order.shape)} != {grid}")
+    operands = (qn, db, qp, dp_min, dp_max, tau,
+                block_order.int().contiguous(), row_valid.bool(), ub_cap,
+                dp if element_stats else None)
+    return operands, dict(k=k, bm=bm, bn=bn, m_valid=m_valid, margin=margin,
+                          prune=prune)
+
+
+def pruned_topk_plain(*args, gaps: bool = False, **kwargs):
+    """The plain PyTorch version of :func:`pruned_topk`, same signature and
+    outputs, on the operands' device: a tile emulator with the kernel's
+    visit order, skip predicate and merge.  ``gaps=True`` appends the
+    ``(gap, near)`` margins of its skip and element decisions (see
+    :func:`_emulate`), to tell a flip of fp32 noise from a fault."""
+    operands, kw = _operands(*args, **kwargs)
+    return _emulate(*operands, **kw, gaps=gaps)
+
+
+def pruned_topk(
+    qn: Tensor,
+    db: Tensor,
+    qp: Tensor,
+    dp_min: Tensor,
+    dp_max: Tensor,
+    n_valid: int,
+    m_valid: int | None = None,
+    tau_init: Tensor | None = None,
+    block_order: Tensor | None = None,
+    dp: Tensor | None = None,
+    ub_cap: Tensor | None = None,
+    row_valid: Tensor | None = None,
+    *,
+    k: int,
+    bm: int = DEFAULT_BM,
+    bn: int = DEFAULT_BN,
+    margin: float = 4e-7,
+    prune: bool = True,
+    element_stats: bool = False,
+):
+    """Fused exact top-k with block pruning (the reference's signature).
+
+    Args:
+      qn: [M, D] L2-normalized queries.  db: [N, D] normalized database.
+      qp: [M, P] query-pivot similarities.
+      dp_min/dp_max: [N // bn, P] pivot intervals at kernel tile granularity.
+      n_valid: real rows in db (the prefix mask when ``row_valid`` is None).
+      m_valid: live query rows (default M); later rows never force a tile.
+      tau_init: [M] τ warm-start seeds (true lower bounds on each k-th best).
+      block_order: [M_tiles, N_tiles] per-query-tile db tile visit order.
+      dp: [N, P] per-row pivot similarities (required by ``element_stats``).
+      ub_cap: [M, N_tiles] extra per-(query, tile) upper bounds.
+      row_valid: [N] per-row validity (tombstones need not be a prefix).
+      k: top-k, ``k <= bn``.
+
+    Returns ``(sims [M, k] f32, idx [M, k] i32 db positions, computed
+    [M_tiles, N_tiles] i32 by tile id, elem [M_tiles, N_tiles] i32 or
+    None)``.  CPU tensors run :func:`pruned_topk_plain`; CUDA tensors
+    launch the kernel or raise.
+    """
+    operands, kw = _operands(
+        qn, db, qp, dp_min, dp_max, n_valid, m_valid, tau_init, block_order,
+        dp, ub_cap, row_valid, k=k, bm=bm, bn=bn, margin=margin, prune=prune,
+        element_stats=element_stats)
+    if qn.device.type == "cpu":
+        return _emulate(*operands, **kw)
+    if qn.device.type != "cuda":
+        raise ValueError(f"pruned_topk runs on cpu or cuda, not {qn.device}")
+    return _launch(*operands, **kw)
+
+
+pruned_topk.launches = 0

@@ -1,0 +1,278 @@
+"""Search backends: the inner loops behind :class:`SearchEngine`.
+
+Counterpart of :mod:`repro.search.backends`.  Every backend implements::
+
+    run(engine, queries, k, *, prune, element_stats)
+        -> (sims [m, k] f32, ids [m, k] i32 original row ids, raw stats dict)
+
+and registers itself under a name with :func:`register_backend`:
+
+  ``kernel``  the hand-written ``pruned_topk`` kernel (tiles it proves
+              unnecessary are skipped), fed by the ``block_bounds`` kernel
+  ``brute``   full matmul + top-k (baseline / tiny datastores)
+
+The shared helpers (query prep, τ warm-start seeding, best-first tile
+order) follow the reference line by line; every ``argsort`` is stable, as
+``jnp.argsort`` is, because ties decide the visit order and so which tiles
+are computed.
+"""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from repro_torch.core.index import BlockIndex, multipivot_block_cap
+from repro_torch.core.pivots import normalize
+from repro_torch.kernels import cosine_topk
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.bound_prune import block_bounds
+
+__all__ = [
+    "register_backend", "get_backend", "available_backends",
+    "prep_queries", "map_row_ids", "kernel_inputs", "kernel_search",
+    "brute_search", "tau_warm_start", "prescan_blocks", "coarsen_intervals",
+    "query_sort_perm", "best_first_order",
+]
+
+_REGISTRY: dict[str, object] = {}
+
+
+def register_backend(name: str):
+    """Class decorator: register a backend under ``name`` (instantiated)."""
+    def deco(cls):
+        _REGISTRY[name] = cls()
+        return cls
+    return deco
+
+
+def get_backend(name: str):
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown search backend {name!r}; "
+            f"registered: {available_backends()}") from None
+
+
+def available_backends() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# shared pieces (engine-owned plumbing)
+# ---------------------------------------------------------------------------
+
+def prep_queries(index: BlockIndex, queries) -> tuple[Tensor, Tensor]:
+    """Normalize queries and compute query-pivot similarities once."""
+    qn = normalize(torch.as_tensor(queries, dtype=torch.float32,
+                                   device=index.device))
+    return qn, qn @ index.pivots.T
+
+
+def map_row_ids(row_ids: Tensor, pos: Tensor) -> Tensor:
+    """Padded/reordered positions -> original row ids (-1 stays -1)."""
+    return torch.where(pos >= 0, row_ids[pos.clamp(min=0).long()], -1)
+
+
+def coarsen_intervals(dp_min: Tensor, dp_max: Tensor, factor: int):
+    """Merge ``factor`` consecutive index blocks into one kernel tile."""
+    nb, p = dp_min.shape
+    if nb % factor:
+        raise ValueError(f"{nb} blocks do not split into tiles of {factor}")
+    lo = dp_min.reshape(nb // factor, factor, p).amin(1)
+    hi = dp_max.reshape(nb // factor, factor, p).amax(1)
+    return lo, hi
+
+
+def prescan_blocks(k: int, block_rows: int, n_blocks: int,
+                   warm_start_blocks: int | None = None) -> int:
+    """How many bound-ranked blocks τ seeding scores: at least
+    ``ceil(k / block_rows)`` (the fewest that can hold k candidates),
+    widened by ``warm_start_blocks``, clamped to ``n_blocks``."""
+    n_pre = -(-k // max(1, block_rows))
+    if warm_start_blocks is not None:
+        n_pre = max(n_pre, warm_start_blocks)
+    return max(1, min(n_pre, n_blocks))
+
+
+def tau_warm_start(qn: Tensor, db_blocks: Tensor, valid_blocks: Tensor,
+                   ub: Tensor, k: int, n_pre: int = 1) -> Tensor:
+    """Seed each query's running k-th best from its ``n_pre`` best-bound
+    blocks: gather them, exact-score them together and take the k-th best
+    (a true lower bound on the final τ; DESIGN.md §3.4).  Queries whose
+    prescanned blocks hold < k valid rows get -inf.
+
+    The ranking is a stable descending sort, so among equal bounds the
+    lower block wins, as ``lax.top_k`` guarantees in the reference.
+    """
+    m = qn.shape[0]
+    nb, bs, d = db_blocks.shape
+    n_pre = max(1, min(n_pre, nb))
+    if n_pre * bs < k:
+        return torch.full((m,), float("-inf"), device=qn.device)
+    best = torch.argsort(ub, dim=1, descending=True, stable=True)[:, :n_pre]
+    blk = db_blocks[best].reshape(m, n_pre * bs, d)
+    vb = valid_blocks[best].reshape(m, n_pre * bs)
+    scores = torch.bmm(blk, qn[:, :, None])[:, :, 0]
+    scores = scores.masked_fill(~vb, float("-inf"))
+    tau = kref.kth_value(scores, k)
+    return torch.where(torch.isfinite(tau), tau, float("-inf"))
+
+
+def query_sort_perm(qp: Tensor) -> Tensor:
+    """Permutation grouping queries by nearest pivot (desc sim within group),
+    so a query tile is angularly coherent; the reference's ``jnp.lexsort``
+    as two stable sorts, secondary key first."""
+    near_sim, nearest = torch.max(qp, dim=1)
+    p1 = torch.argsort(-near_sim, stable=True)
+    return p1[torch.argsort(nearest[p1], stable=True)]
+
+
+def best_first_order(ub: Tensor) -> Tensor:
+    """Blocks by descending upper bound, aggregated (max) over the queries:
+    ``[..., m, nb] -> [..., nb]`` i32 visit order.  The block *any* query
+    still needs comes first, which drives every τ up fastest."""
+    return torch.argsort(-ub.amax(-2), dim=-1, stable=True).int()
+
+
+# ---------------------------------------------------------------------------
+# kernel backend
+# ---------------------------------------------------------------------------
+
+def _resolve_bn(index: BlockIndex, bn: int | None) -> int:
+    """Kernel tile size: a multiple of the index block size dividing n_pad."""
+    n_pad = index.db.shape[0]
+    ibs = index.block_size
+    if bn is None:
+        bn = ibs if ibs % 128 == 0 else ibs * max(1, -(-128 // ibs))
+    while n_pad % bn or bn % ibs:
+        bn //= 2
+        if bn < ibs:
+            bn = ibs
+            break
+    return bn
+
+
+def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
+                  bm: int = cosine_topk.DEFAULT_BM, bn: int | None = None,
+                  prune: bool = True, sort_queries: bool = True,
+                  warm_start: bool = False, best_first: bool = False,
+                  margin: float = 4e-7, element_stats: bool = False,
+                  warm_start_blocks: int | None = None, n_pivots: int = 0):
+    """Everything :func:`kernel_search` hands ``pruned_topk``: returns
+    ``(args, kwargs, perm)`` where ``perm`` is the query sort permutation
+    (``None`` unless ``sort_queries``).  The block bound matrix behind the
+    warm start and the best-first order comes from the ``block_bounds``
+    kernel on CUDA."""
+    bn = _resolve_bn(index, bn)
+    factor = bn // index.block_size
+    lo, hi = coarsen_intervals(index.dp_min, index.dp_max, factor)
+    m = qn.shape[0]
+    perm = None
+    if sort_queries:
+        perm = query_sort_perm(qp)
+        qn, qp = qn[perm], qp[perm]
+    n_valid = int(index.valid.sum())
+
+    ub_cap = None
+    if prune and n_pivots > 0:
+        cap = multipivot_block_cap(index, qn, n_pivots=n_pivots)  # [m, nb]
+        ub_cap = cap.reshape(m, lo.shape[0], -1).amax(-1)         # [m, nt]
+    ub = None
+    if warm_start or best_first:
+        ub = block_bounds(qp, lo, hi, ub_cap)                     # [m, nt]
+    tau_init = None
+    if warm_start:
+        db_tiles = index.db.reshape(-1, bn, index.db.shape[-1])
+        valid_tiles = index.valid.reshape(-1, bn)
+        n_pre = prescan_blocks(k, bn, db_tiles.shape[0], warm_start_blocks)
+        tau_init = tau_warm_start(qn, db_tiles, valid_tiles, ub, k, n_pre)
+    block_order = None
+    if best_first:
+        mp = -(-m // bm) * bm
+        nt = lo.shape[0]
+        ub_p = torch.cat([ub, ub.new_full((mp - m, nt), float("-inf"))])
+        block_order = best_first_order(ub_p.reshape(mp // bm, bm, nt))
+    args = (qn, index.db, qp, lo, hi, n_valid)
+    kwargs = dict(tau_init=tau_init, block_order=block_order,
+                  dp=index.dp if element_stats else None, ub_cap=ub_cap,
+                  row_valid=index.valid, k=k, bm=bm, bn=bn, margin=margin,
+                  prune=prune, element_stats=element_stats)
+    return args, kwargs, perm
+
+
+def kernel_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, **kw):
+    """The kernel backend's inner loop (keyword options of
+    :func:`kernel_inputs`).
+
+    Returns ``(sims [m,k], pos [m,k] padded-row positions, computed
+    [m_tiles, n_tiles], elem_pruned or None)``; results come back in the
+    caller's query order.
+    """
+    args, kwargs, perm = kernel_inputs(index, qn, qp, k, **kw)
+    sims, pos, computed, elem = cosine_topk.pruned_topk(*args, **kwargs)
+    if perm is not None:
+        inv = torch.argsort(perm)
+        sims, pos = sims[inv], pos[inv]
+    return sims, pos, computed, elem
+
+
+# ---------------------------------------------------------------------------
+# brute backend
+# ---------------------------------------------------------------------------
+
+def brute_search(index: BlockIndex, qn: Tensor, k: int):
+    """Full matmul + top-k over the padded database (positions, not ids);
+    ``k`` past the padded rows pads with ``(-inf, -1)``."""
+    scores = (qn @ index.db.T).masked_fill(~index.valid[None, :], float("-inf"))
+    kk = min(k, scores.shape[-1])
+    sims, pos = torch.topk(scores, kk, dim=1)
+    pos = pos.int()
+    if kk < k:
+        sims = torch.cat([sims, sims.new_full((sims.shape[0], k - kk),
+                                              float("-inf"))], 1)
+        pos = torch.cat([pos, pos.new_full((pos.shape[0], k - kk), -1)], 1)
+    return sims, pos
+
+
+# ---------------------------------------------------------------------------
+# the registered backends
+# ---------------------------------------------------------------------------
+
+@register_backend("kernel")
+class KernelBackend:
+    """The hand-written kernels (their plain versions on CPU tensors)."""
+
+    name = "kernel"
+
+    def run(self, eng, queries, k, *, prune=True, element_stats=False):
+        qn, qp = prep_queries(eng.index, queries)
+        s, pos, computed, elem = kernel_search(
+            eng.index, qn, qp, k, bm=eng.bm, bn=eng.bn, prune=prune,
+            sort_queries=eng.sort_queries, warm_start=eng.warm_start,
+            best_first=eng.best_first, margin=eng.margin,
+            element_stats=element_stats,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        ids = map_row_ids(eng.index.row_ids, pos)
+        frac = computed.float().mean()
+        raw = {"block_prune_frac": 1.0 - frac, "tile_computed_frac": frac}
+        if element_stats:
+            raw["elem_prune_frac"] = (
+                elem.float().sum() / (qn.shape[0] * max(1, eng.n_valid)))
+        return s, ids, raw
+
+
+@register_backend("brute")
+class BruteBackend:
+    """Exact baseline: one big matmul, no pruning."""
+
+    name = "brute"
+
+    def run(self, eng, queries, k, *, prune=True, element_stats=False):
+        qn, _ = prep_queries(eng.index, queries)
+        s, pos = brute_search(eng.index, qn, k)
+        ids = map_row_ids(eng.index.row_ids, pos)
+        raw = {"block_prune_frac": 0.0}
+        if element_stats:
+            raw["elem_prune_frac"] = 0.0
+        return s, ids, raw

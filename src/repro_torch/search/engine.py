@@ -1,0 +1,164 @@
+"""SearchEngine: one front door for exact cosine search on the GPU.
+
+Counterpart of :mod:`repro.search.engine`::
+
+    eng = SearchEngine.build(db, n_pivots=16, block_size=128)   # on CUDA
+    sims, ids, stats = eng.search(queries, k=10)
+
+τ warm-start and best-first tile ordering are engine policy (on by
+default); they change how fast τ rises, never the result set, which stays
+the brute-force one.  Ported backends: ``kernel`` and ``brute``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.index import BlockIndex, build_index
+from repro_torch.device import resolve_device
+from repro_torch.search import backends as _bk
+from repro_torch.search.defaults import FALLBACK_DEFAULTS
+from repro_torch.search.stats import SearchStats
+
+__all__ = ["SearchEngine", "auto_backend"]
+
+#: below this many padded rows the matmul is cheaper than any bookkeeping
+_BRUTE_MAX_ROWS = 256
+#: feature widths the reference's kernel backend is chosen for
+_KERNEL_MAX_DIM = 4096
+
+
+def auto_backend(index: BlockIndex) -> str:
+    """``brute`` for tiny datastores (≤ 256 padded rows), else ``kernel``
+    when ``d ≤ 4096``, else ``brute``.  A shard-stacked index raises: the
+    sharded backend is not ported."""
+    if index.db.ndim == 3:
+        raise ValueError("shard-stacked indexes need the sharded backend, "
+                         "which repro_torch does not have yet")
+    n_pad, d = index.db.shape
+    if n_pad <= _BRUTE_MAX_ROWS:
+        return "brute"
+    return "kernel" if d <= _KERNEL_MAX_DIM else "brute"
+
+
+class SearchEngine:
+    """Backend-dispatched exact top-k cosine search over a :class:`BlockIndex`.
+
+    Args (the reference's knobs and defaults):
+      index: the block index; moved to ``device`` if it lies elsewhere.
+      backend: ``"kernel"``, ``"brute"`` or ``"auto"`` (default).
+      warm_start: seed each query's τ by exact-scoring its best-bound tiles.
+      warm_start_blocks: widen that prescan (``None``: the ``ceil(k / bn)``
+        floor).
+      best_first: visit db tiles in descending bound order per query tile
+        (``None``: the fallback default, ``True``).
+      element_stats: default for ``search(..., element_stats=...)``.
+      n_pivots: joint multi-pivot bound depth (``None``: fallback 0),
+        clamped to the index's table width.
+      margin: fp32 guard added to bounds before comparing with τ.
+      bm / bn / sort_queries: kernel tile options.
+      device: ``None`` means CUDA and raises without a GPU; pass ``"cpu"``
+        for the plain PyTorch versions of the kernels.
+    """
+
+    def __init__(
+        self,
+        index: BlockIndex,
+        *,
+        backend: str = "auto",
+        warm_start: bool = True,
+        warm_start_blocks: int | None = None,
+        best_first: bool | None = None,
+        element_stats: bool = False,
+        n_pivots: int | None = None,
+        margin: float = 4e-7,
+        bm: int = 128,
+        bn: int | None = None,
+        sort_queries: bool = True,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        if index.db.device != self.device:
+            index = index.to(self.device)
+        self.index = index
+        if index.db.ndim == 3:
+            raise ValueError("shard-stacked indexes need the sharded backend, "
+                             "which repro_torch does not have yet")
+        self.backend_name = auto_backend(index) if backend == "auto" else backend
+        self.backend = _bk.get_backend(self.backend_name)
+        self.warm_start = warm_start
+        self.warm_start_blocks = (warm_start_blocks if warm_start_blocks is not None
+                                  else FALLBACK_DEFAULTS["warm_start_blocks"])
+        self.best_first = (bool(best_first) if best_first is not None
+                           else FALLBACK_DEFAULTS["best_first"])
+        self.element_stats = element_stats
+        if n_pivots is None:
+            n_pivots = FALLBACK_DEFAULTS["n_pivots"]
+        self.n_pivots = max(0, min(int(n_pivots), index.bound_table_width))
+        self.margin = margin
+        self.bm = bm
+        self.bn = bn
+        self.sort_queries = sort_queries
+        self.n_valid = int(index.valid.sum())
+        self.n_blocks = index.n_blocks
+        #: padded row slots: the most candidates a search can return
+        self.n_slots = int(index.db.shape[0])
+
+    @classmethod
+    def build(
+        cls,
+        db,
+        *,
+        n_pivots: int = 16,
+        block_size: int = 128,
+        pivot_method: str = "maxmin",
+        reorder: bool = True,
+        seed: int = 0,
+        bound_pivots: int | None = None,
+        device=None,
+        **engine_kw: Any,
+    ) -> "SearchEngine":
+        """Build the index on ``device`` and wrap it in an engine.
+
+        ``n_pivots`` is the index pivot count; ``bound_pivots`` the engine's
+        search-time joint-bound depth (``n_pivots`` knob).
+        """
+        if bound_pivots is not None:
+            engine_kw["n_pivots"] = bound_pivots
+        idx = build_index(db, n_pivots=n_pivots, block_size=block_size,
+                          pivot_method=pivot_method, reorder=reorder,
+                          seed=seed, device=device)
+        return cls(idx, device=device, **engine_kw)
+
+    def search(self, queries, k: int, *, prune: bool = True,
+               element_stats: bool | None = None):
+        """Exact top-k: ``(sims [m,k] f32, ids [m,k] i32, SearchStats)``.
+
+        ``ids`` are original row ids; ``k`` past the valid rows pads with
+        ``(-inf, -1)``.  The result set equals brute force for every backend
+        and policy setting.
+        """
+        if element_stats is None:
+            element_stats = self.element_stats
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        kk = min(k, self.n_slots)
+        sims, ids, raw = self.backend.run(
+            self, queries, kk, prune=prune, element_stats=element_stats)
+        if kk < k:
+            m = sims.shape[0]
+            sims = torch.cat([sims, sims.new_full((m, k - kk), float("-inf"))], 1)
+            ids = torch.cat([ids, ids.new_full((m, k - kk), -1)], 1)
+        stats = SearchStats(
+            backend=self.backend_name,
+            n_queries=int(queries.shape[0]),
+            k=k,
+            n_blocks=self.n_blocks,
+            block_prune_frac=raw.get("block_prune_frac", 0.0),
+            tile_computed_frac=raw.get("tile_computed_frac"),
+            elem_prune_frac=raw.get("elem_prune_frac"),
+            warm_start=self.warm_start,
+            best_first=self.best_first,
+            n_pivots=None if self.backend_name == "brute" else self.n_pivots,
+        )
+        return sims, ids, stats

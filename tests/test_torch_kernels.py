@@ -1,0 +1,183 @@
+"""repro_torch kernels against the Pallas kernels on identical operands.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+Pallas in interpret mode, as tests/test_kernels.py does.  The kernels
+themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py, which also holds the shared operand builders.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jkref  # noqa: E402
+from repro.kernels.bound_prune import block_bounds as j_block_bounds  # noqa: E402
+from repro.kernels.cosine_topk import pruned_topk as j_pruned_topk  # noqa: E402
+from repro_torch.core import ref as cref  # noqa: E402
+from repro_torch.kernels import ref as tkref  # noqa: E402
+from repro_torch.kernels.bound_prune import (block_bounds,  # noqa: E402
+                                             block_bounds_plain)
+from repro_torch.kernels.cosine_topk import (pruned_topk,  # noqa: E402
+                                             pruned_topk_plain)
+from tests.test_torch_cuda import (OPTIONS, assert_topk_match,  # noqa: E402
+                                   bound_operands, optional_operands,
+                                   topk_operands)
+
+@pytest.mark.parametrize("m,nb,p", [(8, 4, 4), (37, 19, 12), (128, 64, 16),
+                                    (256, 8, 8), (5, 100, 3)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_cap", [False, True], ids=["nocap", "cap"])
+def test_block_bounds_matches_pallas(m, nb, p, dtype, with_cap):
+    qp, lo, hi, cap = bound_operands(m, nb, p, dtype, seed=m * nb)
+    cap_j = jnp.asarray(cap) if with_cap else None
+    cap_t = torch.from_numpy(cap) if with_cap else None
+    want = np.asarray(j_block_bounds(jnp.asarray(qp), jnp.asarray(lo),
+                                     jnp.asarray(hi), cap_j, bm=32, bb=32,
+                                     interpret=True))
+    got = block_bounds(torch.from_numpy(qp), torch.from_numpy(lo),
+                       torch.from_numpy(hi), cap_t).numpy()
+    assert got.dtype == np.float32 and got.shape == (m, nb)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    np.testing.assert_allclose(got, want, atol=1e-5 if dtype == np.float32 else 1e-6)
+    assert np.isneginf(got[:, nb // 2]).all()
+
+
+def test_block_bounds_oracle_matches_reference_oracle():
+    qp, lo, hi, _ = bound_operands(40, 30, 6, np.float32, seed=1)
+    want = np.asarray(jkref.block_bounds(jnp.asarray(qp), jnp.asarray(lo),
+                                         jnp.asarray(hi)))
+    got = tkref.block_bounds(torch.from_numpy(qp), torch.from_numpy(lo),
+                             torch.from_numpy(hi)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    # the chunked plain version is the same arithmetic, chunk by chunk
+    import repro_torch.kernels.bound_prune as bp
+    chunk = bp._PLAIN_CHUNK_ELEMS
+    try:
+        bp._PLAIN_CHUNK_ELEMS = 30 * 6 * 7          # 7 queries per chunk
+        np.testing.assert_array_equal(
+            block_bounds_plain(torch.from_numpy(qp), torch.from_numpy(lo),
+                               torch.from_numpy(hi)).numpy(), got)
+    finally:
+        bp._PLAIN_CHUNK_ELEMS = chunk
+
+
+def test_kernel_oracles_match_reference():
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(9, 16)).astype(np.float32)
+    db = rng.normal(size=(70, 16)).astype(np.float32)
+    valid = rng.uniform(size=70) > 0.2
+    s_j, i_j = jkref.cosine_topk(jnp.asarray(q), jnp.asarray(db), 5,
+                                 jnp.asarray(valid))
+    s_t, i_t = tkref.cosine_topk(torch.from_numpy(q), torch.from_numpy(db), 5,
+                                 torch.from_numpy(valid))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-6)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(
+        tkref.kth_value(s_t, 3).numpy(),
+        np.asarray(jkref.kth_value(jnp.asarray(s_t.numpy()), 3)))
+    np.testing.assert_allclose(
+        tkref.l2_normalize(torch.from_numpy(q)).numpy(),
+        np.asarray(jkref.l2_normalize(jnp.asarray(q))), atol=1e-7)
+    qn, dn = cref.normalize(q).astype(np.float32), cref.normalize(db).astype(np.float32)
+    piv = dn[:4]
+    qp, dp = qn @ piv.T, dn @ piv.T
+    lo, hi = dp.reshape(-1, 10, 4).min(1), dp.reshape(-1, 10, 4).max(1)
+    *_, f_j = jkref.pruned_cosine_topk(*map(jnp.asarray, (q, db, qp, lo, hi)), 5)
+    *_, f_t = tkref.pruned_cosine_topk(*map(torch.from_numpy, (q, db, qp, lo, hi)), 5)
+    assert abs(float(f_t) - float(f_j)) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# pruned_topk
+# ---------------------------------------------------------------------------
+
+def run_both(ops, *, k, bm, bn, prune=True, elem=False, n_valid=None, **opt):
+    """The Pallas kernel (interpret mode) and the port's wrapper on the same
+    operands.  Returns (reference outputs, port outputs) as numpy."""
+    n = ops["db"].shape[0]
+    kw = optional_operands(ops, bm=bm, bn=bn, elem=elem, **opt)
+    n_valid = n if n_valid is None else n_valid
+    pos = (ops["q"], ops["db"], ops["qp"], ops["lo"], ops["hi"])
+    ref = j_pruned_topk(*map(jnp.asarray, pos), n_valid,
+                        **{a: None if v is None else jnp.asarray(v) for a, v in kw.items()},
+                        k=k, bm=bm, bn=bn, prune=prune, element_stats=elem,
+                        interpret=True)
+    got = pruned_topk(*(torch.from_numpy(a) for a in pos), n_valid,
+                      **{a: None if v is None else torch.from_numpy(v)
+                         for a, v in kw.items()},
+                      k=k, bm=bm, bn=bn, prune=prune, element_stats=elem)
+    as_np = (lambda x: None if x is None else np.asarray(x))
+    return [as_np(x) for x in ref], [None if x is None else x.cpu().numpy() for x in got]
+
+
+SWEEP = [(512, 16, 4, 16, 128), (1024, 32, 9, 32, 256), (768, 48, 16, 8, 128)]
+@pytest.mark.parametrize("n,d,k,bm,bn", SWEEP)
+@pytest.mark.parametrize("opt", list(OPTIONS))
+def test_pruned_topk_matches_pallas(n, d, k, bm, bn, opt):
+    o = OPTIONS[opt]
+    ops = topk_operands(n, d, 40, bn, 8, seed=n + d, holes=o.get("holes", False))
+    ref, got = run_both(ops, k=k, bm=bm, bn=bn, **o)
+    assert_topk_match(ref, got)
+    sref, iref = cref.brute_force_knn(ops["q"], np.where(ops["valid"][:, None],
+                                                         ops["db"], 0), k)
+    np.testing.assert_allclose(got[0], sref, atol=3e-5)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_pruned_topk_k_sweep(k):
+    """k from 1 to bn (=32), with every option on."""
+    ops = topk_operands(512, 16, 24, 32, 6, seed=k, holes=True)
+    ref, got = run_both(ops, k=k, bm=8, bn=32, **OPTIONS["all"])
+    assert_topk_match(ref, got)
+
+
+def test_pruned_topk_prunes_tiles():
+    """The operands make τ rise: most tiles skip, identically in both."""
+    ops = topk_operands(1024, 32, 40, 128, 8, seed=3)
+    ref, got = run_both(ops, k=5, bm=8, bn=128, tau=True)
+    assert_topk_match(ref, got)
+    assert 0 < got[2].mean() < 0.9
+
+
+def test_pruned_topk_plain_gaps():
+    """gaps=True leaves the four outputs as they were and adds the skip
+    margins: a tile is computed exactly where its gap is >= 0, and near
+    counts at most the tile's elements."""
+    ops = topk_operands(1024, 32, 40, 128, 8, seed=3, holes=True)
+    kw = optional_operands(ops, bm=8, bn=128, tau=True, elem=True, holes=True)
+    args = [torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")]
+    kw = {a: None if v is None else torch.from_numpy(v) for a, v in kw.items()}
+    common = dict(k=5, bm=8, bn=128, element_stats=True)
+    plain = pruned_topk_plain(*args, 1024, **kw, **common)
+    *outs, gap, near = pruned_topk_plain(*args, 1024, **kw, **common, gaps=True)
+    for a, b in zip(plain, outs):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert torch.equal(outs[2].bool(), gap >= 0)
+    assert 0 < outs[2].float().mean() < 1
+    assert bool(((near >= 0) & (near <= 8 * 128)).all())
+
+
+def test_pruned_topk_empty_slots_carry_minus_one():
+    """n_valid = 5 < k = 8: slots past the last valid row are (-inf, -1).
+    The reference repeats an id there (ROADMAP Queue 3); only its finite
+    slots are compared."""
+    ops = topk_operands(256, 16, 8, 64, 4, seed=5)
+    ref, got = run_both(ops, k=8, bm=8, bn=64, n_valid=5)
+    assert_topk_match(ref, got)
+    assert np.isneginf(got[0][:, 5:]).all() and (got[1][:, 5:] == -1).all()
+    assert (np.sort(got[1][:, :5], 1) == np.arange(5)).all()
+
+
+def test_pruned_topk_rejects_bad_arguments():
+    ops = topk_operands(256, 16, 8, 64, 4, seed=6)
+    args = [torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")]
+    with pytest.raises(ValueError, match="k="):
+        pruned_topk(*args, 256, k=65, bm=8, bn=64)
+    with pytest.raises(ValueError, match="element_stats"):
+        pruned_topk(*args, 256, k=4, bm=8, bn=64, element_stats=True)
+    with pytest.raises(ValueError, match="whole tiles"):
+        pruned_topk(*args, 256, k=4, bm=8, bn=48)
+
+
