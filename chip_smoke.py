@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (290,000 x 256, 10,000 queries, k = 10), where the bound prunes little;
 5. each kernel against its plain PyTorch version on the card, at the main
    path's operands and on small cases (ub_cap, element stats, holes in
-   row_valid, k = bn, empty-block sentinels), with times and bounds.
+   row_valid, k = bn, no prune, D = 768, one query tile, empty-block
+   sentinels), with times and bounds.  pruned_topk runs at one split and
+   at the engine's chosen splits, each against the plain version at the
+   same splits; merge_splits on the chosen run's partial lists;
+6. one torch.profiler window over a main-path search call: the device
+   operations that take its time.
 
 Before the last line it prints one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
@@ -197,6 +202,38 @@ def phase_search(spec, seed, SearchEngine, kernels):
     return eng, q, out
 
 
+def profile_search(eng, q, k, top=12):
+    """One torch.profiler window over a warm ``search`` call: the device
+    operations that took the most time in it (self time on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.search(q, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.search(q, k)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            ops.append((e.key, us / 1e3, e.count))
+    ops.sort(key=lambda x: -x[1])
+    total = sum(x[1] for x in ops)
+    if not ops:
+        log(f"[profile] search k={k}: the profiler shows no device time "
+            f"(wall {wall_ms:.3f} ms under the profiler)")
+    else:
+        log(f"[profile] search k={k}: {total:.3f} ms of device time in "
+            f"{len(ops)} operations, wall {wall_ms:.3f} ms under the profiler; top: "
+            + "; ".join(f"{name[:70]} x{n}: {ms:.3f} ms" for name, ms, n in ops[:top]))
+    return {"wall_ms": wall_ms, "device_ms": total,
+            "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in ops[:top]]}
+
+
 def compare_topk(got, want, tol, margin, gaps=None):
     """Kernel vs plain pruned_topk outputs: max |sim diff| over finite
     slots, tie-aware id sets, computed/elem agreement.
@@ -294,7 +331,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
-    from repro_torch.kernels.cosine_topk import pruned_topk, pruned_topk_plain
+    from repro_torch.kernels.cosine_topk import (_launch, _operands, merge_splits,
+                                                 merge_splits_plain, pruned_topk,
+                                                 pruned_topk_plain)
     from repro_torch.search import SearchEngine
     from repro_torch.search.backends import kernel_inputs, prep_queries
 
@@ -323,52 +362,115 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    kernels = (pruned_topk, block_bounds)
+    kernels = (pruned_topk, merge_splits, block_bounds)
 
     # 3. the main path at full width
     eng, q, report["clustered64"] = phase_search(CLUSTERED64, args.seed, SearchEngine,
                                                  kernels)
     launches = report["clustered64"]["launches"]
+    report["profile"] = profile_search(eng, q, 10)
 
-    # 5a. the kernels at the main path's operands (k = 10)
+    # 5a. pruned_topk at the main path's operands (k = 10): at one split and
+    # at the engine's chosen splits, each against the plain version at the
+    # same splits, timed in turns
     qn, qp = prep_queries(eng.index, q)
     kargs, kkw, _ = kernel_inputs(
         eng.index, qn, qp, 10, bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
         best_first=eng.best_first, margin=eng.margin,
         warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
-    got = pruned_topk(*kargs, **kkw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = pruned_topk_plain(*kargs, **kkw)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    r_topk = check_topk(got, want, kargs, kkw, 1e-5, pruned_topk_plain)
-    ms_topk = float(np.median(cuda_ms(lambda: pruned_topk(*kargs, **kkw), REPS)))
-    nbytes, ops = pruned_topk_costs(kargs, kkw, got[2])
+    chosen = kkw["splits"]
+    check(chosen > 1, f"the engine chose {chosen} splits at the main path")
+    kw_of = {s: dict(kkw, splits=s) for s in (1, chosen)}
+    runs = {}
+    for s, kw_s in kw_of.items():
+        got = pruned_topk(*kargs, **kw_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pruned_topk_plain(*kargs, **kw_s)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        r = check_topk(got, want, kargs, kw_s, 1e-5, pruned_topk_plain)
+        runs[s] = dict(r=r, plain_ms=plain_ms, computed=got[2], ms=[],
+                       frac=float(got[2].float().mean()))
+        log(f"[kernels] pruned_topk at main-path operands, splits={s}: {r}, "
+            f"plain {plain_ms:.1f} ms, tile_computed_frac {runs[s]['frac']:.4f}")
+        check(topk_ok(r, 1e-5),
+              f"pruned_topk at splits={s} disagrees with its plain version: {r}")
+        del got, want
+    for _ in range(REPS):
+        for s, kw_s in kw_of.items():
+            runs[s]["ms"] += cuda_ms(lambda: pruned_topk(*kargs, **kw_s), 1)
+    one, best = runs[1], runs[chosen]
+    check(bool((best["computed"] >= one["computed"]).all()),
+          "the splits skipped a tile that the single pass computes")
+    # score flops from the single pass's computed tiles: the extra tiles
+    # that splits compute count against the kernel
+    nbytes, ops = pruned_topk_costs(kargs, kkw, one["computed"])
     lib = []
     for s in range(0, kargs[0].shape[0], 2000):
         qc = kargs[0][s:s + 2000]
         lib += cuda_ms(lambda: torch.topk(
             (qc @ kargs[1].T).masked_fill_(~eng.index.valid[None, :], float("-inf")),
             10, dim=1), 1)
+    ms_one, ms_best = (float(np.median(runs[s]["ms"])) for s in (1, chosen))
     topk_entry = {
         "name": "pruned_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pruned_topk.cu",
         "replaces": "src/repro/kernels/cosine_topk.py:165",
-        "launches": launches["pruned_topk"], "max_abs_err": r_topk["max_abs_err"],
-        "ms": ms_topk, "plain_ms": plain_ms, **bound_entry(nbytes, ops),
+        "launches": launches["pruned_topk"],
+        "max_abs_err": max(one["r"]["max_abs_err"], best["r"]["max_abs_err"]),
+        "ms": ms_best, "plain_ms": best["plain_ms"], **bound_entry(nbytes, ops),
         "library_ms": float(sum(lib)),
-        "ids_equal": r_topk["ids_equal"], "computed_equal": r_topk["computed_equal"],
-        "computed_flips": r_topk["computed_flips"],
-        "flips_unexplained": r_topk["flips_unexplained"],
-        "tile_computed_frac": float(got[2].float().mean()),
+        "splits": chosen, "ms_splits1": ms_one, "plain_ms_splits1": one["plain_ms"],
+        "tile_computed_frac": best["frac"], "tile_computed_frac_splits1": one["frac"],
+        "ms_all": runs[chosen]["ms"], "ms_splits1_all": runs[1]["ms"],
+        "ids_equal": best["r"]["ids_equal"] and one["r"]["ids_equal"],
+        "computed_flips": best["r"]["computed_flips"] + one["r"]["computed_flips"],
+        "flips_unexplained": (best["r"]["flips_unexplained"]
+                              + one["r"]["flips_unexplained"]),
         "library": "torch.matmul + torch.topk over the same queries and rows, "
                    "5 calls of 2,000 queries"}
-    log(f"[kernels] pruned_topk at main-path operands: {r_topk}, "
-        f"kernel {ms_topk:.3f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{topk_entry['bound_ms']:.3f} ms ({topk_entry['bound_by']}), "
-        f"matmul+topk {topk_entry['library_ms']:.3f} ms")
-    check(topk_ok(r_topk, 1e-5), f"pruned_topk disagrees with its plain version: {r_topk}")
+    topk_entry["bound_share"] = topk_entry["bound_ms"] / ms_best
+    log(f"[kernels] pruned_topk: splits={chosen} {ms_best:.3f} ms, splits=1 "
+        f"{ms_one:.3f} ms, bound {topk_entry['bound_ms']:.3f} ms "
+        f"({topk_entry['bound_by']}, {topk_entry['bound_share']:.3f} of it at "
+        f"splits={chosen}), matmul+topk {topk_entry['library_ms']:.3f} ms")
+
+    # 5a'. merge_splits on the chosen run's partial lists
+    ops_m, kw_m = _operands(*kargs, **kw_of[chosen])
+    part_s, part_i, *_ = _launch(*ops_m, **kw_m)
+    got_m = merge_splits(part_s, part_i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_m = merge_splits_plain(part_s, part_i)
+    torch.cuda.synchronize()
+    merge_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got_m[0], want_m[0]) and torch.equal(got_m[1], want_m[1]),
+          "merge_splits disagrees with its plain version")
+    fin = torch.isfinite(want_m[0])
+    merge_err = float((got_m[0][fin] - want_m[0][fin]).abs().max()) if bool(fin.any()) else 0.0
+    merge_ms = float(np.median(cuda_ms(lambda: merge_splits(part_s, part_i), REPS)))
+    s_, m_, k_ = part_s.shape
+    flat = part_s.transpose(0, 1).reshape(m_, s_ * k_).contiguous()
+    merge_lib = float(np.median(cuda_ms(lambda: torch.topk(flat, k_, dim=1), REPS)))
+    merge_entry = {
+        "name": "merge_splits", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pruned_topk.cu",
+        "replaces": "src/repro/kernels/cosine_topk.py:165",
+        "launches": launches["merge_splits"], "max_abs_err": merge_err,
+        "ms": merge_ms, "plain_ms": merge_plain_ms,
+        # each partial entry read once, the result written once; at least
+        # ceil(log2 S) comparisons per output slot
+        **bound_entry(8 * (s_ + 1) * m_ * k_,
+                      float(m_) * k_ * int(np.ceil(np.log2(s_)))),
+        "library_ms": merge_lib,
+        "library": "torch.topk over each row's splits x k entries, "
+                   "laid out [M, S*k] beforehand"}
+    log(f"[kernels] merge_splits [{s_} x {m_} x {k_}]: equal to plain, kernel "
+        f"{merge_ms:.3f} ms, plain {merge_plain_ms:.1f} ms, bound "
+        f"{merge_entry['bound_ms']:.4f} ms ({merge_entry['bound_by']}), "
+        f"torch.topk {merge_lib:.3f} ms")
+    del part_s, part_i, got_m, want_m, flat, runs, one, best
 
     # 5b. block_bounds at the main path's [10,000 x 9,247 x 16]
     lo, hi = kargs[3], kargs[4]
@@ -398,7 +500,7 @@ def main(argv=None) -> int:
         f"kernel {bb_ms:.3f} ms, plain {bb_plain_ms:.1f} ms, bound "
         f"{bb_entry['bound_ms']:.3f} ms ({bb_entry['bound_by']})")
     check(bb_err <= 1e-6, "block_bounds disagrees with its plain version")
-    del got, want, bb, bb_plain, kargs, kkw, qn, qp, eng, q
+    del bb, bb_plain, kargs, kkw, qn, qp, eng, q
     torch.cuda.empty_cache()
 
     # 5c. small cases: ub_cap, element stats, holes in row_valid, k = bn,
@@ -412,17 +514,33 @@ def main(argv=None) -> int:
     qs = torch.from_numpy(rng.standard_normal((300, 100), dtype=np.float32)).cuda()
     qs = qs + idx.db[torch.from_numpy(rng.integers(0, SMALL_N - 1000, 300)).cuda()] * 10
     sqn, sqp = prep_queries(idx, qs)
+    db768, q768 = synth(dict(CLUSTERED64, n=SMALL_N, d=768, m=300), args.seed + 4)
+    wide = SearchEngine.build(db768, n_pivots=16, block_size=128).index
+    wqn, wqp = prep_queries(wide, torch.from_numpy(q768).cuda())
     cases = {}
-    for name, k, extra in [("ub_cap+elem+holes", 10, dict(n_pivots=8, element_stats=True)),
-                           ("k=bn", 128, dict()),
-                           ("no_prune", 5, dict(prune=False))]:
-        a_, kw_, _ = kernel_inputs(idx, sqn, sqp, k, bm=128, warm_start=True,
+    # each at splits 1, 3 and the engine's choice; 157 db tiles, so 3 and
+    # most choices leave short splits (nt % S != 0)
+    for name, ix, cq, cp, k, extra in [
+            ("ub_cap+elem+holes", idx, sqn, sqp, 10, dict(n_pivots=8, element_stats=True)),
+            ("k=bn", idx, sqn, sqp, 128, dict()),
+            ("no_prune", idx, sqn, sqp, 5, dict(prune=False)),
+            ("d=768", wide, wqn, wqp, 10, dict()),
+            ("m=50", idx, sqn[:50], sqp[:50], 10, dict())]:
+        a_, kw_, _ = kernel_inputs(ix, cq, cp, k, bm=128, warm_start=True,
                                    best_first=True, **extra)
-        r = check_topk(pruned_topk(*a_, **kw_), pruned_topk_plain(*a_, **kw_), a_, kw_,
-                       1e-5, pruned_topk_plain)
-        cases[name] = r
-        log(f"[kernels] pruned_topk small case {name}: {r}")
-        check(topk_ok(r, 1e-5), f"pruned_topk small case {name} disagrees: {r}")
+        nt_ = a_[3].shape[0]
+        for s in sorted({1, 3, kw_["splits"]}):
+            kws = dict(kw_, splits=s)
+            r = check_topk(pruned_topk(*a_, **kws), pruned_topk_plain(*a_, **kws), a_,
+                           kws, 1e-5, pruned_topk_plain)
+            r["ragged"] = nt_ % s != 0
+            cases[f"{name} splits={s}"] = r
+            log(f"[kernels] pruned_topk small case {name}, splits={s} of {nt_} "
+                f"tiles: {r}")
+            check(topk_ok(r, 1e-5), f"pruned_topk small case {name} splits={s} "
+                                    f"disagrees: {r}")
+    check(any(c["ragged"] for c in cases.values()), "no case with nt % splits != 0")
+    del wide, wqn, wqp
     lo_s, hi_s = idx.dp_min.clone(), idx.dp_max.clone()
     lo_s[::7], hi_s[::7] = float("inf"), float("-inf")
     cap = torch.rand(sqp.shape[0], lo_s.shape[0], device="cuda") + 0.5
@@ -445,7 +563,7 @@ def main(argv=None) -> int:
     _, _, report["uniform256"] = phase_search(UNIFORM256, args.seed + 2, SearchEngine,
                                               kernels)
 
-    report["kernels"] = [topk_entry, bb_entry]
+    report["kernels"] = [topk_entry, merge_entry, bb_entry]
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)

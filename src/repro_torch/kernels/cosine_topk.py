@@ -23,7 +23,13 @@ column beats a higher one.  Slots that stay ``-inf`` carry id ``-1``, the
 documented ``(-inf, -1)`` contract (the reference's argmax extraction
 repeats lane 0's id there instead; ROADMAP Queue 3).
 
-``pruned_topk.launches`` counts kernel launches (never plain calls).
+``splits`` cuts each query tile's visit order into interleaved shares,
+one CTA each, whose partial top-k lists :func:`merge_splits` reduces;
+:func:`choose_splits` picks it from the card's SM count and the kernel's
+occupancy.
+
+``pruned_topk.launches`` and ``merge_splits.launches`` count kernel
+launches (never plain calls).
 """
 from __future__ import annotations
 
@@ -34,13 +40,17 @@ from torch import Tensor
 
 from repro_torch.kernels._build import check_operand, library
 
-__all__ = ["pruned_topk", "pruned_topk_plain", "DEFAULT_BM", "DEFAULT_BN"]
+__all__ = ["pruned_topk", "pruned_topk_plain", "merge_splits",
+           "merge_splits_plain", "choose_splits", "default_splits",
+           "DEFAULT_BM", "DEFAULT_BN"]
 
 DEFAULT_BM = 128
 DEFAULT_BN = 256
 #: the kernel's limits: query rows per CTA and pivots per bound
 MAX_BM = 128
 MAX_PIVOTS = 64
+#: rows of a k-major panel the kernel copies and scores at once
+_PANEL = 128
 _NEG_INF = float("-inf")
 
 
@@ -48,17 +58,22 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
              tau: Tensor, block_order: Tensor, row_valid: Tensor,
              ub_cap: Tensor | None, dp: Tensor | None, *, k: int, bm: int,
              bn: int, m_valid: int, margin: float, prune: bool,
-             gaps: bool = False):
-    """Tile emulator of the kernel: loops over visit steps ``j`` and handles
-    every query tile at once, each gathering its own ``block_order[:, j]``
-    db tile.  ``tau`` [M] holds the already-lowered seeds (``-inf`` = none).
+             splits: int = 1, gaps: bool = False):
+    """Tile emulator of the kernel: loops over visit steps and handles every
+    (query tile, split) pair at once as its own virtual query tile, each
+    gathering its own db tile.  Split ``s`` of query tile ``i`` visits
+    ``block_order[i, s::splits]`` with its own running top-k; where
+    ``nt % splits != 0`` the short splits take "no tile" steps at the end.
+    The partial lists then merge as :func:`merge_splits_plain` does.
+    ``tau`` [M] holds the already-lowered seeds (``-inf`` = none).
 
     ``gaps=True`` also returns, per (query tile, db tile), how close each
     decision came to the other side: ``gap`` [Mt, Nt] f32 is the largest
     ``ub + margin - τ`` over live rows at the visit (with pruning on and
-    no NaN bound, ``computed`` is ``gap >= 0``), and ``near`` [Mt, Nt] i32 counts the elements whose
-    ``eub + margin`` lies within ``2·margin`` of τ.  A version whose τ
-    differs by fp32 summation order may flip only where these are small.
+    no NaN bound, ``computed`` is ``gap >= 0``), and ``near`` [Mt, Nt] i32
+    counts the elements whose ``eub + margin`` lies within ``2·margin`` of
+    τ.  A version whose τ differs by fp32 summation order may flip only
+    where these are small.
     """
     m, d = qn.shape
     n, p = db.shape[0], qp.shape[1]
@@ -66,17 +81,21 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
     mt = -(-m // bm)
     pad = mt * bm - m
     dev = qn.device
+    steps = -(-nt // splits)
 
     def tiles(x, fill):
+        """[M, ...] -> [mt * splits, bm, ...]: one copy per split."""
         x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
-        return x.reshape((mt, bm) + tuple(x.shape[1:]))
+        return x.reshape((mt, bm) + tuple(x.shape[1:])).repeat_interleave(
+            splits, 0)
 
-    q_t = tiles(qn.float(), 0.0)                           # [mt, bm, d]
-    qp_t = tiles(qp.float(), 1.0)                          # [mt, bm, p]
+    q_t = tiles(qn.float(), 0.0)                           # [mv, bm, d]
+    qp_t = tiles(qp.float(), 1.0)                          # [mv, bm, p]
     rad_q = torch.clamp(1.0 - qp_t * qp_t, min=0.0)
-    live = (torch.arange(mt * bm, device=dev) < m_valid).reshape(mt, bm)
+    live = tiles(torch.arange(m, device=dev) < m_valid, False)
     top_s = tiles(tau.float(), _NEG_INF)[:, :, None].repeat(1, 1, k)
-    top_i = torch.full((mt, bm, k), -1, dtype=torch.int32, device=dev)
+    mv = top_s.shape[0]
+    top_i = torch.full((mv, bm, k), -1, dtype=torch.int32, device=dev)
     cap_t = None if ub_cap is None else tiles(ub_cap.float(), 0.0)
     computed = torch.zeros(mt, nt, dtype=torch.int32, device=dev)
     elem = (None if dp is None
@@ -86,12 +105,17 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
     db_t = db.float().reshape(nt, bn, d)
     rv_t = row_valid.reshape(nt, bn).bool()
     dp_t = None if dp is None else dp.float().reshape(nt, bn, p)
-    ar = torch.arange(mt, device=dev)
+    ar = torch.arange(mv, device=dev)
+    tile_of = ar // splits                                 # real query tile
     cols = torch.arange(bn, device=dev, dtype=torch.int32)
-    order = block_order.long()
+    # [mv, steps] visit order per virtual tile, -1 for "no tile"
+    order = torch.cat([block_order.long(), block_order.new_full(
+        (mt, steps * splits - nt), -1).long()], 1)
+    order = order.reshape(mt, steps, splits).transpose(1, 2).reshape(mv, steps)
 
-    for j in range(nt):
-        jb = order[:, j]                                   # [mt]
+    for j in range(steps):
+        active = order[:, j] >= 0                          # [mv]
+        jb = order[:, j].clamp(min=0)
         lo_j, hi_j = lo[jb].float()[:, None, :], hi[jb].float()[:, None, :]
         ub_l = qp_t * lo_j + torch.sqrt(
             rad_q * torch.clamp(1.0 - lo_j * lo_j, min=0.0))
@@ -99,48 +123,142 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
             rad_q * torch.clamp(1.0 - hi_j * hi_j, min=0.0))
         inside = (qp_t >= lo_j) & (qp_t <= hi_j)
         ub = torch.where(inside, torch.ones_like(ub_l),
-                         torch.maximum(ub_l, ub_h)).amin(-1)   # [mt, bm]
+                         torch.maximum(ub_l, ub_h)).amin(-1)   # [mv, bm]
         if cap_t is not None:
             ub = torch.minimum(ub, cap_t[ar, :, jb])
         tau_j = top_s[:, :, k - 1]
-        vmask = rv_t[jb]                                   # [mt, bn]
+        vmask = rv_t[jb]                                   # [mv, bn]
         if prune:
             needed = ((ub + margin >= tau_j) & live).any(1)
         else:
-            needed = torch.ones(mt, dtype=torch.bool, device=dev)
-        computed[ar, jb] = needed.int()
+            needed = torch.ones(mv, dtype=torch.bool, device=dev)
+        needed &= active
+        at = (tile_of[active], jb[active])
+        computed[at] = needed[active].int()
         if gap is not None:
-            gap[ar, jb] = torch.where(live, (ub + margin) - tau_j,
-                                      _NEG_INF).amax(1)
+            gap[at] = torch.where(live, (ub + margin) - tau_j,
+                                  _NEG_INF).amax(1)[active]
         if elem is not None:
-            dpj = dp_t[jb]                                 # [mt, bn, p]
+            dpj = dp_t[jb]                                 # [mv, bn, p]
             eub = None
             for q in range(p):
-                b = dpj[:, None, :, q]                     # [mt, 1, bn]
+                b = dpj[:, None, :, q]                     # [mv, 1, bn]
                 rad = rad_q[:, :, q:q + 1] * torch.clamp(1.0 - b * b, min=0.0)
                 cand = qp_t[:, :, q:q + 1] * b + torch.sqrt(rad)
                 eub = cand if eub is None else torch.minimum(eub, cand)
             counted = vmask[:, None, :] & live[:, :, None]
             pruned = (eub + margin < tau_j[:, :, None]) & counted
-            elem[ar, jb] = pruned.sum((1, 2)).int()
+            elem[at] = pruned.sum((1, 2)).int()[active]
             if near is not None:
                 close = ((eub + margin) - tau_j[:, :, None]).abs() <= 2 * margin
-                near[ar, jb] = (close & counted).sum((1, 2)).int()
+                near[at] = (close & counted).sum((1, 2)).int()[active]
         if not bool(needed.any()):
             continue
-        scores = torch.bmm(q_t, db_t[jb].transpose(1, 2))  # [mt, bm, bn]
+        scores = torch.bmm(q_t, db_t[jb].transpose(1, 2))  # [mv, bm, bn]
         # masked rows, and every row of a skipped tile, merge as -inf,
         # which leaves the running top-k unchanged
         keep = vmask[:, None, :] & needed[:, None, None]
         scores = scores.masked_fill(~keep, _NEG_INF)
-        col = (jb.int() * bn)[:, None] + cols              # [mt, bn]
+        col = (jb.int() * bn)[:, None] + cols              # [mv, bn]
         cand_s = torch.cat([top_s, scores], -1)
-        cand_i = torch.cat([top_i, col[:, None, :].expand(mt, bm, bn)], -1)
+        cand_i = torch.cat([top_i, col[:, None, :].expand(mv, bm, bn)], -1)
         top_s, sel = torch.sort(cand_s, dim=-1, descending=True, stable=True)
         top_s, sel = top_s[..., :k].contiguous(), sel[..., :k]
         top_i = torch.gather(cand_i, -1, sel)
-    out = (top_s.reshape(-1, k)[:m], top_i.reshape(-1, k)[:m], computed, elem)
+
+    def parts(x):
+        """[mv, bm, k] -> [splits, M, k]"""
+        x = x.reshape(mt, splits, bm, k).transpose(0, 1)
+        return x.reshape(splits, mt * bm, k)[:, :m]
+
+    if splits == 1:
+        out_s, out_i = parts(top_s)[0], parts(top_i)[0]
+    else:
+        out_s, out_i = merge_splits_plain(parts(top_s), parts(top_i))
+    out = (out_s, out_i, computed, elem)
     return out + (gap, near) if gaps else out
+
+
+def merge_splits_plain(part_s: Tensor, part_i: Tensor):
+    """The plain version of :func:`merge_splits`: a stable descending sort
+    of each row's ``splits · k`` entries in (split, slot) order, cut to k.
+    Returns ``(sims [M, k], idx [M, k])``."""
+    s, m, k = part_s.shape
+    cat_s = part_s.transpose(0, 1).reshape(m, s * k)
+    cat_i = part_i.transpose(0, 1).reshape(m, s * k)
+    top_s, sel = torch.sort(cat_s, dim=-1, descending=True, stable=True)
+    return top_s[:, :k].contiguous(), torch.gather(cat_i, 1, sel[:, :k])
+
+
+def merge_splits(part_s: Tensor, part_i: Tensor):
+    """Reduce per-split top-k lists ``[S, M, k]`` to ``[M, k]``: score
+    descending, then split, then slot; slots that stay ``-inf`` carry the
+    ``-1`` ids they had.  CPU tensors run :func:`merge_splits_plain`;
+    CUDA tensors launch ``merge_splits_kernel`` in ``csrc/pruned_topk.cu``
+    or raise.  ``merge_splits.launches`` counts kernel launches."""
+    if part_s.device.type == "cpu":
+        return merge_splits_plain(part_s, part_i)
+    if part_s.device.type != "cuda":
+        raise ValueError(f"merge_splits runs on cpu or cuda, not {part_s.device}")
+    s, m, k = part_s.shape
+    dev = part_s.device
+    check_operand("part_s", part_s, (s, m, k), torch.float32, dev)
+    check_operand("part_i", part_i, (s, m, k), torch.int32, dev)
+    top_s = torch.empty(m, k, dtype=torch.float32, device=dev)
+    top_i = torch.empty(m, k, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().merge_splits_launch(
+            part_s.data_ptr(), part_i.data_ptr(), top_s.data_ptr(),
+            top_i.data_ptr(), m, k, s, torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"merge_splits kernel launch failed: CUDA error {rc}")
+    merge_splits.launches += 1
+    return top_s, top_i
+
+
+merge_splits.launches = 0
+
+
+def choose_splits(mt: int, nt: int, sm_count: int, ctas_per_sm: int) -> int:
+    """Splits of the db axis for ``mt`` query tiles over ``nt`` db tiles on
+    a card of ``sm_count`` SMs holding ``ctas_per_sm`` CTAs each.
+
+    With ``slots = sm_count · ctas_per_sm`` resident CTAs, the ``mt · S``
+    CTAs run in ``waves(S) = ceil(mt · S / slots)`` waves, each CTA doing
+    ``1 / S`` of a query tile's work, so the kernel's time goes as
+    ``cost(S) = waves(S) / S``.  Its least value over ``1 <= S <= slots``
+    is ``mt / slots`` (whole waves, no tail) once ``nt >= slots``.  More
+    splits compute more tiles (each split's τ rises on its share of the
+    tiles only) and merge more lists, so this takes the smallest ``S <=
+    nt`` whose cost is within 15 % of the least:
+
+        S = min{S : cost(S) <= 1.15 · min_S' cost(S')}
+
+    At 79 query tiles and 264 slots: S = 3, 237 CTAs in one wave (S = 4
+    gives 316 CTAs, 1.2 waves, the cost of 2).  One query tile: S = 230.
+    """
+    if mt < 1 or nt < 1 or sm_count < 1 or ctas_per_sm < 1:
+        raise ValueError(f"choose_splits({mt}, {nt}, {sm_count}, {ctas_per_sm})")
+    slots = sm_count * ctas_per_sm
+    top = min(nt, slots)
+    cost = [-(-mt * s // slots) / s for s in range(1, top + 1)]
+    best = min(cost)
+    return next(s for s, c in enumerate(cost, 1) if c <= 1.15 * best)
+
+
+def default_splits(m: int, n: int, d: int, p: int, *, bm: int, bn: int,
+                   device) -> int:
+    """The splits the engine runs at: 1 on the CPU (the plain version's
+    single pass), :func:`choose_splits` with the card's SM count and the
+    kernel's occupancy at ``(d, p)`` on CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    ctas = _lib().pruned_topk_ctas_per_sm(d, p)
+    if ctas < 1:
+        raise RuntimeError(f"pruned_topk cannot be resident at d={d}, p={p}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return choose_splits(-(-m // bm), n // bn, sms, ctas)
 
 
 def _lib():
@@ -148,15 +266,22 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.pruned_topk_launch.argtypes = (
-            [vp] * 14 + [i] * 8 + [ctypes.c_float, i, vp])
+            [vp] * 13 + [i] * 9 + [ctypes.c_float, i, vp])
         lib.pruned_topk_launch.restype = i
+        lib.merge_splits_launch.argtypes = [vp] * 4 + [i] * 3 + [vp]
+        lib.merge_splits_launch.restype = i
+        lib.pruned_topk_ctas_per_sm.argtypes = [i, i]
+        lib.pruned_topk_ctas_per_sm.restype = i
         lib._typed = True
     return lib
 
 
 def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
-            k, bm, bn, m_valid, margin, prune):
-    """Validate the operands and launch ``csrc/pruned_topk.cu``."""
+            k, bm, bn, m_valid, margin, prune, splits):
+    """Validate the operands and launch ``csrc/pruned_topk.cu``'s main
+    kernel.  Returns ``(top_s [splits, M, k], top_i, computed, elem)``: at
+    one split ``top_s[0]`` is the result, else :func:`merge_splits`
+    reduces the per-split lists."""
     m, d = qn.shape
     n, p = db.shape[0], qp.shape[1]
     nt, mt = n // bn, -(-m // bm)
@@ -184,8 +309,24 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         check_operand("dp", dp, (n, p), f32, dev)
     if int(block_order.min()) < 0 or int(block_order.max()) >= nt:
         raise ValueError(f"block_order holds tile ids outside [0, {nt})")
-    top_s = torch.empty(m, k, dtype=f32, device=dev)
-    top_i = torch.empty(m, k, dtype=torch.int32, device=dev)
+    # the kernel reads every tile k-major in panels of 128 rows, [panel][D]
+    # [128], zero past a tile's rows: each K-step of a panel is one
+    # contiguous bulk copy, and each column a thread's float4 fragments
+    qt = qn.new_zeros(mt, d, _PANEL)
+    qt[:, :, :bm] = torch.cat([qn, qn.new_zeros(mt * bm - m, d)]).view(
+        mt, bm, d).transpose(1, 2)
+    nsub = -(-bn // _PANEL)
+    dbt = db.view(nt, bn, d)
+    if bn % _PANEL:
+        dbt = torch.cat([dbt, dbt.new_zeros(nt, nsub * _PANEL - bn, d)], 1)
+    dbt = dbt.reshape(nt * nsub, _PANEL, d).transpose(1, 2).contiguous()
+    # each tile's pivot intervals in one row (lo, then hi, each padded to a
+    # multiple of 4), copied with the tile's first K-step
+    pp = -(-p // 4) * 4
+    lh = lo.new_zeros(nt, 2 * pp)
+    lh[:, :p], lh[:, pp:pp + p] = lo, hi
+    top_s = torch.empty(splits, m, k, dtype=f32, device=dev)
+    top_i = torch.empty(splits, m, k, dtype=torch.int32, device=dev)
     computed = torch.zeros(mt, nt, dtype=torch.int32, device=dev)
     elem = (None if dp is None
             else torch.zeros(mt, nt, dtype=torch.int32, device=dev))
@@ -195,10 +336,10 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
 
     with torch.cuda.device(dev):
         rc = _lib().pruned_topk_launch(
-            ptr(qn), ptr(db), ptr(qp), ptr(lo), ptr(hi), ptr(tau),
+            ptr(qt), ptr(dbt), ptr(qp), ptr(lh), ptr(tau),
             ptr(block_order), ptr(row_valid), ptr(ub_cap), ptr(dp),
             ptr(top_s), ptr(top_i), ptr(computed), ptr(elem),
-            m, m_valid, n, d, p, k, bm, bn, margin, int(prune),
+            m, m_valid, n, d, p, k, bm, bn, splits, margin, int(prune),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"pruned_topk kernel launch failed: CUDA error {rc}")
@@ -209,7 +350,7 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
 def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
               tau_init=None, block_order=None, dp=None, ub_cap=None,
               row_valid=None, *, k, bm=DEFAULT_BM, bn=DEFAULT_BN, margin=4e-7,
-              prune=True, element_stats=False):
+              prune=True, element_stats=False, splits=1):
     """The reference wrapper's argument handling: defaults, the τ seeds
     lowered by 1e-6 so genuine candidates at τ displace them, checks."""
     m = qn.shape[0]
@@ -231,6 +372,8 @@ def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
     else:
         tau = tau_init.float().reshape(m) - 1e-6
     grid = (-(-m // bm), n // bn)
+    if not 1 <= splits <= grid[1]:
+        raise ValueError(f"splits={splits} must be in [1, {grid[1]} db tiles]")
     if block_order is None:
         block_order = torch.arange(grid[1], dtype=torch.int32,
                                    device=dev)[None, :].expand(grid)
@@ -240,7 +383,7 @@ def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
                 block_order.int().contiguous(), row_valid.bool(), ub_cap,
                 dp if element_stats else None)
     return operands, dict(k=k, bm=bm, bn=bn, m_valid=m_valid, margin=margin,
-                          prune=prune)
+                          prune=prune, splits=splits)
 
 
 def pruned_topk_plain(*args, gaps: bool = False, **kwargs):
@@ -273,8 +416,10 @@ def pruned_topk(
     margin: float = 4e-7,
     prune: bool = True,
     element_stats: bool = False,
+    splits: int = 1,
 ):
-    """Fused exact top-k with block pruning (the reference's signature).
+    """Fused exact top-k with block pruning (the reference's signature,
+    plus ``splits``).
 
     Args:
       qn: [M, D] L2-normalized queries.  db: [N, D] normalized database.
@@ -288,6 +433,11 @@ def pruned_topk(
       ub_cap: [M, N_tiles] extra per-(query, tile) upper bounds.
       row_valid: [N] per-row validity (tombstones need not be a prefix).
       k: top-k, ``k <= bn``.
+      splits: db-axis splits per query tile (:func:`choose_splits`): split
+        ``s`` visits ``block_order[i, s::splits]`` with its own top-k and
+        τ, and the partial lists merge (:func:`merge_splits`).  Exact at
+        any value; ``computed`` matches the reference's only at 1 and is a
+        superset of it otherwise.
 
     Returns ``(sims [M, k] f32, idx [M, k] i32 db positions, computed
     [M_tiles, N_tiles] i32 by tile id, elem [M_tiles, N_tiles] i32 or
@@ -297,12 +447,15 @@ def pruned_topk(
     operands, kw = _operands(
         qn, db, qp, dp_min, dp_max, n_valid, m_valid, tau_init, block_order,
         dp, ub_cap, row_valid, k=k, bm=bm, bn=bn, margin=margin, prune=prune,
-        element_stats=element_stats)
+        element_stats=element_stats, splits=splits)
     if qn.device.type == "cpu":
         return _emulate(*operands, **kw)
     if qn.device.type != "cuda":
         raise ValueError(f"pruned_topk runs on cpu or cuda, not {qn.device}")
-    return _launch(*operands, **kw)
+    top_s, top_i, computed, elem = _launch(*operands, **kw)
+    if splits == 1:
+        return top_s[0], top_i[0], computed, elem
+    return (*merge_splits(top_s, top_i), computed, elem)
 
 
 pruned_topk.launches = 0

@@ -6,29 +6,72 @@
 // visit order, the Eq. 13 interval bound (min over pivots, optionally
 // min'd with ub_cap), a skip test against every row's running k-th best
 // τ, and for tiles that survive the fp32 scores q @ dbᵀ merged into a
-// running top-k.  Outputs match the reference slot for slot: computed and
-// elem are indexed by db tile id, not by visit step.
-//
-// Grid and loop.  One CTA per query tile of bm <= 128 rows.  The TPU's
-// sequential grid axis over db tiles becomes a loop inside the CTA that
-// reads block_order[i, j] itself, so each query tile keeps the reference's
-// visit order and `computed` stays comparable one to one.  The running
-// top-k lives in the output arrays (global memory, L2-resident): it holds
-// any k <= bn without limiting shared memory.
+// running top-k.  computed and elem are indexed by db tile id.
 //
 // What bounds it on the H100.  A computed tile is 2·bm·bn·D fp32 flops
 // against bn·D·4 bytes of db rows (64 flops per byte at bm = 128): the
-// fp32 SIMT rate (67 TFLOP/s) bounds it, not HBM.  No tensor cores and no
-// TF32: the reference guards fp32 scores with margin = 4e-7 and seeds τ
-// 1e-6 below the prescan value, and TF32 keeps about 3 digits.  The K-loop
-// stages D in chunks of 32 through shared memory (the TPU kept D whole in
-// VMEM; 227 KB of shared memory cannot hold a 128-row tile at large D),
-// and each thread accumulates an 8x8 register tile.
+// fp32 SIMT rate (67 TFLOP/s, 128 FMAs per SM per cycle) bounds it, not
+// HBM.  What keeps the FMA pipes fed:
 //
-// Known limit: parallelism is ceil(M / bm) CTAs (79 at 10,000 queries on
-// 132 SMs).  Splitting the db axis across CTAs and wgmma scores are later
-// work.
+// - Splits.  The grid is (query tiles, splits).  Split s of query tile i
+//   visits the steps j ≡ s (mod S) of block_order[i, :], in order, with
+//   its own running top-k and τ seeded from tau_init, so `computed` stays
+//   deterministic; S = 1 is the reference's single pass.  S fills whole
+//   waves of resident CTAs on the 132 SMs (choose_splits in
+//   cosine_topk.py).  Partial top-k lists go to [S, M, k] scratch and
+//   merge_splits (one warp per row) reduces them: score descending, then
+//   split, then slot.  A split's τ never exceeds the single pass's τ at
+//   the same step, so splits compute a superset of the single pass's
+//   tiles.
+// - k-major panels.  The wrapper hands the kernel the query tiles and the
+//   db tiles transposed into panels of 128 rows, [panel][D][128] (one copy
+//   of the db per call, timed with the kernel).  A K-step of 34
+//   columns of a panel is then one contiguous 17 KB block, which one
+//   thread copies with a bulk copy (the TMA unit's 1-D form) completing on
+//   an mbarrier: no thread spends registers or issue slots on addresses.
+//   Per column a thread reads its 8 query and 8 db values as 4 LDS.128
+//   (conflict-free: the db row as 16 consecutive float4, the query row as
+//   2 broadcast ones) for 64 FMAs, and the next column's fragments load
+//   while this one's FMAs issue: 64 accumulators + 2 x 16 fragment
+//   registers fit the 128 registers that two CTAs per SM allow.  Each
+//   score sums its D products in column order with fmaf, a fixed order;
+//   D needs no padding.
+// - Shared memory per CTA (p pivots):
+//     Q tile, resident    D·128 floats     (51,200 B at D = 100)
+//     db ring             2 stages of 34·128 floats + a step's intervals
+//     Q ring (streamed)   34·128 floats per stage, where Q is not resident
+//     qp                  128·p floats     (8,192 B at p = 16)
+//     τ per row, merge candidates (128 per half-warp), barriers  16,960 B
+//   The Q tile stays resident for the CTA's life when the total fits in
+//   113 KB, so two CTAs (16 warps) share an SM: 112,192 B at D = 100,
+//   p = 16.  Above that (D = 256 needs 128 KB for Q alone) Q chunks ride
+//   in the ring beside the db chunks.  One block barrier per K-step: a
+//   stage is refilled only after every warp has passed the next step's
+//   barrier.  Two stages of 34 columns measured faster than three of 20
+//   (fewer barriers at the same prefetch distance in time).
+// - The copies of the next visit step's tile, with that tile's pivot
+//   intervals, are issued speculatively while this tile is scored and
+//   merged; the skip decision for it still waits for this tile's τ, and
+//   reads the intervals from the ring.  A skip drains the ring and
+//   restarts it at the next tile that is needed; in a run of skips each
+//   step's intervals are prefetched into L1 one step ahead.
+// - Merge without staging the score tile: the 16 threads of a half-warp
+//   hold 8 query rows' 128 scores each.  Each score is compared with its
+//   row's k-th value (τ, per row in shared memory); one vote per row skips
+//   rows where nothing enters.  Entering scores are compacted into the
+//   half-warp's list and placed by rank into the running top-k, which
+//   lives in global scratch (L2) so any k <= bn fits.  The order is the
+//   reference's: an existing slot beats an equal new score, a lower column
+//   beats a higher one.
+// - What is left: the per-step skip decision (128 rows x p pivots of
+//   Eq. 13 with IEEE square roots, then a block vote) and the block
+//   barriers around it and around the merge keep the FMA pipes idle for a
+//   large share of each tile (PERF.md).
 //
+// Why fp32 SIMT and not wgmma: the reference guards fp32 scores with
+// margin = 4e-7 and seeds τ 1e-6 below the prescan value; TF32 keeps
+// about 3 digits, and 3xTF32 on wgmma reaches about fp32 accuracy but not
+// fp32 rounding, for a ceiling only ~2.5x higher.  No --use_fast_math.
 // Bounds come from eq13.cuh, rounded op by op so they equal the plain
 // PyTorch version bit for bit.
 
@@ -42,276 +85,571 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileM = 128;        // max query rows per CTA
-constexpr int kTileN = 128;        // db rows per score sub-tile
-constexpr int kChunk = 32;         // feature columns per K-loop step
-constexpr int kPadM = kTileM + 1;  // +1: conflict-free transposed stores
-constexpr int kPadN = kTileN + 1;
+constexpr int kTileM = 128;          // max query rows per CTA
+constexpr int kTileN = 128;          // db rows per score sub-tile
+constexpr int kStep = 34;            // columns (k-major rows) per stage
+constexpr int kStages = 2;
+constexpr int kStageFloats = kStep * kTileN;
 constexpr int kMaxPivots = 64;
+constexpr int kCand = kTileN;        // merge candidates per half-warp
+constexpr int kLhFloats = 2 * kMaxPivots;  // a step's interval row, per stage
+constexpr size_t kTwoCtaBytes = 113 * 1024;
 
 struct Params {
-  const float* qn;              // [m, d]
-  const float* db;              // [n, d]
+  const float* qt;              // [mt, d, 128] query tiles, k-major
+  const float* dbt;             // [nt * nsub, d, 128] db sub-tiles, k-major
   const float* qp;              // [m, p]
-  const float* lo;              // [nt, p]
-  const float* hi;              // [nt, p]
+  const float* lh;              // [nt, 2 * pp]: lo, then hi, each padded
   const float* tau;             // [m] seeds (already lowered), -inf if none
   const int* block_order;       // [mt, nt]
   const uint8_t* row_valid;     // [n]
   const float* ub_cap;          // [m, nt] or null
   const float* dp;              // [n, p] or null (element stats)
-  float* top_s;                 // [m, k] running top-k, then the result
-  int* top_i;                   // [m, k]
+  float* top_s;                 // [splits, m, k] running top-k per split
+  int* top_i;                   // [splits, m, k]
   int* computed;                // [mt, nt]
   int* elem;                    // [mt, nt] or null
-  int m, m_valid, n, d, p, k, bm, bn, nt;
+  int m, m_valid, d, p, k, bm, bn, nt;
   float margin;
-  int prune;
+  int prune, resident;
 };
 
-// Merge one row's new scores into its running top-k (sorted descending).
-// The result is the first k of a stable descending sort of
-// concat(existing, new): an existing slot beats an equal new score and a
-// lower column beats a higher one, as the reference's argmax extraction
-// over concat([top, scores]).  Only scores strictly above the current k-th
-// value can enter; slots that stay -inf keep id -1.  One warp per row.
-__device__ void merge_row(const float* srow, int ncols, int colbase,
-                          float* ts, int* ti, int k, float* cv, int* ci,
-                          float* ev, int* ei, int lane) {
-  const float kth = ts[k - 1];
-  int n_in = 0;
-  for (int c0 = 0; c0 < ncols; c0 += 32) {
-    const int c = c0 + lane;
-    const float v = c < ncols ? srow[c] : -INFINITY;
-    const bool enter = v > kth;
-    const unsigned mask = __ballot_sync(0xffffffffu, enter);
-    if (enter) {
-      const int at = n_in + __popc(mask & ((1u << lane) - 1u));
-      cv[at] = v;
-      ci[at] = colbase + c;
-    }
-    n_in += __popc(mask);
-  }
-  __syncwarp();
-  if (n_in == 0) return;
-  for (int s = lane; s < k; s += 32) {
-    ev[s] = ts[s];
-    ei[s] = ti[s];
-  }
-  __syncwarp();
-  // an existing slot moves down by the entering scores strictly above it
-  for (int s = lane; s < k; s += 32) {
-    const float v = ev[s];
-    int pos = s;
-    for (int e = 0; e < n_in; ++e) pos += cv[e] > v;
-    if (pos < k) {
-      ts[pos] = v;
-      ti[pos] = ei[s];
-    }
-  }
-  // an entering score goes after every existing slot >= it (binary search
-  // over the descending list) and every earlier entering score >= it
-  for (int e = lane; e < n_in; e += 32) {
-    const float w = cv[e];
-    int a = 0, b = k;
-    while (a < b) {
-      const int mid = (a + b) >> 1;
-      if (ev[mid] >= w) a = mid + 1; else b = mid;
-    }
-    int pos = a;
-    for (int f = 0; f < n_in; ++f) {
-      const float x = cv[f];
-      pos += (x > w) || (x == w && f < e);
-    }
-    if (pos < k) {
-      ts[pos] = w;
-      ti[pos] = ci[e];
-    }
-  }
-  __syncwarp();
+constexpr int kBarBytes = 32;        // kStages + 1 mbarriers, 16-byte aligned
+
+size_t smem_floats(int d, int p, bool resident) {
+  return kBarBytes / sizeof(float) + (resident ? (size_t)d * kTileM : 0) +
+         (size_t)kStages * (kStageFloats * (resident ? 1 : 2) + kLhFloats) +
+         (size_t)kTileM * p + kTileM + (size_t)kWarps * 2 * 2 * kCand +
+         kWarps;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pruned_topk_kernel(const Params prm) {
-  extern __shared__ float smem[];
+bool q_resident(int d, int p) {
+  return smem_floats(d, p, true) * sizeof(float) <= kTwoCtaBytes;
+}
+
+// A load the compiler may not move: issued here, waited for at first use.
+__device__ __forceinline__ int ld_pinned(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// One thread: expect `bytes` on `bar` and copy them, contiguous, from
+// global to shared memory (the bulk-copy form of the TMA unit).
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[i][j] += sum over `cols` k-major rows of a[row i] · b[col j], for
+// the thread's rows 4ty + {0..3}, 64 + 4ty + {0..3} and columns 4tx +
+// {0..3}, 64 + 4tx + {0..3}.  The next row's fragments load while this
+// row's 64 FMAs issue; the load past the last row reads shared memory that
+// follows every panel and is discarded.
+__device__ __forceinline__ void fma_panel(float (&acc)[8][8], const float* a,
+                                          const float* b, int cols, int tx,
+                                          int ty) {
+  const float* pa = a + 4 * ty;
+  const float* pb = b + 4 * tx;
+  float4 a0 = lds4(pa), a1 = lds4(pa + 64), b0 = lds4(pb), b1 = lds4(pb + 64);
+#pragma unroll 2
+  for (int kk = 0; kk < cols; ++kk) {
+    pa += kTileM;
+    pb += kTileN;
+    const float4 na0 = lds4(pa), na1 = lds4(pa + 64);
+    const float4 nb0 = lds4(pb), nb1 = lds4(pb + 64);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    a0 = na0;
+    a1 = na1;
+    b0 = nb0;
+    b1 = nb1;
+  }
+}
+
+// Merge one row's n (1..128) entering scores cv/ci into its running top-k
+// ts/ti (descending, in global memory).  Called by the 16 lanes of a
+// half-warp (hmask); hl is the lane within the half.  The result is the
+// first k of a stable descending sort of concat(existing, new scores in
+// column order): an existing slot beats an equal new score, a lower column
+// beats a higher one.  The list is read 16 slots at a time, lane hl
+// holding slot cb + hl, so a row of k <= 16 costs one load; each entering
+// score's rank among the slots is a vote of the half-warp.  The new k-th
+// value goes to *thr.
+__device__ __forceinline__ void merge_row(float* ts, int* ti, int k,
+                                          const float* cv, const int* ci,
+                                          int n, int hl, unsigned hmask,
+                                          float* thr) {
+  constexpr int kPer = kCand / 16;
+  const float v0 = hl < k ? ts[hl] : 0.f;
+  const int id0 = hl < k ? ti[hl] : -1;
+  int pos[kPer];
+  // rank among the entering scores: score descending, then column
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    const int e = hl + 16 * t;
+    pos[t] = k;
+    if (e < n) {
+      const float w = cv[e];
+      const int id = ci[e];
+      int a = 0;
+      for (int f = 0; f < n; ++f) {
+        const float x = cv[f];
+        a += (x > w) || (x == w && ci[f] < id);
+      }
+      pos[t] = a;
+    }
+  }
+  // plus the existing slots >= the score
+  for (int cb = 0; cb < k; cb += 16) {
+    const int sl = cb + hl;
+    const float v = cb == 0 ? v0 : (sl < k ? ts[sl] : 0.f);
+#pragma unroll
+    for (int t = 0; t < kPer; ++t) {
+      if (16 * t >= n) break;
+      for (int e16 = 0; e16 < 16 && 16 * t + e16 < n; ++e16) {
+        const unsigned ge =
+            __ballot_sync(hmask, sl < k && v >= cv[16 * t + e16]);
+        if (hl == e16) pos[t] += __popc(ge);
+      }
+    }
+  }
+  int first = k;  // the best entering score's slot: no slot above it moves
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) first = min(first, pos[t]);
+  for (int off = 8; off > 0; off >>= 1)
+    first = min(first, __shfl_xor_sync(hmask, first, off));
+  // existing slots move down by the entering scores strictly above them;
+  // the bottom 16 slots first, so a write lands only on slots already read
+  for (int cb = (k - 1) & ~15; cb >= (first & ~15); cb -= 16) {
+    const int sl = cb + hl;
+    float v = 0.f;
+    int id = -1, to = k;
+    if (sl < k && sl >= first) {
+      v = cb == 0 ? v0 : ts[sl];
+      id = cb == 0 ? id0 : ti[sl];
+      to = sl;
+      for (int f = 0; f < n; ++f) to += cv[f] > v;
+    }
+    __syncwarp(hmask);
+    if (to < k) {
+      ts[to] = v;
+      ti[to] = id;
+      if (to == k - 1) *thr = v;
+    }
+    __syncwarp(hmask);
+  }
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    if (pos[t] < k) {
+      const int e = hl + 16 * t;
+      ts[pos[t]] = cv[e];
+      ti[pos[t]] = ci[e];
+      if (pos[t] == k - 1) *thr = cv[e];
+    }
+  }
+  __syncwarp(hmask);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+pruned_topk_kernel(const __grid_constant__ Params prm) {
+  extern __shared__ __align__(16) float smem[];
+  static_assert(kStages + 1 <= kBarBytes / 8, "one mbarrier per stage + Q");
   const int p = prm.p, k = prm.k, bm = prm.bm, bn = prm.bn, nt = prm.nt;
-  float* qs = smem;                          // [kChunk][kPadM]
-  float* ds = qs + kChunk * kPadM;           // [kChunk][kPadN]
-  float* sc = ds + kChunk * kPadN;           // [kTileM][kPadN] scores
-  float* qp_s = sc + kTileM * kPadN;         // [kTileM][p]
-  float* rq_s = qp_s + kTileM * p;           // [kTileM][p] 1 - qp^2, clamped
-  float* tau_s = rq_s + kTileM * p;          // [kTileM] τ at tile start
-  float* lo_s = tau_s + kTileM;              // [p]
-  float* hi_s = lo_s + p;                    // [p]
-  float* wbuf = hi_s + p;                    // per warp: cv, ci, ev, ei
-  const int wstride = 2 * kTileN + 2 * k;
-  int* red = reinterpret_cast<int*>(wbuf + kWarps * wstride);  // [kWarps]
+  const int d = prm.d;
+  const bool resident = prm.resident;
+  // a stage: db chunk [kStep][128], Q chunk when streamed, and the
+  // interval row of the step whose first chunk it holds
+  const int stage = kStageFloats * (resident ? 1 : 2) + kLhFloats;
+  const int pp = (p + 3) / 4 * 4;
+  // mbarriers: one per ring stage, then the resident Q tile's
+  const unsigned bars = smem_addr(smem), qbar = bars + 8 * kStages;
+  float* qres = smem + kBarBytes / sizeof(float);       // [d][kTileM]
+  float* ring = qres + (resident ? d * kTileM : 0);     // [kStages][stage]
+  float* qp_s = ring + kStages * stage;                 // [kTileM][p]
+  float* thr_s = qp_s + kTileM * p;                     // [kTileM] τ per row
+  float* cand = thr_s + kTileM;                         // per half-warp
+  int* red = reinterpret_cast<int*>(cand + kWarps * 2 * 2 * kCand);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int i = blockIdx.x;
+  const int tx = tid & 15, ty = tid >> 4, half = lane >> 4;
+  const unsigned hmask = 0xffffu << (16 * half);
+  const int i = blockIdx.x, s = blockIdx.y, splits = gridDim.y;
   const int row0 = i * bm;
   const int rows = min(bm, prm.m - row0);
-  float* cv = wbuf + warp * wstride;
-  int* ci = reinterpret_cast<int*>(cv + kTileN);
-  float* ev = cv + 2 * kTileN;
-  int* ei = reinterpret_cast<int*>(ev + k);
+  float* ts = prm.top_s + ((size_t)s * prm.m + row0) * k;
+  int* ti = prm.top_i + ((size_t)s * prm.m + row0) * k;
+  float* cv = cand + (warp * 2 + half) * 2 * kCand;
+  int* ci = reinterpret_cast<int*>(cv + kCand);
+  const int* order = prm.block_order + (size_t)i * nt;
+  const float* qtile = prm.qt + (size_t)i * d * kTileM;
 
   for (int e = tid; e < rows * k; e += kThreads) {
-    const int r = e / k;
-    prm.top_s[(size_t)row0 * k + e] = prm.tau[row0 + r];
-    prm.top_i[(size_t)row0 * k + e] = -1;
+    ts[e] = prm.tau[row0 + e / k];
+    ti[e] = -1;
   }
+  for (int r = tid; r < kTileM; r += kThreads)
+    thr_s[r] = r < rows ? prm.tau[row0 + r] : -INFINITY;
   for (int e = tid; e < kTileM * p; e += kThreads) {
     const int r = e / p;
-    const float a = r < rows ? prm.qp[(size_t)(row0 + r) * p + e % p] : 1.f;
-    qp_s[e] = a;
-    rq_s[e] = radicand(a);
+    qp_s[e] = r < rows ? prm.qp[(size_t)(row0 + r) * p + e % p] : 1.f;
+  }
+  if (tid == 0) {
+    for (int b = 0; b <= kStages; ++b) mbar_init(bars + 8 * b);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (resident && tid == 0) {
+    mbar_expect(qbar, (unsigned)d * kTileM * 4);
+    bulk_copy(qres, qtile, (unsigned)d * kTileM * 4, qbar);
   }
 
-  for (int j = 0; j < nt; ++j) {
-    const int jb = prm.block_order[(size_t)i * nt + j];
-    for (int e = tid; e < p; e += kThreads) {
-      lo_s[e] = prm.lo[(size_t)jb * p + e];
-      hi_s[e] = prm.hi[(size_t)jb * p + e];
-    }
-    __syncthreads();  // also publishes the previous tile's merges
+  const int nsteps = (nt - s + splits - 1) / splits;
+  const int nsub = (bn + kTileN - 1) / kTileN;
+  const int nchunk = (d + kStep - 1) / kStep;
 
-    // 1. Eq. 13 tile bound per row and the skip test
-    bool pred = false;
-    if (tid < bm) {
-      const int r = tid;
-      const float tau = r < rows ? prm.top_s[(size_t)(row0 + r) * k + k - 1]
-                                 : -INFINITY;
-      tau_s[r] = tau;
-      float ub = 0.f;
-      for (int q = 0; q < p; ++q) {
-        const float a = qp_s[r * p + q], ra = rq_s[r * p + q];
-        const float l = lo_s[q], h = hi_s[q];
-        const float per = (a >= l && a <= h)
-            ? 1.f : nan_max(ub_mult(a, ra, l), ub_mult(a, ra, h));
-        ub = q == 0 ? per : nan_min(ub, per);
+  // the copy ring's producer cursor and chunk counters (see issue below)
+  int pt = 0, psub = 0, pc = 0, pjb = 0, issued = 0, consumed = 0;
+
+  // Skip decisions from step t0 on, with every row's current τ: writes
+  // computed (and elem) for each step visited; returns the first step
+  // whose tile is needed, or nsteps.  With `in_ring`, step t0 (tile
+  // jb0) is the one whose first chunk the ring holds next, and its
+  // interval row is read from that stage; later steps read theirs from
+  // global memory, prefetched into L1 one step ahead.
+  auto decide_from = [&](int t0, bool in_ring, int jb0) -> int {
+    int jb = t0 < nsteps && !in_ring ? ld_pinned(order + s + splits * t0) : jb0;
+    for (int t = t0; t < nsteps; ++t) {
+      const int jbn = t + 1 < nsteps ? ld_pinned(order + s + splits * (t + 1)) : 0;
+      const float* lh_j = prm.lh + (size_t)jb * 2 * pp;
+      if (in_ring && t == t0) {
+        const int slot = consumed % kStages;
+        mbar_wait(bars + 8 * slot, (consumed / kStages) & 1);
+        lh_j = ring + slot * stage + stage - kLhFloats;
       }
-      if (prm.ub_cap != nullptr)
-        ub = nan_min(ub, r < rows ? prm.ub_cap[(size_t)(row0 + r) * nt + jb]
-                                  : 0.f);
-      const bool live = row0 + r < prm.m_valid;
-      pred = live && (__fadd_rn(ub, prm.margin) >= tau);
-    }
-    const int needed = prm.prune ? __syncthreads_or(pred) : 1;
-    if (!prm.prune) __syncthreads();
-    if (tid == 0) prm.computed[(size_t)i * nt + jb] = needed;
-
-    // 2. per-(query, row) Eq. 13 bound against τ, skipped tile or not
-    if (prm.elem != nullptr) {
-      int cnt = 0;
-      for (int e = tid; e < bm * bn; e += kThreads) {
-        const int r = e / bn, c = e % bn;
-        const size_t row = (size_t)jb * bn + c;
-        if (row0 + r >= prm.m_valid || !prm.row_valid[row]) continue;
-        float eub = 0.f;
-        for (int q = 0; q < p; ++q) {
-          const float cand = ub_mult(qp_s[r * p + q], rq_s[r * p + q],
-                                     prm.dp[row * p + q]);
-          eub = q == 0 ? cand : nan_min(eub, cand);
+      // two threads per row, each taking every other pivot; the interval
+      // ends of 16 pivots load at once (min over pivots is order-free)
+      const int r = tid >> 1, h = tid & 1;
+      const float cap = prm.ub_cap != nullptr && r < rows
+          ? prm.ub_cap[(size_t)(row0 + r) * nt + jb] : 0.f;
+      float ub = INFINITY;
+      for (int q0 = 0; q0 < p; q0 += 16) {
+        float lv[8], hv[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int q = q0 + h + 2 * u;
+          lv[u] = q < p ? lh_j[q] : 0.f;
+          hv[u] = q < p ? lh_j[pp + q] : 0.f;
         }
-        cnt += __fadd_rn(eub, prm.margin) < tau_s[r];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int q = q0 + h + 2 * u;
+          if (q < p) {
+            const float a = qp_s[r * p + q], ra = radicand(a);
+            const float per = (a >= lv[u] && a <= hv[u])
+                ? 1.f : nan_max(ub_mult(a, ra, lv[u]), ub_mult(a, ra, hv[u]));
+            ub = nan_min(ub, per);
+          }
+        }
       }
-      for (int off = 16; off > 0; off >>= 1)
-        cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-      if (lane == 0) red[warp] = cnt;
-      __syncthreads();
-      if (tid == 0) {
-        int total = 0;
-        for (int w = 0; w < kWarps; ++w) total += red[w];
-        prm.elem[(size_t)i * nt + jb] = total;
+      if (t + 1 < nsteps && tid * 32 < 2 * pp)
+        asm volatile("prefetch.global.L1 [%0];\n"
+                     ::"l"(prm.lh + (size_t)jbn * 2 * pp + tid * 32));
+      ub = nan_min(ub, __shfl_xor_sync(0xffffffffu, ub, 1));
+      if (prm.ub_cap != nullptr) ub = nan_min(ub, cap);
+      const bool pred = h == 0 && row0 + r < prm.m_valid &&
+                        __fadd_rn(ub, prm.margin) >= thr_s[r];
+      const int needed = __syncthreads_or(pred) || !prm.prune;
+      if (tid == 0) prm.computed[(size_t)i * nt + jb] = needed;
+
+      // per-(query, row) Eq. 13 bound against τ, skipped tile or not
+      if (prm.elem != nullptr) {
+        int cnt = 0;
+        for (int e = tid; e < bm * bn; e += kThreads) {
+          const int er = e / bn, c = e % bn;
+          const size_t row = (size_t)jb * bn + c;
+          if (row0 + er >= prm.m_valid || !prm.row_valid[row]) continue;
+          float eub = 0.f;
+          for (int q = 0; q < p; ++q) {
+            const float a = qp_s[er * p + q];
+            const float cand_ub = ub_mult(a, radicand(a), prm.dp[row * p + q]);
+            eub = q == 0 ? cand_ub : nan_min(eub, cand_ub);
+          }
+          cnt += __fadd_rn(eub, prm.margin) < thr_s[er];
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          cnt += __shfl_down_sync(0xffffffffu, cnt, off);
+        if (lane == 0) red[warp] = cnt;
+        __syncthreads();
+        if (tid == 0) {
+          int total = 0;
+          for (int w = 0; w < kWarps; ++w) total += red[w];
+          prm.elem[(size_t)i * nt + jb] = total;
+        }
+      }
+      if (needed) return t;
+      jb = jbn;
+    }
+    return nsteps;
+  };
+
+  // The copy ring: a stream of (step, sub-tile, K-step) chunks, each one
+  // contiguous bulk copy issued by thread 0, that runs kStages - 1 chunks
+  // ahead of the scores and assumes every later step is needed; a skip
+  // drains it and restarts it.  Chunk y lands in stage y % kStages and
+  // completes phase (y / kStages) & 1 of that stage's mbarrier; every
+  // chunk issued is waited for exactly once.
+  auto restart = [&](int t0) {
+    pt = t0;
+    psub = pc = 0;
+    if (tid == 0 && pt < nsteps) pjb = ld_pinned(order + s + splits * pt);
+  };
+  auto issue = [&]() {
+    if (pt >= nsteps) return;
+    if (tid == 0) {
+      const int slot = issued % kStages;
+      float* st = ring + slot * stage;
+      const int k0 = pc * kStep;
+      const unsigned bytes = (unsigned)min(kStep, d - k0) * kTileN * 4;
+      const bool first = pc == 0 && psub == 0;
+      const unsigned lh_bytes = first ? 2u * pp * 4 : 0u;
+      mbar_expect(bars + 8 * slot, (resident ? bytes : 2 * bytes) + lh_bytes);
+      bulk_copy(st, prm.dbt + (((size_t)pjb * nsub + psub) * d + k0) * kTileN,
+                bytes, bars + 8 * slot);
+      if (!resident)
+        bulk_copy(st + kStageFloats, qtile + (size_t)k0 * kTileM, bytes,
+                  bars + 8 * slot);
+      if (first)
+        bulk_copy(st + stage - kLhFloats, prm.lh + (size_t)pjb * 2 * pp,
+                  lh_bytes, bars + 8 * slot);
+    }
+    ++issued;
+    if (++pc == nchunk) {
+      pc = 0;
+      if (++psub == nsub) {
+        psub = 0;
+        ++pt;
+        // the next tile's id loads now, one chunk before its first copy
+        if (tid == 0 && pt < nsteps) pjb = ld_pinned(order + s + splits * pt);
       }
     }
-    if (!needed) continue;
+  };
+  auto drain = [&]() {
+    for (; consumed < issued; ++consumed)
+      mbar_wait(bars + 8 * (consumed % kStages), (consumed / kStages) & 1);
+  };
 
-    // 3. scores of the surviving tile, 128 db rows at a time, and the merge
-    for (int c0 = 0; c0 < bn; c0 += kTileN) {
+  int t = decide_from(0, false, 0);
+  restart(t);
+  for (int x = 0; x < kStages - 1; ++x) issue();
+  if (resident) mbar_wait(qbar, 0);
+  int jb = t < nsteps ? ld_pinned(order + s + splits * t) : 0;
+  while (t < nsteps) {
+    const int jb1 = t + 1 < nsteps ? ld_pinned(order + s + splits * (t + 1)) : 0;
+    for (int sub = 0; sub < nsub; ++sub) {
+      const int c0 = sub * kTileN;
       const int ncols = min(kTileN, bn - c0);
       const size_t col0 = (size_t)jb * bn + c0;
+      // lane tx holds columns 4tx + {0..3}, 64 + 4tx + {0..3}; their
+      // validity loads now and lands while the scores are computed
+      unsigned colmask = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 4 * tx + (j & 3) + 64 * (j >> 2);
+        colmask |= (c < ncols && prm.row_valid[col0 + c]) ? 1u << j : 0u;
+      }
       float acc[8][8];
 #pragma unroll
       for (int a = 0; a < 8; ++a)
 #pragma unroll
         for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-      for (int k0 = 0; k0 < prm.d; k0 += kChunk) {
-        for (int e = tid; e < kTileM * kChunk; e += kThreads) {
-          const int r = e / kChunk, kk = e % kChunk;
-          qs[kk * kPadM + r] = (r < rows && k0 + kk < prm.d)
-              ? prm.qn[(size_t)(row0 + r) * prm.d + k0 + kk] : 0.f;
-        }
-        for (int e = tid; e < kTileN * kChunk; e += kThreads) {
-          const int c = e / kChunk, kk = e % kChunk;
-          ds[kk * kPadN + c] = (c < ncols && k0 + kk < prm.d)
-              ? prm.db[(col0 + c) * prm.d + k0 + kk] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kChunk; ++kk) {
-          float a[8], b[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) a[u] = qs[kk * kPadM + ty + 16 * u];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) b[u] = ds[kk * kPadN + tx + 16 * u];
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-#pragma unroll
-            for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
-        }
-        __syncthreads();
+      for (int c = 0; c < nchunk; ++c) {
+        mbar_wait(bars + 8 * (consumed % kStages), (consumed / kStages) & 1);
+        __syncthreads();  // every warp is done with stage consumed - 1
+        issue();
+        const float* st = ring + (consumed % kStages) * stage;
+        const int k0 = c * kStep;
+        fma_panel(acc, resident ? qres + k0 * kTileM : st + kStageFloats, st,
+                  min(kStep, d - k0), tx, ty);
+        ++consumed;
       }
+
+      // merge: the half-warp (warp, half) owns rows 4ty + {0..3} and
+      // 64 + 4ty + {0..3}
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int a = 0; a < 8; ++a) {
+        const int r = 4 * ty + (a & 3) + 64 * (a >> 2);
+        const float kth = thr_s[r];
+        const bool rowok = r < rows;
+        bool any = false;
 #pragma unroll
-        for (int v = 0; v < 8; ++v) {
-          const int c = tx + 16 * v;
-          if (c < ncols)
-            sc[(ty + 16 * u) * kPadN + c] =
-                prm.row_valid[col0 + c] ? acc[u][v] : -INFINITY;
+        for (int j = 0; j < 8; ++j) any |= ((colmask >> j) & 1u) && acc[a][j] > kth;
+        if (!__any_sync(0xffffffffu, rowok && any)) continue;
+        int nin = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const bool pass = rowok && ((colmask >> j) & 1u) && acc[a][j] > kth;
+          const unsigned hm =
+              (__ballot_sync(0xffffffffu, pass) >> (16 * half)) & 0xffffu;
+          if (pass) {
+            const int at = nin + __popc(hm & ((1u << tx) - 1u));
+            cv[at] = acc[a][j];
+            ci[at] = (int)col0 + 4 * tx + (j & 3) + 64 * (j >> 2);
+          }
+          nin += __popc(hm);
         }
-      __syncthreads();
-      for (int r = warp; r < rows; r += kWarps)
-        merge_row(sc + r * kPadN, ncols, (int)col0,
-                  prm.top_s + (size_t)(row0 + r) * k,
-                  prm.top_i + (size_t)(row0 + r) * k, k, cv, ci, ev, ei, lane);
-      __syncthreads();
+        __syncwarp();
+        if (nin > 0)
+          merge_row(ts + (size_t)r * k, ti + (size_t)r * k, k, cv, ci, nin,
+                    tx, hmask, thr_s + r);
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // every row's τ and top-k after this tile
+    const int tn = decide_from(t + 1, true, jb1);
+    if (tn != t + 1) {  // the speculative loads were for a skipped tile
+      drain();
+      restart(tn);
+      for (int x = 0; x < kStages - 1; ++x) issue();
+    }
+    jb = tn == t + 1 ? jb1 : (tn < nsteps ? ld_pinned(order + s + splits * tn) : 0);
+    t = tn;
+  }
+  drain();  // no copy may land after the CTA leaves
+}
+
+// Reduce [splits, m, k] partial lists to [m, k]: score descending, then
+// split, then slot.  One warp per row; each entry's rank is its slot plus
+// the entries of the other splits that precede it (binary search: the
+// lists are descending).  Ranks are a permutation, so every slot is set.
+__global__ void merge_splits_kernel(const float* ps, const int* pi,
+                                    float* out_s, int* out_i, int m, int k,
+                                    int splits) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= m) return;
+  for (int e = lane; e < splits * k; e += 32) {
+    const int s = e / k, j = e - s * k;
+    const size_t at = ((size_t)s * m + row) * k + j;
+    const float w = ps[at];
+    int rank = j;
+    for (int s2 = 0; s2 < splits && rank < k; ++s2) {
+      if (s2 == s) continue;
+      const float* list = ps + ((size_t)s2 * m + row) * k;
+      int a = 0, b = k;
+      while (a < b) {
+        const int mid = (a + b) >> 1;
+        const float x = list[mid];
+        if (s2 < s ? x >= w : x > w) a = mid + 1; else b = mid;
+      }
+      rank += a;
+    }
+    if (rank < k) {
+      out_s[(size_t)row * k + rank] = w;
+      out_i[(size_t)row * k + rank] = pi[at];
     }
   }
 }
 
-}  // namespace
-
-extern "C" size_t pruned_topk_smem_bytes(int p, int k) {
-  return sizeof(float) * ((size_t)kChunk * kPadM + (size_t)kChunk * kPadN +
-                          (size_t)kTileM * kPadN + 2 * (size_t)kTileM * p +
-                          kTileM + 2 * (size_t)p +
-                          (size_t)kWarps * (2 * kTileN + 2 * k) + kWarps);
-}
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int pruned_topk_launch(
-    const float* qn, const float* db, const float* qp, const float* lo,
-    const float* hi, const float* tau, const int* block_order,
-    const uint8_t* row_valid, const float* ub_cap, const float* dp,
-    float* top_s, int* top_i, int* computed, int* elem, int m, int m_valid,
-    int n, int d, int p, int k, int bm, int bn, float margin, int prune,
-    void* stream) {
-  if (bm < 1 || bm > kTileM || p < 1 || p > kMaxPivots || k < 1 || k > bn ||
-      bn < 1 || n % bn != 0 || m < 1 || d < 1)
-    return (int)cudaErrorInvalidValue;
-  const Params prm{qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp,
-                   top_s, top_i, computed, elem, m, m_valid, n, d, p, k, bm,
-                   bn, n / bn, margin, prune};
-  const size_t smem = pruned_topk_smem_bytes(p, k);
+cudaError_t set_smem(size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       pruned_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(pruned_topk_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+}  // namespace
+
+extern "C" size_t pruned_topk_smem_bytes(int d, int p) {
+  return sizeof(float) * smem_floats(d, p, q_resident(d, p));
+}
+
+// Resident CTAs per SM at (d, p), or -1 on a CUDA error.
+extern "C" int pruned_topk_ctas_per_sm(int d, int p) {
+  const size_t smem = pruned_topk_smem_bytes(d, p);
+  if (set_smem(smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, pruned_topk_kernel, kThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// qt: [ceil(m / bm), d, 128] query tiles, k-major, rows past m zero;
+// dbt: [n / bn * ceil(bn / 128), d, 128] db sub-tiles of 128 rows,
+// k-major, rows past a tile's end zero; lh: [n / bn, 2 * pp] each tile's
+// pivot intervals, lo then hi, each padded to pp = p rounded up to 4.  All
+// three 16-byte aligned.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int pruned_topk_launch(
+    const float* qt, const float* dbt, const float* qp, const float* lh,
+    const float* tau, const int* block_order,
+    const uint8_t* row_valid, const float* ub_cap, const float* dp,
+    float* top_s, int* top_i, int* computed, int* elem, int m, int m_valid,
+    int n, int d, int p, int k, int bm, int bn, int splits, float margin,
+    int prune, void* stream) {
+  if (bm < 1 || bm > kTileM || p < 1 || p > kMaxPivots || k < 1 || k > bn ||
+      bn < 1 || n % bn != 0 || m < 1 || d < 1 || splits < 1 ||
+      splits > n / bn ||
+      ((uintptr_t)qt | (uintptr_t)dbt | (uintptr_t)lh) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const Params prm{qt, dbt, qp, lh, tau, block_order, row_valid, ub_cap,
+                   dp, top_s, top_i, computed, elem, m, m_valid, d, p, k,
+                   bm, bn, n / bn, margin, prune, q_resident(d, p)};
+  const size_t smem = pruned_topk_smem_bytes(d, p);
+  const cudaError_t err = set_smem(smem);
   if (err != cudaSuccess) return (int)err;
-  const int mt = (m + bm - 1) / bm;
-  pruned_topk_kernel<<<mt, kThreads, smem, (cudaStream_t)stream>>>(prm);
+  const dim3 grid((m + bm - 1) / bm, splits);
+  pruned_topk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int merge_splits_launch(const float* part_s, const int* part_i,
+                                   float* top_s, int* top_i, int m, int k,
+                                   int splits, void* stream) {
+  if (m < 1 || k < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int rows_per_cta = kThreads / 32;
+  merge_splits_kernel<<<(m + rows_per_cta - 1) / rows_per_cta, kThreads, 0,
+                        (cudaStream_t)stream>>>(part_s, part_i, top_s, top_i,
+                                                m, k, splits);
   return (int)cudaGetLastError();
 }

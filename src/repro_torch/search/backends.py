@@ -163,7 +163,8 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     ``(args, kwargs, perm)`` where ``perm`` is the query sort permutation
     (``None`` unless ``sort_queries``).  The block bound matrix behind the
     warm start and the best-first order comes from the ``block_bounds``
-    kernel on CUDA."""
+    kernel on CUDA.  ``splits`` is the card's
+    (:func:`cosine_topk.default_splits`) on CUDA and 1 on the CPU."""
     bn = _resolve_bn(index, bn)
     factor = bn // index.block_size
     lo, hi = coarsen_intervals(index.dp_min, index.dp_max, factor)
@@ -197,7 +198,10 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     kwargs = dict(tau_init=tau_init, block_order=block_order,
                   dp=index.dp if element_stats else None, ub_cap=ub_cap,
                   row_valid=index.valid, k=k, bm=bm, bn=bn, margin=margin,
-                  prune=prune, element_stats=element_stats)
+                  prune=prune, element_stats=element_stats,
+                  splits=cosine_topk.default_splits(
+                      m, index.db.shape[0], qn.shape[1], qp.shape[1], bm=bm,
+                      bn=bn, device=qn.device))
     return args, kwargs, perm
 
 

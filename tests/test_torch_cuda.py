@@ -13,8 +13,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import ref as cref  # noqa: E402
 from repro_torch.kernels.bound_prune import (block_bounds,  # noqa: E402
                                              block_bounds_plain)
-from repro_torch.kernels.cosine_topk import (pruned_topk,  # noqa: E402
-                                             pruned_topk_plain)
+from repro_torch.kernels.cosine_topk import (default_splits,  # noqa: E402
+                                             merge_splits, merge_splits_plain,
+                                             pruned_topk, pruned_topk_plain)
 
 
 def clustered(rng, n, d, n_centers=6, noise=0.07):
@@ -109,6 +110,25 @@ def assert_topk_match(ref, got, *, atol=1e-6, computed=True):
         np.testing.assert_array_equal(e_g, e_r)
 
 
+def assert_topk_sets_close(s_g, i_g, s_w, i_w, *, tol):
+    """Two top-k results agree up to fp32 summation order: the same -inf
+    slots (with id -1 in ``i_g``), finite sims within ``tol``, and where a
+    row's id sets differ, every id in one and not the other scores within
+    ``tol`` of that row's k-th best (a near-tie)."""
+    np.testing.assert_array_equal(np.isneginf(s_g), np.isneginf(s_w))
+    fin = np.isfinite(s_w)
+    np.testing.assert_allclose(s_g[fin], s_w[fin], atol=tol, rtol=0)
+    assert (i_g[~fin] == -1).all()
+    for r in range(s_w.shape[0]):
+        a, b = set(i_g[r][fin[r]]), set(i_w[r][fin[r]])
+        if a == b:
+            continue
+        score = dict(zip(i_w[r], s_w[r]))
+        score.update(zip(i_g[r], s_g[r]))
+        kth = min(s_g[r][fin[r]].min(), s_w[r][fin[r]].min())
+        assert all(abs(score[i] - kth) <= tol for i in a ^ b), (r, a ^ b)
+
+
 OPTIONS = {
     "plain": {},
     "tau": dict(tau=True),
@@ -177,3 +197,85 @@ def test_cuda_wrappers_reject_wrong_dtype(cuda):
         pruned_topk(pos[0].double(), *pos[1:], 256, k=4, bm=8, bn=64)
     with pytest.raises(TypeError, match="qp"):
         block_bounds(pos[2].double(), pos[3], pos[4])
+
+
+def run_kernel_and_plain(cuda, ops, splits, *, k, bm, bn, **o):
+    """pruned_topk's kernel and plain version at the same ``splits`` ("chosen":
+    the card's default), held together by chip_smoke's check_topk: sims
+    within 1e-5, ids tie-aware, computed/elem equal or differing only
+    where the plain version's decision gaps lie within 2·margin of τ."""
+    from chip_smoke import check_topk, topk_ok
+
+    n, d = ops["db"].shape
+    m, p = ops["qp"].shape
+    if splits == "chosen":
+        splits = default_splits(m, n, d, p, bm=bm, bn=bn, device=cuda)
+    pos = [torch.from_numpy(ops[a]).to(cuda) for a in ("q", "db", "qp", "lo", "hi")]
+    kw = optional_operands(ops, bm=bm, bn=bn, **o)
+    kw = {a: None if v is None else torch.from_numpy(v).to(cuda) for a, v in kw.items()}
+    kw.update(k=k, bm=bm, bn=bn, prune=o.get("prune", True),
+              element_stats=o.get("elem", False), splits=splits)
+    args = (*pos, n)
+    before = (pruned_topk.launches, merge_splits.launches)
+    got = pruned_topk(*args, **kw)
+    assert pruned_topk.launches == before[0] + 1
+    assert merge_splits.launches == before[1] + (splits > 1)
+    r = check_topk(got, pruned_topk_plain(*args, **kw), args, kw, 1e-5,
+                   pruned_topk_plain)
+    assert topk_ok(r, 1e-5), (splits, r)
+    return splits, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, "chosen"])
+@pytest.mark.parametrize("opt", list(OPTIONS))
+def test_pruned_topk_kernel_splits_match_plain(cuda, opt, splits):
+    o = OPTIONS[opt]
+    ops = topk_operands(2048, 100, 300, 128, 16, seed=8,
+                        holes=o.get("holes", False))
+    run_kernel_and_plain(cuda, ops, splits, k=10, bm=128, bn=128, **o)
+
+
+SMALL_CASES = {
+    # D = 768: Q streams through the ring beside the db rows
+    "d768": (dict(n=2048, d=768, m=300, bn=128, p=16), dict(k=10, bm=128),
+             OPTIONS["all"]),
+    # one query tile: the chosen splits approach nt
+    "m50": (dict(n=2048, d=100, m=50, bn=128, p=16), dict(k=10, bm=128),
+            dict(tau=True, order=True)),
+    # k = bn over two 128-row sub-tiles per db tile
+    "k=bn": (dict(n=1024, d=256, m=70, bn=256, p=8), dict(k=256, bm=64),
+             dict(holes=True)),
+    # D % 4 != 0: 4-byte copies; 7 db tiles, so 3 splits are ragged
+    "d37": (dict(n=896, d=37, m=200, bn=128, p=5), dict(k=5, bm=128),
+            dict(tau=True, cap=True, holes=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, "chosen"])
+@pytest.mark.parametrize("case", list(SMALL_CASES))
+def test_pruned_topk_kernel_small_cases(cuda, case, splits):
+    shape, kk, o = SMALL_CASES[case]
+    ops = topk_operands(shape["n"], shape["d"], shape["m"], shape["bn"],
+                        shape["p"], seed=12, holes=o.get("holes", False))
+    run_kernel_and_plain(cuda, ops, splits, bn=shape["bn"], **kk, **o)
+
+
+@pytest.mark.cuda
+def test_merge_splits_kernel_matches_plain(cuda):
+    """Random descending lists with many equal scores and -inf tails."""
+    rng = np.random.default_rng(13)
+    s, m, k = 5, 300, 12
+    vals = np.round(rng.uniform(size=(s, m, k)), 1).astype(np.float32)
+    vals = -np.sort(-vals, axis=2)
+    vals[:, :, 9:] = -np.inf
+    ids = rng.integers(0, 10**6, size=(s, m, k)).astype(np.int32)
+    ids[:, :, 9:] = -1
+    part_s, part_i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = merge_splits.launches
+    got = merge_splits(part_s, part_i)
+    assert merge_splits.launches == before + 1
+    want = merge_splits_plain(part_s, part_i)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import ref as jcref  # noqa: E402
 from repro.kernels import ref as jkref  # noqa: E402
 from repro.kernels.bound_prune import block_bounds as j_block_bounds  # noqa: E402
 from repro.kernels.cosine_topk import pruned_topk as j_pruned_topk  # noqa: E402
@@ -19,11 +20,13 @@ from repro_torch.core import ref as cref  # noqa: E402
 from repro_torch.kernels import ref as tkref  # noqa: E402
 from repro_torch.kernels.bound_prune import (block_bounds,  # noqa: E402
                                              block_bounds_plain)
-from repro_torch.kernels.cosine_topk import (pruned_topk,  # noqa: E402
+from repro_torch.kernels.cosine_topk import (choose_splits,  # noqa: E402
+                                             default_splits, merge_splits,
+                                             merge_splits_plain, pruned_topk,
                                              pruned_topk_plain)
 from tests.test_torch_cuda import (OPTIONS, assert_topk_match,  # noqa: E402
-                                   bound_operands, optional_operands,
-                                   topk_operands)
+                                   assert_topk_sets_close, bound_operands,
+                                   optional_operands, topk_operands)
 
 @pytest.mark.parametrize("m,nb,p", [(8, 4, 4), (37, 19, 12), (128, 64, 16),
                                     (256, 8, 8), (5, 100, 3)])
@@ -181,3 +184,144 @@ def test_pruned_topk_rejects_bad_arguments():
         pruned_topk(*args, 256, k=4, bm=8, bn=48)
 
 
+
+
+# ---------------------------------------------------------------------------
+# pruned_topk with the db axis split (splits > 1)
+# ---------------------------------------------------------------------------
+
+def run_splits(ops, splits, *, k, bm, bn, prune=True, elem=False, **opt):
+    """The port's wrapper on the CPU at ``splits`` and at 1, same operands."""
+    n = ops["db"].shape[0]
+    kw = optional_operands(ops, bm=bm, bn=bn, elem=elem, **opt)
+    kw = {a: None if v is None else torch.from_numpy(v) for a, v in kw.items()}
+    pos = [torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")]
+    common = dict(k=k, bm=bm, bn=bn, prune=prune, element_stats=elem)
+    got = pruned_topk(*pos, n, **kw, **common, splits=splits)
+    one = pruned_topk(*pos, n, **kw, **common, splits=1)
+    return ([None if x is None else x.numpy() for x in got],
+            [None if x is None else x.numpy() for x in one])
+
+
+def assert_splits_agree(got, one, *, prune=True):
+    """Result sets equal the single pass (tie-aware at 1e-5); splits
+    compute every tile the single pass computes, all of them without
+    pruning, and prune no more elements than it."""
+    assert_topk_sets_close(got[0], got[1], one[0], one[1], tol=1e-5)
+    assert (got[2] >= one[2]).all()
+    if not prune:
+        np.testing.assert_array_equal(got[2], one[2])
+        assert got[2].all()
+    if one[3] is not None:
+        assert (got[3] <= one[3]).all()
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+@pytest.mark.parametrize("n,d,k,bm,bn", SWEEP)
+@pytest.mark.parametrize("opt", list(OPTIONS))
+def test_pruned_topk_splits_match_one_pass(n, d, k, bm, bn, opt, splits):
+    """768 / 128 = 6 db tiles: splits 4 leaves two short splits."""
+    o = OPTIONS[opt]
+    ops = topk_operands(n, d, 40, bn, 8, seed=n + d, holes=o.get("holes", False))
+    got, one = run_splits(ops, splits, k=k, bm=bm, bn=bn, **o)
+    assert_splits_agree(got, one, prune=o.get("prune", True))
+    db0 = np.where(ops["valid"][:, None], ops["db"], 0)
+    sref, iref = jcref.brute_force_knn(ops["q"], db0, k)
+    np.testing.assert_allclose(got[0], sref, atol=3e-5)
+    assert_topk_sets_close(got[0], got[1], sref.astype(np.float32),
+                           iref.astype(np.int32), tol=3e-5)
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_pruned_topk_splits_k_sweep(k, splits):
+    """k from 1 to bn (=32), every option on, 16 db tiles."""
+    ops = topk_operands(512, 16, 24, 32, 6, seed=k, holes=True)
+    got, one = run_splits(ops, splits, k=k, bm=8, bn=32, **OPTIONS["all"])
+    assert_splits_agree(got, one)
+
+
+def test_pruned_topk_splits_one_query_tile_ragged():
+    """mt = 1 (m <= bm) and nt = 7 tiles over 3 splits (7 % 3 != 0): the
+    last split visits 2 tiles and takes a "no tile" step."""
+    ops = topk_operands(7 * 64, 24, 20, 64, 5, seed=11, holes=True)
+    got, one = run_splits(ops, 3, k=6, bm=32, bn=64, tau=True, order=True,
+                          elem=True, holes=True)
+    assert got[2].shape == (1, 7)
+    assert_splits_agree(got, one)
+    # every db tile is decided by its split (gap starts at 0; without τ
+    # seeds a split's first visits see τ = -inf, a gap of +inf)
+    *_, gap, near = pruned_topk_plain(
+        *[torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")],
+        7 * 64, k=6, bm=32, bn=64, splits=3, gaps=True)
+    assert bool((gap != 0).all()) and int(torch.isinf(gap).sum()) == 3
+    # splits = nt: every split holds one tile, nothing can prune
+    got, one = run_splits(ops, 7, k=6, bm=32, bn=64)
+    assert_splits_agree(got, one)
+    assert got[2].all()
+
+
+def test_pruned_topk_splits_equal_pallas_at_one():
+    """splits=1 passed explicitly is the reference's pass, slot for slot."""
+    ops = topk_operands(1024, 32, 40, 128, 8, seed=3)
+    ref, got = run_both(ops, k=5, bm=8, bn=128, tau=True)
+    _, one = run_splits(ops, 1, k=5, bm=8, bn=128, tau=True)
+    assert_topk_match(ref, got)
+    for a, b in zip(got, one):
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_pruned_topk_rejects_bad_splits():
+    ops = topk_operands(256, 16, 8, 64, 4, seed=6)
+    args = [torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")]
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="splits="):
+            pruned_topk(*args, 256, k=4, bm=8, bn=64, splits=bad)
+
+
+def test_merge_splits_tie_rule_and_empty_slots():
+    """Score descending, then split, then slot; -inf slots keep id -1."""
+    inf = float("-inf")
+    part_s = torch.tensor([[[0.9, 0.5, 0.5, inf], [0.7, inf, inf, inf]],
+                           [[0.5, 0.5, 0.1, inf], [inf, inf, inf, inf]],
+                           [[0.9, 0.5, inf, inf], [inf, inf, inf, inf]]])
+    part_i = torch.tensor([[[1, 2, 3, -1], [10, -1, -1, -1]],
+                           [[4, 5, 6, -1], [-1, -1, -1, -1]],
+                           [[7, 8, -1, -1], [-1, -1, -1, -1]]],
+                          dtype=torch.int32)
+    for fn in (merge_splits, merge_splits_plain):
+        s, i = fn(part_s, part_i)
+        assert torch.equal(s, torch.tensor([[0.9, 0.9, 0.5, 0.5],
+                                            [0.7, inf, inf, inf]]))
+        assert i.tolist() == [[1, 7, 2, 3], [10, -1, -1, -1]]
+    # one split is the identity
+    s, i = merge_splits_plain(part_s[:1], part_i[:1])
+    assert torch.equal(s, part_s[0]) and torch.equal(i, part_i[0])
+
+
+@pytest.mark.parametrize("mt,nt,sms,ctas,want", [
+    (79, 9247, 132, 2, 3),      # glove shape: 237 CTAs, one wave of 264
+    (79, 9247, 132, 1, 3),      # one CTA per SM: 237 CTAs in 2 waves of 132
+    (1, 9247, 132, 2, 230),     # one query tile: a wave within 15 %
+    (1, 5, 132, 2, 5),          # never more splits than db tiles
+    (264, 9247, 132, 2, 1),     # whole waves already
+    (300, 9247, 132, 2, 4),     # 1,200 CTAs in 5 waves, not 300 in 2
+])
+def test_choose_splits(mt, nt, sms, ctas, want):
+    s = choose_splits(mt, nt, sms, ctas)
+    assert s == want
+    slots = sms * ctas
+    cost = [-(-mt * x // slots) / x for x in range(1, min(nt, slots) + 1)]
+    assert cost[s - 1] <= 1.15 * min(cost)
+    assert all(c > 1.15 * min(cost) for c in cost[:s - 1])
+
+
+def test_choose_splits_rejects_empty():
+    with pytest.raises(ValueError):
+        choose_splits(0, 10, 132, 2)
+
+
+def test_default_splits_is_one_on_cpu():
+    assert default_splits(10_000, 1_183_616, 100, 16, bm=128, bn=128,
+                          device="cpu") == 1
