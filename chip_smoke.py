@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    data, k = 10 and k = 100, checked against a brute force on the card.
    Two corpora of that shape: a mixture of 64 clusters, where the bound
    skips tiles, and one of 2,048 clusters, where it skips none.  Neither
-   is GloVe: they say nothing of the bound's power on the real vectors;
+   is GloVe: they say nothing of the bound's power on the real vectors.
+   On the 64-cluster corpus also the engine's wide-prescan path
+   (warm_start_blocks = 9, past the engine's select route of up to 8), which
+   takes the [M, NB] bound matrix from block_bounds and sorts it, with the
+   launch counts set to 0 before it and read after it;
 4. K-loop and worst case: uniform data at nytimes-256-angular's shape
    (290,000 x 256, 10,000 queries, k = 10), where the bound prunes little;
 5. each kernel against its plain PyTorch version on the card, at the main
@@ -22,8 +26,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    sentinels), with times and bounds.  pruned_topk runs at one split and
    at the engine's chosen splits, each against the plain version at the
    same splits; merge_splits on the chosen run's partial lists;
+   block_bounds (bit for bit) and block_bounds_select (tile_max and best
+   exactly equal) against their plain versions at the main path's
+   operands and on sentinel, ragged and NaN cases; the bound stage's old
+   route (the matrix, its argsort, the padded copy, the tile max) timed
+   in turns against block_bounds_select, and kernel_inputs' outputs equal
+   through both;
 6. one torch.profiler window over a main-path search call: the device
-   operations that take its time.
+   operations that take its time, and no sort of the [M, NB] bound matrix
+   among them.
 
 Before the last line it prints one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
@@ -152,11 +163,77 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def phase_search(spec, seed, SearchEngine, kernels):
+def bounds_equal(got, want):
+    """Equal bit for bit where finite or infinite, NaN at the same places
+    (two NaNs may differ in their bits)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0)))
+
+
+def nan_first(best, ub):
+    """On every row of ``ub`` that holds NaN, ``best`` starts with its
+    lowest NaN blocks in ascending order (block_bounds_select ranks NaN
+    above every number, ties to the lower block)."""
+    nan = torch.isnan(ub)
+    rows = nan.any(1)
+    n_pre = best.shape[1]
+    first = torch.argsort((~nan[rows]).int(), dim=1, stable=True)[:, :n_pre]
+    have = nan[rows].sum(1, keepdim=True) > torch.arange(n_pre, device=ub.device)
+    return bool(((best[rows] == first) | ~have).all())
+
+
+def matrix_route(qp, lo, hi, ub_cap=None, *, bm, n_pre):
+    """The engine's bound stage as it was before block_bounds_select, kept
+    here (not in the package) as its yardstick: the [M, NB] matrix from
+    block_bounds, a stable descending argsort of all of it for the warm
+    start's best blocks, and a -inf-padded copy of it for each query tile's
+    max.  Same signature and outputs as block_bounds_select."""
+    from repro_torch.kernels.bound_prune import block_bounds
+
+    ub = block_bounds(qp, lo, hi, ub_cap)
+    best = torch.argsort(ub, dim=1, descending=True, stable=True)[:, :n_pre]
+    m, nt = ub.shape
+    mp = -(-m // bm) * bm
+    ub_p = torch.cat([ub, ub.new_full((mp - m, nt), float("-inf"))])
+    return ub_p.reshape(mp // bm, bm, nt).amax(1), best
+
+
+def kernel_inputs_equal(a, b):
+    """Two kernel_inputs results hold equal tensors (torch.equal) and equal
+    values everywhere."""
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(x, y)
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[n], y[n]) for n in x)
+        return x == y
+    return same(a, b)
+
+
+def kernel_inputs_by_route(kernel_inputs, route, *args, **kw):
+    """kernel_inputs with the bound stage taken by ``route`` (a function of
+    block_bounds_select's signature) for the length of the call."""
+    from repro_torch.search import backends
+
+    saved = backends.block_bounds_select
+    backends.block_bounds_select = route
+    try:
+        return kernel_inputs(*args, **kw)
+    finally:
+        backends.block_bounds_select = saved
+
+
+def phase_search(spec, seed, SearchEngine, kernels, wide=None):
     """Build and search one corpus through the engine; counts every kernel
-    launch of this run.  Returns the engine, queries and the k=10 result."""
+    launch of this run.  ``wide``: ``(warm_start_blocks, kernels)`` of the
+    wide-prescan path, driven after the main path on the same index with
+    the counts set to 0 before it.  Returns the engine, queries and the
+    report."""
     db_np, q_np = synth(spec, seed)
-    for kern in kernels:
+    for kern in kernels + (wide[1] if wide else ()):
         kern.launches = 0
     t0 = time.perf_counter()
     eng = SearchEngine.build(db_np, n_pivots=16, block_size=128)
@@ -165,62 +242,83 @@ def phase_search(spec, seed, SearchEngine, kernels):
     q = torch.from_numpy(q_np).cuda()
     out = {"build_s": build_s, "n_blocks": eng.n_blocks}
     results = {}
-    for k in spec["ks"]:
-        eng.search(q, k)                                   # warm-up
-        ms = cuda_ms(lambda: eng.search(q, k), REPS)
-        sims, ids, st = eng.search(q, k)
-        results[k] = (sims, ids)
+
+    def timed(name, engine, k):
+        engine.search(q, k)                                # warm-up
+        ms = cuda_ms(lambda: engine.search(q, k), REPS)
+        sims, ids, st = engine.search(q, k)
+        results[name] = (k, sims, ids)
         p50 = float(np.median(ms))
-        out[f"k{k}"] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3),
-                        "ms": ms, "block_prune_frac": float(st.block_prune_frac)}
+        out[name] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3), "ms": ms,
+                     "block_prune_frac": float(st.block_prune_frac)}
+        return f"{name}: p50 {p50:.3f} ms/call, QPS {out[name]['qps']:.1f}, " \
+               f"block_prune_frac {out[name]['block_prune_frac']:.4f}"
+
+    said = [timed(f"k{k}", eng, k) for k in spec["ks"]]
     out["launches"] = {kern.__name__: kern.launches for kern in kernels}
     log(f"[{spec['name']}] build {build_s:.3f} s, {eng.n_blocks} blocks; "
-        + "; ".join(f"k={k}: p50 {out[f'k{k}']['p50_ms']:.3f} ms/call, "
-                    f"QPS {out[f'k{k}']['qps']:.1f}, block_prune_frac "
-                    f"{out[f'k{k}']['block_prune_frac']:.4f}" for k in spec["ks"])
-        + f"; launches {out['launches']}")
+        + "; ".join(said) + f"; launches {out['launches']}")
     for name, count in out["launches"].items():
         check(count > 0, f"{spec['name']}: kernel {name} never launched")
+    if wide is not None:
+        blocks, wide_kernels = wide
+        for kern in kernels + wide_kernels:
+            kern.launches = 0
+        wide_eng = SearchEngine(eng.index, warm_start_blocks=blocks)
+        said = timed("wide_prescan_k10", wide_eng, 10)
+        seen = {kern.__name__: kern.launches for kern in kernels + wide_kernels}
+        out["wide_prescan_k10"].update(warm_start_blocks=blocks, launches=seen)
+        log(f"[{spec['name']}] wide prescan (warm_start_blocks={blocks}) {said}; "
+            f"launches {seen}")
+        for kern in wide_kernels:
+            check(seen[kern.__name__] > 0,
+                  f"wide prescan path: kernel {kern.__name__} never launched")
+        del wide_eng
 
     # exactness: result sets equal a brute force on the card
     dbn = torch.nn.functional.normalize(torch.from_numpy(db_np).cuda(), dim=1)
     qn = torch.nn.functional.normalize(q, dim=1)
-    for k, (sims, ids) in results.items():
+    for name, (k, sims, ids) in results.items():
         s_b, i_b = brute_topk(qn, dbn, k)
         s_g, i_g = sims.cpu().numpy(), ids.cpu().numpy()
-        check((i_g >= 0).all(), f"{spec['name']} k={k}: -1 id with k <= rows")
+        check((i_g >= 0).all(), f"{spec['name']} {name}: -1 id with k <= rows")
         check(np.isfinite(s_g).all() and s_g.shape == (spec["m"], k),
-              f"{spec['name']} k={k}: non-finite or misshapen sims")
+              f"{spec['name']} {name}: non-finite or misshapen sims")
         err = float(np.abs(s_g - s_b.cpu().numpy()).max())
         bad = tie_aware_mismatches(s_g, i_g, s_b.cpu().numpy(),
                                    i_b.cpu().numpy(), 1e-5)
-        log(f"[{spec['name']}] k={k} vs brute force: max |sim diff| {err:.3e}, "
+        log(f"[{spec['name']}] {name} vs brute force: max |sim diff| {err:.3e}, "
             f"rows differing beyond near-ties: {bad}")
-        check(err <= 1e-5 and bad == 0, f"{spec['name']} k={k}: not exact")
-        out[f"k{k}"]["max_abs_err_vs_brute"] = err
+        check(err <= 1e-5 and bad == 0, f"{spec['name']} {name}: not exact")
+        out[name]["max_abs_err_vs_brute"] = err
     del dbn
     return eng, q, out
 
 
-def profile_search(eng, q, k, top=12):
+def profile_search(eng, q, k, matrix_elems, top=12):
     """One torch.profiler window over a warm ``search`` call: the device
-    operations that took the most time in it (self time on the card)."""
+    operations that took the most time in it (self time on the card), and
+    every ``aten::sort`` with its input shape; fails if one of them sorts
+    ``matrix_elems`` or more keys (the [M, NB] bound matrix)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng.search(q, k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         eng.search(q, k)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = []
-    for e in prof.key_averages():
+
+    def device_ms(e):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            ops.append((e.key, us / 1e3, e.count))
+        return us / 1e3
+
+    ops = [(e.key, device_ms(e), e.count) for e in prof.key_averages()
+           if device_ms(e) > 0]
     ops.sort(key=lambda x: -x[1])
     total = sum(x[1] for x in ops)
     if not ops:
@@ -230,7 +328,14 @@ def profile_search(eng, q, k, top=12):
         log(f"[profile] search k={k}: {total:.3f} ms of device time in "
             f"{len(ops)} operations, wall {wall_ms:.3f} ms under the profiler; top: "
             + "; ".join(f"{name[:70]} x{n}: {ms:.3f} ms" for name, ms, n in ops[:top]))
-    return {"wall_ms": wall_ms, "device_ms": total,
+    sorts = [{"shape": list(e.input_shapes[0]) if e.input_shapes else [],
+              "count": e.count}
+             for e in prof.key_averages(group_by_input_shape=True)
+             if e.key == "aten::sort"]
+    log(f"[profile] aten::sort calls by input shape: {sorts}")
+    check(all(int(np.prod(x["shape"])) < matrix_elems for x in sorts),
+          f"a search call sorts the {matrix_elems}-element bound matrix: {sorts}")
+    return {"wall_ms": wall_ms, "device_ms": total, "sorts": sorts,
             "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in ops[:top]]}
 
 
@@ -330,12 +435,16 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
+    from repro_torch.kernels.bound_prune import (block_bounds,
+                                                 block_bounds_plain, block_bounds_select,
+                                                 block_bounds_select_plain,
+                                                 sqrt_mismatches)
     from repro_torch.kernels.cosine_topk import (_launch, _operands, merge_splits,
                                                  merge_splits_plain, pruned_topk,
                                                  pruned_topk_plain)
     from repro_torch.search import SearchEngine
-    from repro_torch.search.backends import kernel_inputs, prep_queries
+    from repro_torch.search.backends import (SELECT_ROUTE_MAX_N_PRE, kernel_inputs,
+                                             prep_queries, prescan_blocks)
 
     report = {}
     t_start = time.perf_counter()
@@ -359,16 +468,20 @@ def main(argv=None) -> int:
     log(f"[build] {report['build_s']:.2f} s for {sorted(built) or 'cached'}")
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    kernels = (pruned_topk, merge_splits, block_bounds)
+    # the main path's kernels; past SELECT_ROUTE_MAX_N_PRE prescanned tiles the
+    # engine takes block_bounds and a sort in place of block_bounds_select
+    kernels = (pruned_topk, merge_splits, block_bounds_select)
+    wide_path = (SELECT_ROUTE_MAX_N_PRE + 1, (pruned_topk, merge_splits, block_bounds))
 
-    # 3. the main path at full width
+    # 3. the main path at full width, and its wide-prescan path
     eng, q, report["clustered64"] = phase_search(CLUSTERED64, args.seed, SearchEngine,
-                                                 kernels)
-    launches = report["clustered64"]["launches"]
-    report["profile"] = profile_search(eng, q, 10)
+                                                 kernels, wide=wide_path)
+    launches = dict(report["clustered64"]["launches"],
+                    block_bounds=report["clustered64"]["wide_prescan_k10"]["launches"][
+                        "block_bounds"])
 
     # 5a. pruned_topk at the main path's operands (k = 10): at one split and
     # at the engine's chosen splits, each against the plain version at the
@@ -380,6 +493,7 @@ def main(argv=None) -> int:
         warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
     chosen = kkw["splits"]
     check(chosen > 1, f"the engine chose {chosen} splits at the main path")
+    report["profile"] = profile_search(eng, q, 10, kargs[2].shape[0] * kargs[3].shape[0])
     kw_of = {s: dict(kkw, splits=s) for s in (1, chosen)}
     runs = {}
     for s, kw_s in kw_of.items():
@@ -472,35 +586,133 @@ def main(argv=None) -> int:
         f"torch.topk {merge_lib:.3f} ms")
     del part_s, part_i, got_m, want_m, flat, runs, one, best
 
-    # 5b. block_bounds at the main path's [10,000 x 9,247 x 16]
-    lo, hi = kargs[3], kargs[4]
-    qps = kargs[2]
-    bb = block_bounds(qps, lo, hi)
+    # 5b. block_bounds in both modes at the main path's [10,000 x 9,247 x 16]
+    lo, hi, qps, cap_main = kargs[3], kargs[4], kargs[2], kkw["ub_cap"]
+    m_, nb_, p_ = qps.shape[0], lo.shape[0], qps.shape[1]
+    bm_ = kkw["bm"]
+    n_pre = prescan_blocks(10, kkw["bn"], nb_, eng.warm_start_blocks)
+    bb = block_bounds(qps, lo, hi, cap_main)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bb_plain = block_bounds_plain(qps, lo, hi)
+    bb_plain = block_bounds_plain(qps, lo, hi, cap_main)
     torch.cuda.synchronize()
     bb_plain_ms = (time.perf_counter() - t0) * 1e3
     bb_err = bounds_diff(bb, bb_plain)
-    bb_ms = float(np.median(cuda_ms(lambda: block_bounds(qps, lo, hi), REPS)))
-    m_, nb_ = bb.shape
-    p_ = qps.shape[1]
+    check(bb_err == 0 and torch.equal(bb, bb_plain),
+          f"block_bounds differs from its plain version (max |diff| {bb_err})")
+    del bb, bb_plain
+    # the kernels' branch-free root against __fsqrt_rn, every float of its domain
+    sqrt_bad = sqrt_mismatches()
+    log(f"[kernels] branch-free square root vs __fsqrt_rn, every float of its "
+        f"domain: {sqrt_bad} mismatches (zero-safe, nonzero variant)")
+    check(sqrt_bad == (0, 0), f"the kernels' square root differs from __fsqrt_rn: {sqrt_bad}")
+    sel_runs = {}
+    # past the engine's select route too: where the two routes cross
+    wide_n_pre = (SELECT_ROUTE_MAX_N_PRE + 1, 64)
+    for npre in sorted({n_pre, SELECT_ROUTE_MAX_N_PRE, *wide_n_pre}):
+        got_s = block_bounds_select(qps, lo, hi, cap_main, bm=bm_, n_pre=npre)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_s = block_bounds_select_plain(qps, lo, hi, cap_main, bm=bm_, n_pre=npre)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        old_s = matrix_route(qps, lo, hi, cap_main, bm=bm_, n_pre=npre)
+        eq = [torch.equal(got_s[i], want_s[i]) and torch.equal(old_s[i], want_s[i])
+              for i in (0, 1)]
+        sel_runs[npre] = {"plain_ms": plain_ms, "tile_max_equal": eq[0],
+                          "best_equal": eq[1],
+                          "tile_max_err": bounds_diff(got_s[0], want_s[0])}
+        log(f"[kernels] block_bounds_select n_pre={npre}: tile_max equal {eq[0]}, "
+            f"best equal {eq[1]} (kernel, plain and old route), plain {plain_ms:.1f} ms")
+        check(all(eq), f"block_bounds_select n_pre={npre} differs from its plain "
+                       f"version or the old route")
+        del got_s, want_s, old_s
+    # in turns: the matrix mode, the old route, the select mode
+    timing = {"bounds": [], "old_route": [], "select": []}
+    for _ in range(REPS):
+        timing["bounds"] += cuda_ms(lambda: block_bounds(qps, lo, hi, cap_main), 1)
+        timing["old_route"] += cuda_ms(lambda: matrix_route(
+            qps, lo, hi, cap_main, bm=bm_, n_pre=n_pre), 1)
+        timing["select"] += cuda_ms(lambda: block_bounds_select(
+            qps, lo, hi, cap_main, bm=bm_, n_pre=n_pre), 1)
+    # in turns, at prescans past the engine's select route: the old route
+    # against the select mode
+    wide_ms = {f"{route}_n{w}": [] for w in wide_n_pre
+               for route in ("old_route", "select")}
+    for _ in range(REPS):
+        for w in wide_n_pre:
+            wide_ms[f"old_route_n{w}"] += cuda_ms(lambda: matrix_route(
+                qps, lo, hi, cap_main, bm=bm_, n_pre=w), 1)
+            wide_ms[f"select_n{w}"] += cuda_ms(lambda: block_bounds_select(
+                qps, lo, hi, cap_main, bm=bm_, n_pre=w), 1)
+    timing.update(wide_ms)
+    med = {name: float(np.median(v)) for name, v in timing.items()}
+    # kernel_inputs through the old route and the new one, in turns: the
+    # same outputs, and the time of the whole stage
+    ki_args = (eng.index, qn, qp, 10)
+    ki_kw = dict(bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
+                 best_first=eng.best_first, margin=eng.margin,
+                 warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+    same = kernel_inputs_equal(
+        kernel_inputs_by_route(kernel_inputs, matrix_route, *ki_args, **ki_kw),
+        kernel_inputs(*ki_args, **ki_kw))
+    log(f"[kernels] kernel_inputs at the main path, old route vs block_bounds_select: "
+        f"outputs equal {same}")
+    check(same, "kernel_inputs differs between the old route and block_bounds_select")
+    ki_ms = {"old_route": [], "select": []}
+    for _ in range(REPS):
+        ki_ms["old_route"] += cuda_ms(lambda: kernel_inputs_by_route(
+            kernel_inputs, matrix_route, *ki_args, **ki_kw), 1)
+        ki_ms["select"] += cuda_ms(lambda: kernel_inputs(*ki_args, **ki_kw), 1)
+    ki_med = {name: float(np.median(v)) for name, v in ki_ms.items()}
+    report["bound_stage"] = {"ms": timing, "kernel_inputs_ms": ki_ms, "n_pre": n_pre,
+                             "select_checks": sel_runs, "sqrt_mismatches": sqrt_bad}
+    log(f"[kernels] bound stage at n_pre={n_pre}, in turns: block_bounds "
+        f"{med['bounds']:.3f} ms, old route (block_bounds + argsort + padded copy + "
+        f"tile max) {med['old_route']:.3f} ms, block_bounds_select {med['select']:.3f} ms; "
+        f"kernel_inputs old route {ki_med['old_route']:.3f} ms, new "
+        f"{ki_med['select']:.3f} ms")
+    for w in wide_n_pre:
+        log(f"[kernels] bound stage at n_pre={w}, in turns: old route "
+            f"{med[f'old_route_n{w}']:.3f} ms, block_bounds_select "
+            f"{med[f'select_n{w}']:.3f} ms")
+    cap_bytes = 0 if cap_main is None else 4 * m_ * nb_
+    in_bytes = 4 * (m_ * p_ + 2 * nb_ * p_) + cap_bytes
+    bound_note = "none: no single PyTorch call computes the Eq. 13 interval bound"
     bb_entry = {
         "name": "block_bounds", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_bounds.cu",
         "replaces": "src/repro/kernels/bound_prune.py:58",
         "launches": launches["block_bounds"], "max_abs_err": bb_err,
-        "ms": bb_ms, "plain_ms": bb_plain_ms,
+        "ms": med["bounds"], "plain_ms": bb_plain_ms,
         # the ops: Eq. 13, and per (query, block) the empty-block select
-        **bound_entry(4 * (m_ * p_ + 2 * nb_ * p_ + m_ * nb_),
+        **bound_entry(in_bytes + 4 * m_ * nb_,
                       eq13_ops(m_, nb_, p_) + float(m_) * nb_),
-        "library_ms": None,
-        "library": "none: no single PyTorch call computes the Eq. 13 interval bound"}
-    log(f"[kernels] block_bounds [{m_} x {nb_} x {p_}]: max |diff| {bb_err:.3e}, "
-        f"kernel {bb_ms:.3f} ms, plain {bb_plain_ms:.1f} ms, bound "
-        f"{bb_entry['bound_ms']:.3f} ms ({bb_entry['bound_by']})")
-    check(bb_err <= 1e-6, "block_bounds disagrees with its plain version")
-    del bb, bb_plain, kargs, kkw, qn, qp, eng, q
+        "library_ms": None, "library": bound_note, "ms_all": timing["bounds"]}
+    sel_entry = {
+        "name": "block_bounds_select", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_bounds.cu",
+        "replaces": "src/repro/kernels/bound_prune.py:58",
+        "launches": launches["block_bounds_select"],
+        "max_abs_err": sel_runs[n_pre]["tile_max_err"],
+        "ms": med["select"], "plain_ms": sel_runs[n_pre]["plain_ms"],
+        # block_bounds' operations, plus per (query, block) the max into
+        # tile_max and one comparison for the top n_pre; bytes of the
+        # inputs, tile_max and best
+        **bound_entry(in_bytes + 4 * (-(-m_ // bm_)) * nb_ + 8 * m_ * n_pre,
+                      eq13_ops(m_, nb_, p_) + 3.0 * m_ * nb_),
+        "library_ms": None, "library": bound_note, "n_pre": n_pre,
+        "covers": "one launch runs two kernels, select_kernel and "
+                  "select_merge_kernel; ms and launches count both",
+        "old_route_ms": med["old_route"], "ms_all": timing["select"],
+        "old_route_ms_all": timing["old_route"],
+        "kernel_inputs_ms": ki_med["select"],
+        "kernel_inputs_old_route_ms": ki_med["old_route"]}
+    for e in (bb_entry, sel_entry):
+        log(f"[kernels] {e['name']} [{m_} x {nb_} x {p_}]: max |diff| "
+            f"{e['max_abs_err']:.3e}, kernel {e['ms']:.3f} ms, plain "
+            f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    del kargs, kkw, qn, qp, eng, q
     torch.cuda.empty_cache()
 
     # 5c. small cases: ub_cap, element stats, holes in row_valid, k = bn,
@@ -544,14 +756,27 @@ def main(argv=None) -> int:
     lo_s, hi_s = idx.dp_min.clone(), idx.dp_max.clone()
     lo_s[::7], hi_s[::7] = float("inf"), float("-inf")
     cap = torch.rand(sqp.shape[0], lo_s.shape[0], device="cuda") + 0.5
-    for with_cap in (None, cap):
-        got_b = block_bounds(sqp, lo_s, hi_s, with_cap)
-        want_b = block_bounds_plain(sqp, lo_s, hi_s, with_cap)
-        err = bounds_diff(got_b, want_b)
-        cases[f"block_bounds sentinel{'+cap' if with_cap is not None else ''}"] = err
-        check(err <= 1e-6 and bool(torch.isneginf(got_b[:, ::7]).all()),
-              "block_bounds disagrees on sentinel blocks")
-    log(f"[kernels] block_bounds sentinel cases: max |diff| {err:.3e}")
+    # NaN in qp, lo and the cap, and qp = 0 against [-inf, -inf]
+    nqp, nlo, nhi, ncap = sqp.clone(), lo_s.clone(), hi_s.clone(), cap.clone()
+    nqp[5, 2], nlo[8, 1], ncap[9, 11] = float("nan"), float("nan"), float("nan")
+    nqp[20:30, 0], nlo[13, 0], nhi[13, 0] = 0.0, float("-inf"), float("-inf")
+    # 300 queries: ragged at bm = 128 and bm = 8
+    for name, ops in [("sentinel", (sqp, lo_s, hi_s, None)),
+                      ("sentinel+cap", (sqp, lo_s, hi_s, cap)),
+                      ("nan", (nqp, nlo, nhi, ncap))]:
+        got_b, want_b = block_bounds(*ops), block_bounds_plain(*ops)
+        ok = bounds_equal(got_b, want_b) and bool(torch.isneginf(got_b[:, ::7]).all())
+        clean = ~torch.isnan(want_b).any(1)
+        for bm_s in (8, 128):
+            got_s = block_bounds_select(*ops, bm=bm_s, n_pre=3)
+            want_s = block_bounds_select_plain(*ops, bm=bm_s, n_pre=3)
+            ok = (ok and bounds_equal(got_s[0], want_s[0])
+                  and torch.equal(got_s[1][clean], want_s[1][clean])
+                  and nan_first(got_s[1], want_b))
+        cases[f"block_bounds {name}"] = {"equal": ok, "rows_with_nan": int((~clean).sum())}
+        log(f"[kernels] block_bounds and block_bounds_select, {name} case: "
+            f"{cases[f'block_bounds {name}']}")
+        check(ok, f"block_bounds or block_bounds_select disagrees in the {name} case")
     report["small_cases"] = cases
     del small, idx
 
@@ -563,7 +788,7 @@ def main(argv=None) -> int:
     _, _, report["uniform256"] = phase_search(UNIFORM256, args.seed + 2, SearchEngine,
                                               kernels)
 
-    report["kernels"] = [topk_entry, merge_entry, bb_entry]
+    report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry]
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)

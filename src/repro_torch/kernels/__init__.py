@@ -2,8 +2,10 @@
 
   cosine_topk  — ``pruned_topk``: fused bound test, tile skip, fp32 scores
                  and top-k merge (``csrc/pruned_topk.cu``)
-  bound_prune  — ``block_bounds``: the ``[M, NB]`` Eq. 13 bound matrix
-                 (``csrc/block_bounds.cu``)
+  bound_prune  — ``block_bounds``: the ``[M, NB]`` Eq. 13 bound matrix,
+                 and ``block_bounds_select``: the same bounds reduced to
+                 per-query-tile maxima and each query's best blocks
+                 without writing the matrix (``csrc/block_bounds.cu``)
   ref          — plain oracles both build on
   _build       — ``nvcc`` on first use, ``ctypes`` loading
 """

@@ -8,7 +8,8 @@ Counterpart of :mod:`repro.search.backends`.  Every backend implements::
 and registers itself under a name with :func:`register_backend`:
 
   ``kernel``  the hand-written ``pruned_topk`` kernel (tiles it proves
-              unnecessary are skipped), fed by the ``block_bounds`` kernel
+              unnecessary are skipped), fed by the ``block_bounds_select``
+              kernel
   ``brute``   full matmul + top-k (baseline / tiny datastores)
 
 The shared helpers (query prep, τ warm-start seeding, best-first tile
@@ -25,14 +26,23 @@ from repro_torch.core.index import BlockIndex, multipivot_block_cap
 from repro_torch.core.pivots import normalize
 from repro_torch.kernels import cosine_topk
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.bound_prune import block_bounds
+from repro_torch.kernels.bound_prune import (block_bounds, block_bounds_select,
+                                             select_bounds)
 
 __all__ = [
     "register_backend", "get_backend", "available_backends",
     "prep_queries", "map_row_ids", "kernel_inputs", "kernel_search",
     "brute_search", "tau_warm_start", "prescan_blocks", "coarsen_intervals",
-    "query_sort_perm", "best_first_order",
+    "query_sort_perm", "best_first_order", "SELECT_ROUTE_MAX_N_PRE",
 ]
+
+#: the widest prescan (tiles per query) that :func:`kernel_inputs` takes
+#: through ``block_bounds_select``; a wider one, which only an explicit
+#: ``warm_start_blocks`` asks for, takes the ``block_bounds`` matrix and
+#: sorts it.  The select kernel's merge grows with n_pre squared, so the
+#: matrix route wins for wide prescans; on an H100 the two cross between
+#: 9 and 64 tiles, above this limit (PERF.md)
+SELECT_ROUTE_MAX_N_PRE = 8
 
 _REGISTRY: dict[str, object] = {}
 
@@ -96,21 +106,19 @@ def prescan_blocks(k: int, block_rows: int, n_blocks: int,
 
 
 def tau_warm_start(qn: Tensor, db_blocks: Tensor, valid_blocks: Tensor,
-                   ub: Tensor, k: int, n_pre: int = 1) -> Tensor:
-    """Seed each query's running k-th best from its ``n_pre`` best-bound
-    blocks: gather them, exact-score them together and take the k-th best
-    (a true lower bound on the final τ; DESIGN.md §3.4).  Queries whose
+                   best: Tensor, k: int) -> Tensor:
+    """Seed each query's running k-th best from its best-bound blocks
+    ``best [m, n_pre]`` (:func:`~repro_torch.kernels.bound_prune.select_bounds`:
+    the first ``n_pre`` of a stable descending sort of the bounds, so among
+    equal bounds the lower block wins, as ``lax.top_k`` guarantees in the
+    reference): gather them, exact-score them together and take the k-th
+    best (a true lower bound on the final τ; DESIGN.md §3.4).  Queries whose
     prescanned blocks hold < k valid rows get -inf.
-
-    The ranking is a stable descending sort, so among equal bounds the
-    lower block wins, as ``lax.top_k`` guarantees in the reference.
     """
-    m = qn.shape[0]
-    nb, bs, d = db_blocks.shape
-    n_pre = max(1, min(n_pre, nb))
+    m, n_pre = best.shape
+    _, bs, d = db_blocks.shape
     if n_pre * bs < k:
         return torch.full((m,), float("-inf"), device=qn.device)
-    best = torch.argsort(ub, dim=1, descending=True, stable=True)[:, :n_pre]
     blk = db_blocks[best].reshape(m, n_pre * bs, d)
     vb = valid_blocks[best].reshape(m, n_pre * bs)
     scores = torch.bmm(blk, qn[:, :, None])[:, :, 0]
@@ -128,11 +136,12 @@ def query_sort_perm(qp: Tensor) -> Tensor:
     return p1[torch.argsort(nearest[p1], stable=True)]
 
 
-def best_first_order(ub: Tensor) -> Tensor:
-    """Blocks by descending upper bound, aggregated (max) over the queries:
-    ``[..., m, nb] -> [..., nb]`` i32 visit order.  The block *any* query
-    still needs comes first, which drives every τ up fastest."""
-    return torch.argsort(-ub.amax(-2), dim=-1, stable=True).int()
+def best_first_order(tile_max: Tensor) -> Tensor:
+    """Blocks by descending upper bound aggregated (max) over each query
+    tile's rows: ``tile_max [..., nb] -> [..., nb]`` i32 visit order.  The
+    block *any* query still needs comes first, which drives every τ up
+    fastest."""
+    return torch.argsort(-tile_max, dim=-1, stable=True).int()
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +170,12 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
                   warm_start_blocks: int | None = None, n_pivots: int = 0):
     """Everything :func:`kernel_search` hands ``pruned_topk``: returns
     ``(args, kwargs, perm)`` where ``perm`` is the query sort permutation
-    (``None`` unless ``sort_queries``).  The block bound matrix behind the
-    warm start and the best-first order comes from the ``block_bounds``
-    kernel on CUDA.  ``splits`` is the card's
+    (``None`` unless ``sort_queries``).  The warm start's best-bound tiles
+    and the best-first order's per-query-tile maxima come from the
+    ``block_bounds_select`` kernel on CUDA, which never writes the
+    ``[m, nt]`` bound matrix; a prescan wider than ``SELECT_ROUTE_MAX_N_PRE``
+    tiles (``warm_start_blocks`` > 8) takes that matrix from the
+    ``block_bounds`` kernel and sorts it.  ``splits`` is the card's
     (:func:`cosine_topk.default_splits`) on CUDA and 1 on the CPU."""
     bn = _resolve_bn(index, bn)
     factor = bn // index.block_size
@@ -179,21 +191,22 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     if prune and n_pivots > 0:
         cap = multipivot_block_cap(index, qn, n_pivots=n_pivots)  # [m, nb]
         ub_cap = cap.reshape(m, lo.shape[0], -1).amax(-1)         # [m, nt]
-    ub = None
+    tau_init = block_order = None
     if warm_start or best_first:
-        ub = block_bounds(qp, lo, hi, ub_cap)                     # [m, nt]
-    tau_init = None
-    if warm_start:
-        db_tiles = index.db.reshape(-1, bn, index.db.shape[-1])
-        valid_tiles = index.valid.reshape(-1, bn)
-        n_pre = prescan_blocks(k, bn, db_tiles.shape[0], warm_start_blocks)
-        tau_init = tau_warm_start(qn, db_tiles, valid_tiles, ub, k, n_pre)
-    block_order = None
-    if best_first:
-        mp = -(-m // bm) * bm
         nt = lo.shape[0]
-        ub_p = torch.cat([ub, ub.new_full((mp - m, nt), float("-inf"))])
-        block_order = best_first_order(ub_p.reshape(mp // bm, bm, nt))
+        n_pre = prescan_blocks(k, bn, nt, warm_start_blocks)
+        if n_pre <= SELECT_ROUTE_MAX_N_PRE:
+            tile_max, best = block_bounds_select(qp, lo, hi, ub_cap, bm=bm,
+                                                 n_pre=n_pre)
+        else:
+            tile_max, best = select_bounds(block_bounds(qp, lo, hi, ub_cap),
+                                           bm=bm, n_pre=n_pre)
+        if warm_start:
+            tau_init = tau_warm_start(
+                qn, index.db.reshape(nt, bn, -1), index.valid.reshape(nt, bn),
+                best, k)
+        if best_first:
+            block_order = best_first_order(tile_max)
     args = (qn, index.db, qp, lo, hi, n_valid)
     kwargs = dict(tau_init=tau_init, block_order=block_order,
                   dp=index.dp if element_stats else None, ub_cap=ub_cap,

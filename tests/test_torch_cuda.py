@@ -11,8 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import ref as cref  # noqa: E402
-from repro_torch.kernels.bound_prune import (block_bounds,  # noqa: E402
-                                             block_bounds_plain)
+from repro_torch.kernels.bound_prune import (SELECT_MAX_N_PRE,  # noqa: E402
+                                             block_bounds, block_bounds_plain,
+                                             block_bounds_select,
+                                             block_bounds_select_plain,
+                                             sqrt_mismatches)
 from repro_torch.kernels.cosine_topk import (default_splits,  # noqa: E402
                                              merge_splits, merge_splits_plain,
                                              pruned_topk, pruned_topk_plain)
@@ -44,6 +47,40 @@ def bound_operands(m, nb, p, dtype, seed):
     lo[nb // 2], hi[nb // 2] = np.inf, -np.inf
     lo[-1, 0], hi[-1, 0] = np.inf, -np.inf
     cap = rng.uniform(0.5, 1.2, size=(m, nb)).astype(np.float32)
+    return qp, lo, hi, cap
+
+
+def select_operands(m, nb, p, seed):
+    """bound_operands plus deliberate ties and rows with no finite bound:
+    block 3's intervals repeated in the middle of the second chunk of 128
+    blocks and at the last block, and the first 50 queries at the centre of
+    those intervals, so each bounds at 1 there (ties inside a chunk and
+    across chunks, where the lower block must win); with the cap, rows 1
+    and m - 2 bound at -inf everywhere (the first n_pre blocks win)."""
+    qp, lo, hi, cap = bound_operands(m, nb, p, np.float32, seed)
+    for b in (min(nb - 2, 192), nb - 1):
+        lo[b], hi[b] = lo[3], hi[3]
+    qp[:50] = (lo[3] + hi[3]) / 2
+    cap[[1, m - 2]] = -np.inf
+    return qp, lo, hi, cap
+
+
+def nan_operands(m, nb, p, seed, *, nan_in_lo=True):
+    """bound_operands with the inputs that make NaN or infinities: NaN in
+    qp (row 5) and in the cap (row 9, block 11); qp = 0 against an interval
+    [-inf, -inf] (block 13, which is not inverted: 0 * -inf is NaN at both
+    ends); an inverted pivot beside an infinite end (block 19); with
+    ``nan_in_lo``, NaN in lo (block 7) and an inverted pivot beside a NaN
+    end (block 17): NaN bounds for every query."""
+    qp, lo, hi, cap = bound_operands(m, nb, p, np.float32, seed)
+    qp[5, 2] = np.nan
+    cap[9, 11] = np.nan
+    qp[20:30, 0] = 0.0
+    lo[13, 0] = hi[13, 0] = -np.inf
+    lo[19, 0], hi[19, 0], lo[19, 1] = np.inf, -np.inf, -np.inf
+    if nan_in_lo:
+        lo[7, 1] = np.nan
+        lo[17, 0], hi[17, 0], lo[17, 2] = np.inf, -np.inf, np.nan
     return qp, lo, hi, cap
 
 
@@ -153,6 +190,120 @@ def test_block_bounds_kernel_matches_plain(cuda, with_cap):
     assert block_bounds.launches == before + 1
     want = block_bounds_plain(*args, c)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [3, 8, 12, 24, 64])
+def test_block_bounds_kernel_pivot_counts_match_plain(cuda, p):
+    """P <= 8 and <= 16 keep the column in registers (12 with 4 padding
+    pivots); 24 and 64 in shared memory."""
+    qp, lo, hi, cap = bound_operands(150, 300, p, np.float32, seed=p)
+    args = [torch.from_numpy(a).to(cuda) for a in (qp, lo, hi, cap)]
+    for c in (None, args[3]):
+        torch.testing.assert_close(block_bounds(*args[:3], c),
+                                   block_bounds_plain(*args[:3], c), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [16, 24])
+def test_block_bounds_kernel_nan_and_inf_match_plain(cuda, p):
+    """NaN wherever the plain version has NaN, every other value equal."""
+    args = [torch.from_numpy(a).to(cuda) for a in nan_operands(150, 300, p, seed=p)]
+    for c in (None, args[3]):
+        got, want = block_bounds(*args[:3], c), block_bounds_plain(*args[:3], c)
+        # row 5 is NaN but where every pivot is inverted (block 150)
+        assert int(torch.isnan(want[5]).sum()) == 299
+        assert bool(torch.isnan(want[20:30, 13]).all() & torch.isnan(want[:, 7]).all())
+        torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+
+
+def assert_select_equal(got, want, rows=slice(None)):
+    """tile_max equal (NaN where the plain version has NaN) and best equal
+    index for index on ``rows``."""
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0, equal_nan=True)
+    assert got[1].dtype == torch.int64 and got[1].shape == want[1].shape
+    assert torch.equal(got[1][rows], want[1][rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cap", [False, True], ids=["nocap", "cap"])
+@pytest.mark.parametrize("bm", [8, 128])
+@pytest.mark.parametrize("n_pre", [1, 3, 8, 9, 128])
+def test_block_bounds_select_kernel_matches_plain(cuda, n_pre, bm, with_cap):
+    """300 queries (ragged at both bm), 700 blocks (a ragged last chunk of
+    60), empty-block sentinels, ties inside and across chunks, and with the
+    cap two rows that bound at -inf everywhere."""
+    qp, lo, hi, cap = select_operands(300, 700, 16, seed=n_pre * bm)
+    args = [torch.from_numpy(a).to(cuda) for a in (qp, lo, hi)]
+    c = torch.from_numpy(cap).to(cuda) if with_cap else None
+    before = block_bounds_select.launches, block_bounds.launches
+    got = block_bounds_select(*args, c, bm=bm, n_pre=n_pre)
+    assert (block_bounds_select.launches, block_bounds.launches) == (
+        before[0] + 1, before[1])
+    want = block_bounds_select_plain(*args, c, bm=bm, n_pre=n_pre)
+    assert_select_equal(got, want)
+    if with_cap:
+        assert got[1][1].tolist() == list(range(n_pre))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 24])
+def test_block_bounds_select_kernel_pivot_counts_match_plain(cuda, p):
+    qp, lo, hi, cap = select_operands(200, 260, p, seed=p)
+    args = [torch.from_numpy(a).to(cuda) for a in (qp, lo, hi, cap)]
+    assert_select_equal(block_bounds_select(*args, bm=64, n_pre=2),
+                        block_bounds_select_plain(*args, bm=64, n_pre=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nan_in_lo", [False, True], ids=["qp_cap", "qp_lo_cap"])
+def test_block_bounds_select_kernel_nan_rows(cuda, nan_in_lo):
+    """tile_max carries NaN where the plain version does.  best equals the
+    plain version on every row whose bounds hold no NaN; on the others it
+    ranks NaN first, lower block first (NaN in lo: every row)."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in nan_operands(150, 300, 16, seed=3, nan_in_lo=nan_in_lo)]
+    got = block_bounds_select(*args, bm=32, n_pre=4)
+    want = block_bounds_select_plain(*args, bm=32, n_pre=4)
+    nan = torch.isnan(block_bounds_plain(*args))
+    clean = ~nan.any(1)
+    assert int(clean.sum()) == (0 if nan_in_lo else 138)
+    assert_select_equal(got, want, rows=clean)
+    for r in torch.nonzero(~clean)[:, 0].tolist():
+        first = torch.nonzero(nan[r])[:4, 0].tolist()
+        row = got[1][r].tolist()
+        assert row[:len(first)] == first and len(set(row)) == 4, (r, row, first)
+        assert all(0 <= b < 300 for b in row)
+
+
+@pytest.mark.cuda
+def test_block_bounds_select_kernel_rejects_bad_operands(cuda):
+    qp, lo, hi, cap = (torch.from_numpy(a).to(cuda)
+                       for a in bound_operands(20, 30, 4, np.float32, seed=1))
+    with pytest.raises(TypeError, match="qp"):
+        block_bounds_select(qp.double(), lo, hi, bm=8, n_pre=1)
+    with pytest.raises(ValueError, match="ub_cap"):
+        block_bounds_select(qp, lo, hi, cap[:, :5], bm=8, n_pre=1)
+    with pytest.raises(ValueError, match="dp_min"):
+        block_bounds_select(qp, lo.cpu(), hi, bm=8, n_pre=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        block_bounds_select(qp, lo.t().contiguous().t(), hi, bm=8, n_pre=1)
+    for n_pre in (0, 31):
+        with pytest.raises(ValueError, match="n_pre"):
+            block_bounds_select(qp, lo, hi, bm=8, n_pre=n_pre)
+    qp, lo, hi, _ = (torch.from_numpy(a).to(cuda)
+                     for a in bound_operands(20, 200, 4, np.float32, seed=1))
+    with pytest.raises(ValueError, match="n_pre"):
+        block_bounds_select(qp, lo, hi, bm=8, n_pre=SELECT_MAX_N_PRE + 1)
+    with pytest.raises(ValueError, match="bm=129"):
+        block_bounds_select(qp, lo, hi, bm=129, n_pre=1)
+
+
+@pytest.mark.cuda
+def test_branch_free_sqrt_equals_fsqrt_rn_everywhere(cuda):
+    """The kernels' square root of a product of radicands equals the card's
+    IEEE __fsqrt_rn for every float of its domain, and NaN gives NaN."""
+    assert sqrt_mismatches(cuda) == (0, 0)
 
 
 @pytest.mark.cuda

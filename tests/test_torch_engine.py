@@ -23,6 +23,7 @@ from repro.search import defaults as j_defaults  # noqa: E402
 from repro_torch.core import ref  # noqa: E402
 from repro_torch.core.index import build_index, index_from_reference  # noqa: E402
 from repro_torch.search import SearchEngine, auto_backend  # noqa: E402
+from repro_torch.search import backends  # noqa: E402
 from repro_torch.search import defaults as t_defaults  # noqa: E402
 from tests.conftest import clustered  # noqa: E402
 from tests.test_torch_pivots_index import assert_same_build, fields  # noqa: E402
@@ -80,6 +81,9 @@ CASES = {
     "k10_elem_stats": (10, 128, None, dict(element_stats=True)),
     "k10_natural_order": (10, 128, None, dict(best_first=False,
                                               warm_start=False)),
+    # prescans on both sides of block_bounds_select's limit (8 tiles)
+    "k10_prescan8": (10, 128, None, dict(warm_start_blocks=8)),
+    "k10_prescan9": (10, 128, None, dict(warm_start_blocks=9)),
 }
 
 
@@ -106,6 +110,44 @@ def test_kernel_engine_matches_reference(shared, case):
     assert st_t.n_pivots == st_j.n_pivots and st_t.k == k
     if kind == "clustered" and case == "k10":
         assert float(st_t.block_prune_frac) > 0.2        # the bound engages
+
+
+@pytest.mark.parametrize("n_pivots", [0, 8], ids=["eq13", "joint_cap"])
+@pytest.mark.parametrize("blocks", [None, 8, 9], ids=["prescan1", "prescan8", "prescan9"])
+def test_kernel_inputs_select_route_equals_matrix_route(shared, blocks, n_pivots,
+                                                        monkeypatch):
+    """kernel_inputs through block_bounds_select (a prescan of up to 8
+    tiles) or block_bounds and a sort (9) hands pruned_topk the same
+    arguments, tau_init and block_order included, as the route it
+    replaced: the whole bound matrix, its argsort and a padded copy of it
+    (chip_smoke.matrix_route)."""
+    from chip_smoke import kernel_inputs_by_route, kernel_inputs_equal, matrix_route
+
+    _, _, q, index = shared
+    idx = index_from_reference(fields(index(128)), "cpu")
+    qn, qp = backends.prep_queries(idx, torch.from_numpy(q))
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(backends, "block_bounds_select",
+                        spy("select", backends.block_bounds_select))
+    monkeypatch.setattr(backends, "block_bounds", spy("matrix", backends.block_bounds))
+    kw = dict(bm=BM, warm_start=True, best_first=True, warm_start_blocks=blocks,
+              n_pivots=n_pivots)
+    new = backends.kernel_inputs(idx, qn, qp, 10, **kw)
+    assert calls == (["matrix"] if blocks == 9 else ["select"])
+    old = kernel_inputs_by_route(backends.kernel_inputs, matrix_route, idx, qn, qp,
+                                 10, **kw)
+    assert kernel_inputs_equal(new, old)
+    args, kwargs, _ = new
+    assert kwargs["tau_init"].shape == (M,) and kwargs["block_order"].shape == (
+        -(-M // BM), args[3].shape[0])
+    assert (kwargs["ub_cap"] is None) == (n_pivots == 0)
 
 
 def test_kernel_engine_prune_off_computes_everything(shared):

@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
 
 from repro.core import ref as jcref  # noqa: E402
 from repro.kernels import ref as jkref  # noqa: E402
@@ -18,15 +19,17 @@ from repro.kernels.bound_prune import block_bounds as j_block_bounds  # noqa: E4
 from repro.kernels.cosine_topk import pruned_topk as j_pruned_topk  # noqa: E402
 from repro_torch.core import ref as cref  # noqa: E402
 from repro_torch.kernels import ref as tkref  # noqa: E402
-from repro_torch.kernels.bound_prune import (block_bounds,  # noqa: E402
-                                             block_bounds_plain)
+from repro_torch.kernels.bound_prune import (SELECT_MAX_N_PRE,  # noqa: E402
+                                             block_bounds, block_bounds_plain,
+                                             block_bounds_select)
 from repro_torch.kernels.cosine_topk import (choose_splits,  # noqa: E402
                                              default_splits, merge_splits,
                                              merge_splits_plain, pruned_topk,
                                              pruned_topk_plain)
 from tests.test_torch_cuda import (OPTIONS, assert_topk_match,  # noqa: E402
                                    assert_topk_sets_close, bound_operands,
-                                   optional_operands, topk_operands)
+                                   optional_operands, select_operands,
+                                   topk_operands)
 
 @pytest.mark.parametrize("m,nb,p", [(8, 4, 4), (37, 19, 12), (128, 64, 16),
                                     (256, 8, 8), (5, 100, 3)])
@@ -64,6 +67,78 @@ def test_block_bounds_oracle_matches_reference_oracle():
                                torch.from_numpy(hi)).numpy(), got)
     finally:
         bp._PLAIN_CHUNK_ELEMS = chunk
+
+
+def pallas_tile_choice(qp, lo, hi, cap, *, bm, n_pre):
+    """The reference's reduction of its bound matrix (the Pallas kernel in
+    interpret mode): ``lax.top_k`` for the warm start's blocks and the max
+    over each -inf-padded query tile.  Returns (ub, top_k indices, tile
+    max) as numpy."""
+    ub = j_block_bounds(jnp.asarray(qp), jnp.asarray(lo), jnp.asarray(hi),
+                        None if cap is None else jnp.asarray(cap), bm=32, bb=32,
+                        interpret=True)
+    m, nb = ub.shape
+    mp = -(-m // bm) * bm
+    ub_p = jnp.concatenate([ub, jnp.full((mp - m, nb), -jnp.inf, ub.dtype)])
+    return (np.asarray(ub), np.asarray(lax.top_k(ub, n_pre)[1]),
+            np.asarray(ub_p.reshape(mp // bm, bm, nb).max(1)))
+
+
+def assert_same_choice(best, idx_j, ub_j, ub_t, tol=1e-5):
+    """The port's blocks ``best`` against the reference's ``idx_j``: each
+    chosen bound within ``tol`` of the reference's at that rank, and the
+    same block wherever no other block lies within ``tol`` of it or the
+    blocks that do tie with it exactly in both packages (then the lower
+    block wins in both)."""
+    checked = 0
+    for r in range(best.shape[0]):
+        for bt, bj in zip(best[r], idx_j[r]):
+            v = ub_j[r, bj]
+            assert ub_j[r, bt] == v or abs(ub_j[r, bt] - v) <= tol, (r, bt, bj)
+            with np.errstate(invalid="ignore"):             # -inf - -inf
+                near = (ub_j[r] == v) | (np.abs(ub_j[r] - v) <= tol)
+            exact = len(set(ub_j[r][near])) == 1 and len(set(ub_t[r][near])) == 1
+            if near.sum() == 1 or exact:
+                assert bt == bj, (r, bt, bj, np.nonzero(near)[0])
+                checked += 1
+    return checked
+
+
+@pytest.mark.parametrize("with_cap", [False, True], ids=["nocap", "cap"])
+@pytest.mark.parametrize("bm", [8, 128])
+@pytest.mark.parametrize("n_pre", [1, 3, 8])
+def test_block_bounds_select_matches_pallas_tile_choice(n_pre, bm, with_cap):
+    """150 queries (ragged at both bm), 90 blocks with empty-block
+    sentinels, exact ties at bound 1 for the first 50 queries (blocks 3, 88
+    and 89), and with the cap two rows at -inf everywhere."""
+    qp, lo, hi, cap = select_operands(150, 90, 12, seed=n_pre + bm)
+    cap = cap if with_cap else None
+    ub_j, idx_j, tmax_j = pallas_tile_choice(qp, lo, hi, cap, bm=bm, n_pre=n_pre)
+    ops = [None if a is None else torch.from_numpy(a) for a in (qp, lo, hi, cap)]
+    tile_max, best = block_bounds_select(*ops, bm=bm, n_pre=n_pre)
+    assert tile_max.dtype == torch.float32 and best.dtype == torch.int64
+    assert tile_max.shape == tmax_j.shape and best.shape == (150, n_pre)
+    tile_max, best = tile_max.numpy(), best.numpy()
+    np.testing.assert_array_equal(np.isneginf(tile_max), np.isneginf(tmax_j))
+    np.testing.assert_allclose(tile_max, tmax_j, atol=1e-5)
+    checked = assert_same_choice(best, idx_j, ub_j, block_bounds_plain(*ops).numpy())
+    assert checked >= 0.9 * best.size
+    if n_pre >= 3 and not with_cap:
+        assert (best[:50, :3] == [3, 88, 89]).all()
+    if with_cap:
+        assert (best[[1, 148]] == np.arange(n_pre)).all()
+
+
+def test_block_bounds_select_rejects_n_pre_past_its_limit():
+    qp, lo, hi, _ = (torch.from_numpy(a)
+                     for a in bound_operands(20, 200, 4, np.float32, seed=1))
+    for n_pre in (0, SELECT_MAX_N_PRE + 1):
+        with pytest.raises(ValueError, match="n_pre"):
+            block_bounds_select(qp, lo, hi, bm=8, n_pre=n_pre)
+    with pytest.raises(ValueError, match="n_pre"):
+        block_bounds_select(qp, lo[:5], hi[:5], bm=8, n_pre=6)
+    with pytest.raises(ValueError, match="bm"):
+        block_bounds_select(qp, lo, hi, bm=0, n_pre=1)
 
 
 def test_kernel_oracles_match_reference():
