@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    On the 64-cluster corpus also the engine's wide-prescan path
    (warm_start_blocks = 9, past the engine's select route of up to 8), which
    takes the [M, NB] bound matrix from block_bounds and sorts it, with the
-   launch counts set to 0 before it and read after it;
+   launch counts set to 0 before it and read after it.  Every search call
+   launches pruned_topk once and merge_splits never (the merge is
+   pruned_topk's epilogue);
 4. K-loop and worst case: uniform data at nytimes-256-angular's shape
    (290,000 x 256, 10,000 queries, k = 10), where the bound prunes little;
 5. each kernel against its plain PyTorch version on the card, at the main
@@ -25,7 +27,12 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    row_valid, k = bn, no prune, D = 768, one query tile, empty-block
    sentinels), with times and bounds.  pruned_topk runs at one split and
    at the engine's chosen splits, each against the plain version at the
-   same splits; merge_splits on the chosen run's partial lists;
+   same splits.  Its epilogue (the merge of the splits, written in the
+   caller's order) against merge_splits_plain of the same launch's partial
+   lists scattered by row_out, bit for bit, at k = 10 and 100 and at both
+   splits; three routes timed in turns: the fused kernel, the kernel
+   without its epilogue, and that kernel + merge_splits_kernel + the
+   gathers by argsort(perm) that the engine ran before;
    block_bounds (bit for bit) and block_bounds_select (tile_max and best
    exactly equal) against their plain versions at the main path's
    operands and on sentinel, ragged and NaN cases; the bound stage's old
@@ -33,8 +40,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    in turns against block_bounds_select, and kernel_inputs' outputs equal
    through both;
 6. one torch.profiler window over a main-path search call: the device
-   operations that take its time, and no sort of the [M, NB] bound matrix
-   among them.
+   operations that take its time; no sort of the [M, NB] bound matrix
+   among them, no merge_splits_kernel, and two sorts of [M] (the query
+   sort), none to undo it.
 
 Before the last line it prints one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
@@ -82,6 +90,9 @@ CLUSTERED2048 = dict(CLUSTERED64, name="clustered-2048 at glove-100-angular shap
 UNIFORM256 = dict(name="uniform at nytimes-256-angular shape", key="uniform256",
                   n=290_000, d=256, m=10_000, ks=(10,), centers=0, noise=0.0)
 REPS = 5
+#: turns of the three merge routes in phase 5a': the epilogue is tens of
+#: microseconds inside a 65-180 ms kernel whose calls spread by ~0.5 ms
+MERGE_TURNS = 15
 #: rows of the corpus behind the small kernel cases
 SMALL_N = 20_000
 
@@ -226,15 +237,17 @@ def kernel_inputs_by_route(kernel_inputs, route, *args, **kw):
         backends.block_bounds_select = saved
 
 
-def phase_search(spec, seed, SearchEngine, kernels, wide=None):
+def phase_search(spec, seed, SearchEngine, kernels, wide=None, absent=()):
     """Build and search one corpus through the engine; counts every kernel
-    launch of this run.  ``wide``: ``(warm_start_blocks, kernels)`` of the
-    wide-prescan path, driven after the main path on the same index with
-    the counts set to 0 before it.  Returns the engine, queries and the
-    report."""
+    launch of this run: each of ``kernels`` must launch, ``kernels[0]``
+    (pruned_topk) once per search call, and none of ``absent``.  ``wide``:
+    ``(warm_start_blocks, kernels)`` of the wide-prescan path, driven after
+    the main path on the same index with the counts set to 0 before it.
+    Returns the engine, queries and the report."""
     db_np, q_np = synth(spec, seed)
-    for kern in kernels + (wide[1] if wide else ()):
+    for kern in kernels + absent + (wide[1] if wide else ()):
         kern.launches = 0
+    calls = []
     t0 = time.perf_counter()
     eng = SearchEngine.build(db_np, n_pivots=16, block_size=128)
     torch.cuda.synchronize()
@@ -247,6 +260,7 @@ def phase_search(spec, seed, SearchEngine, kernels, wide=None):
         engine.search(q, k)                                # warm-up
         ms = cuda_ms(lambda: engine.search(q, k), REPS)
         sims, ids, st = engine.search(q, k)
+        calls.append(REPS + 2)
         results[name] = (k, sims, ids)
         p50 = float(np.median(ms))
         out[name] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3), "ms": ms,
@@ -255,24 +269,33 @@ def phase_search(spec, seed, SearchEngine, kernels, wide=None):
                f"block_prune_frac {out[name]['block_prune_frac']:.4f}"
 
     said = [timed(f"k{k}", eng, k) for k in spec["ks"]]
-    out["launches"] = {kern.__name__: kern.launches for kern in kernels}
+    out["launches"] = {kern.__name__: kern.launches for kern in kernels + absent}
+    out["search_calls"] = sum(calls)
     log(f"[{spec['name']}] build {build_s:.3f} s, {eng.n_blocks} blocks; "
-        + "; ".join(said) + f"; launches {out['launches']}")
-    for name, count in out["launches"].items():
-        check(count > 0, f"{spec['name']}: kernel {name} never launched")
+        + "; ".join(said) + f"; launches {out['launches']} in {sum(calls)} "
+        f"search calls")
+    for kern in kernels:
+        check(kern.launches > 0, f"{spec['name']}: kernel {kern.__name__} never launched")
+    check(kernels[0].launches == sum(calls),
+          f"{spec['name']}: {kernels[0].__name__} launched {kernels[0].launches} "
+          f"times in {sum(calls)} search calls")
+    for kern in absent:
+        check(kern.launches == 0, f"{spec['name']}: {kern.__name__} launched")
     if wide is not None:
         blocks, wide_kernels = wide
-        for kern in kernels + wide_kernels:
+        for kern in kernels + absent + wide_kernels:
             kern.launches = 0
         wide_eng = SearchEngine(eng.index, warm_start_blocks=blocks)
         said = timed("wide_prescan_k10", wide_eng, 10)
-        seen = {kern.__name__: kern.launches for kern in kernels + wide_kernels}
+        seen = {kern.__name__: kern.launches for kern in kernels + absent + wide_kernels}
         out["wide_prescan_k10"].update(warm_start_blocks=blocks, launches=seen)
         log(f"[{spec['name']}] wide prescan (warm_start_blocks={blocks}) {said}; "
             f"launches {seen}")
         for kern in wide_kernels:
             check(seen[kern.__name__] > 0,
                   f"wide prescan path: kernel {kern.__name__} never launched")
+        for kern in absent:
+            check(seen[kern.__name__] == 0, f"wide prescan path: {kern.__name__} launched")
         del wide_eng
 
     # exactness: result sets equal a brute force on the card
@@ -298,8 +321,11 @@ def phase_search(spec, seed, SearchEngine, kernels, wide=None):
 def profile_search(eng, q, k, matrix_elems, top=12):
     """One torch.profiler window over a warm ``search`` call: the device
     operations that took the most time in it (self time on the card), and
-    every ``aten::sort`` with its input shape; fails if one of them sorts
-    ``matrix_elems`` or more keys (the [M, NB] bound matrix)."""
+    every ``aten::sort`` with its input shape.  Fails if one of them sorts
+    ``matrix_elems`` or more keys (the [M, NB] bound matrix), if a
+    ``merge_splits_kernel`` ran, or if other than two sorts of the [M]
+    queries ran (the query sort's two; pruned_topk writes the rows back,
+    so none undoes it)."""
     from torch.profiler import ProfilerActivity, profile
 
     eng.search(q, k)
@@ -332,10 +358,19 @@ def profile_search(eng, q, k, matrix_elems, top=12):
               "count": e.count}
              for e in prof.key_averages(group_by_input_shape=True)
              if e.key == "aten::sort"]
-    log(f"[profile] aten::sort calls by input shape: {sorts}")
+    m = q.shape[0]
+    query_sorts = sum(x["count"] for x in sorts if x["shape"] == [m])
+    gathers = sum(e.count for e in prof.key_averages() if e.key == "aten::index")
+    merges = [n for n, _, _ in ops if "merge_splits_kernel" in n]
+    log(f"[profile] aten::sort calls by input shape: {sorts}; sorts of [{m}]: "
+        f"{query_sorts}; aten::index calls: {gathers}; merge_splits_kernel: "
+        f"{len(merges)}")
     check(all(int(np.prod(x["shape"])) < matrix_elems for x in sorts),
           f"a search call sorts the {matrix_elems}-element bound matrix: {sorts}")
+    check(not merges, f"a search call launched merge_splits_kernel: {merges}")
+    check(query_sorts == 2, f"a search call sorts [{m}] {query_sorts} times, not 2")
     return {"wall_ms": wall_ms, "device_ms": total, "sorts": sorts,
+            "query_sorts": query_sorts, "index_calls": gathers,
             "top": [{"name": n, "ms": ms, "count": c} for n, ms, c in ops[:top]]}
 
 
@@ -424,6 +459,62 @@ def bound_entry(nbytes, ops):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def merge_routes(_launch, merge_splits, ops, kw, perm):
+    """pruned_topk's merge by three routes on the same operands, timed in
+    MERGE_TURNS turns (the order rotated each turn): ``fused``, the kernel
+    with its epilogue and ``row_out = perm``; ``unfused``, the kernel
+    without it; ``old_route``, that kernel + merge_splits (at splits > 1)
+    + the gathers by argsort(perm), the engine's route before the
+    epilogue.  The kernel's calls spread by more than a merge takes, so
+    direct times come with the paired ones: from the clock each fused
+    launch leaves (``merge_clock``), each query tile's merge and the tail
+    it adds to the kernel (the last merge's end past the last arrival),
+    and the old route's merge, argsort and gathers alone on the same
+    partial lists.  Returns the old route's (sims, ids) and the times."""
+    unfused = dict(kw, row_out=None, fused=False)
+
+    def old_merge(part_s, part_i):
+        inv = torch.argsort(perm)
+        top = merge_splits(part_s, part_i) if kw["splits"] > 1 else (part_s[0], part_i[0])
+        return top[0][inv], top[1][inv]
+
+    def old_route():
+        out = _launch(*ops, **unfused)
+        return old_merge(out.part_s, out.part_i)
+
+    clocks = []
+
+    def fused():
+        clocks.append(_launch(*ops, **kw).merge_clock)
+
+    old = old_route()
+    routes = {"fused": fused, "unfused": lambda: _launch(*ops, **unfused),
+              "old_route": old_route}
+    names = list(routes)
+    ms = {name: [] for name in names}
+    for t in range(MERGE_TURNS):
+        for name in names[t % 3:] + names[:t % 3]:
+            ms[name] += cuda_ms(routes[name], 1)
+    out = _launch(*ops, **unfused)
+    alone = cuda_ms(lambda: old_merge(out.part_s, out.part_i), MERGE_TURNS)
+    clock = torch.stack(clocks).long().cpu()              # [turns, 3, mt]
+    ns = clock[:, 0].double()
+    # the low 32 bits of the ns clock, relative to each launch's first
+    # arrival (a launch lasts far less than 2^31 ns)
+    rel = (clock[:, 1:] - clock[:, 1:2, :1]) % 2**32
+    rel = torch.where(rel >= 2**31, rel - 2**32, rel).double()
+    tail = rel[:, 1].amax(1) - rel[:, 0].amax(1)
+    times = {f"{name}_minus_unfused_ms": float(np.median(np.subtract(
+        ms[name], ms["unfused"]))) for name in ("fused", "old_route")}
+    times.update({f"{name}_ms": float(np.median(v)) for name, v in ms.items()},
+                 ms=ms, old_merge_alone_ms=float(np.median(alone)),
+                 epilogue_us_median=float(ns.median()) / 1e3,
+                 epilogue_us_max=float(ns.amax(1).median()) / 1e3,
+                 epilogue_tail_us=float(tail.median()) / 1e3,
+                 epilogue_tail_us_all=(tail / 1e3).tolist())
+    return old, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -441,7 +532,7 @@ def main(argv=None) -> int:
                                                  sqrt_mismatches)
     from repro_torch.kernels.cosine_topk import (_launch, _operands, merge_splits,
                                                  merge_splits_plain, pruned_topk,
-                                                 pruned_topk_plain)
+                                                 pruned_topk_plain, scatter_rows)
     from repro_torch.search import SearchEngine
     from repro_torch.search.backends import (SELECT_ROUTE_MAX_N_PRE, kernel_inputs,
                                              prep_queries, prescan_blocks)
@@ -472,13 +563,15 @@ def main(argv=None) -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # the main path's kernels; past SELECT_ROUTE_MAX_N_PRE prescanned tiles the
-    # engine takes block_bounds and a sort in place of block_bounds_select
-    kernels = (pruned_topk, merge_splits, block_bounds_select)
-    wide_path = (SELECT_ROUTE_MAX_N_PRE + 1, (pruned_topk, merge_splits, block_bounds))
+    # engine takes block_bounds and a sort in place of block_bounds_select.
+    # merge_splits is pruned_topk's epilogue: its own kernel never launches
+    kernels = (pruned_topk, block_bounds_select)
+    absent = (merge_splits,)
+    wide_path = (SELECT_ROUTE_MAX_N_PRE + 1, (pruned_topk, block_bounds))
 
     # 3. the main path at full width, and its wide-prescan path
     eng, q, report["clustered64"] = phase_search(CLUSTERED64, args.seed, SearchEngine,
-                                                 kernels, wide=wide_path)
+                                                 kernels, wide=wide_path, absent=absent)
     launches = dict(report["clustered64"]["launches"],
                     block_bounds=report["clustered64"]["wide_prescan_k10"]["launches"][
                         "block_bounds"])
@@ -550,41 +643,97 @@ def main(argv=None) -> int:
         f"({topk_entry['bound_by']}, {topk_entry['bound_share']:.3f} of it at "
         f"splits={chosen}), matmul+topk {topk_entry['library_ms']:.3f} ms")
 
-    # 5a'. merge_splits on the chosen run's partial lists
-    ops_m, kw_m = _operands(*kargs, **kw_of[chosen])
-    part_s, part_i, *_ = _launch(*ops_m, **kw_m)
-    got_m = merge_splits(part_s, part_i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want_m = merge_splits_plain(part_s, part_i)
-    torch.cuda.synchronize()
-    merge_plain_ms = (time.perf_counter() - t0) * 1e3
-    check(torch.equal(got_m[0], want_m[0]) and torch.equal(got_m[1], want_m[1]),
-          "merge_splits disagrees with its plain version")
-    fin = torch.isfinite(want_m[0])
-    merge_err = float((got_m[0][fin] - want_m[0][fin]).abs().max()) if bool(fin.any()) else 0.0
-    merge_ms = float(np.median(cuda_ms(lambda: merge_splits(part_s, part_i), REPS)))
-    s_, m_, k_ = part_s.shape
-    flat = part_s.transpose(0, 1).reshape(m_, s_ * k_).contiguous()
-    merge_lib = float(np.median(cuda_ms(lambda: torch.topk(flat, k_, dim=1), REPS)))
+    # 5a'. the merge, pruned_topk's epilogue, at the main path's operands at
+    # k = 10 and 100, at the chosen splits and at 1, with row_out = the
+    # engine's query sort: against merge_splits_plain of the same launch's
+    # partial lists, scattered by row_out, bit for bit, and against the old
+    # route; the routes' times (merge_routes)
+    merge_runs = {}
+    for k in (10, 100):
+        a_k, kw_k, perm = kernel_inputs(
+            eng.index, qn, qp, k, bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
+            best_first=eng.best_first, margin=eng.margin,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        for s in (chosen, 1):
+            ops_m, kw_m = _operands(*a_k, **dict(kw_k, splits=s, row_out=perm))
+            out = _launch(*ops_m, **kw_m)
+            sims, idx = out.sims, out.idx
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = [scatter_rows(x, perm) for x in merge_splits_plain(out.part_s, out.part_i)]
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            del out
+            old, times = merge_routes(_launch, merge_splits, ops_m, kw_m, perm)
+            fin = torch.isfinite(want[0])
+            run = {"equal": torch.equal(sims, want[0]) and torch.equal(idx, want[1]),
+                   "old_route_equal": torch.equal(old[0], sims) and torch.equal(old[1], idx),
+                   "minus_one": bool((idx[~fin] == -1).all()),
+                   "max_abs_err": float((sims[fin] - want[0][fin]).abs().max())
+                   if bool(fin.any()) else 0.0, "plain_ms": plain_ms, **times}
+            check(run["equal"] and run["old_route_equal"] and run["minus_one"],
+                  f"pruned_topk's merge at k={k}, splits={s} differs: {run}")
+            del sims, idx, want, old
+            # each partial entry read once, the result written once, row_out
+            # read once; at least ceil(log2 S) comparisons per output slot
+            m_ = ops_m[0].shape[0]
+            run.update(bound_entry(8 * (s + 1) * m_ * k + 4 * m_,
+                                   float(m_) * k * int(np.ceil(np.log2(s)))))
+            if s > 1:
+                part = _launch(*ops_m, **dict(kw_m, row_out=None, fused=False)).part_s
+                flat = part.transpose(0, 1).reshape(m_, s * k).contiguous()
+                run["library_ms"] = float(np.median(
+                    cuda_ms(lambda: torch.topk(flat, k, dim=1), REPS)))
+                del part, flat
+            merge_runs[(k, s)] = run
+            log(f"[kernels] pruned_topk merge k={k} splits={s}: equal to plain and to "
+                f"the old route {run['equal'] and run['old_route_equal']}; in turns: "
+                f"fused {run['fused_ms']:.3f} ms, unfused {run['unfused_ms']:.3f} ms, "
+                f"unfused + merge_splits + gathers {run['old_route_ms']:.3f} ms (paired "
+                f"differences {run['fused_minus_unfused_ms']:.4f} and "
+                f"{run['old_route_minus_unfused_ms']:.4f} ms); the epilogue's merge per "
+                f"query tile {run['epilogue_us_median']:.1f} us (slowest tile "
+                f"{run['epilogue_us_max']:.1f} us), its tail past the last arrival "
+                f"{run['epilogue_tail_us']:.1f} us; the old merge + argsort + gathers "
+                f"alone {run['old_merge_alone_ms']:.4f} ms; plain {plain_ms:.1f} ms, "
+                f"bound {run['bound_ms']:.4f} ms, torch.topk "
+                f"{run.get('library_ms', float('nan')):.3f} ms")
+            del ops_m, kw_m
+        del a_k, kw_k, perm
+    report["merge"] = {f"k{k}_splits{s}": r for (k, s), r in merge_runs.items()}
+    m10, m100 = merge_runs[(10, chosen)], merge_runs[(100, chosen)]
     merge_entry = {
         "name": "merge_splits", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/pruned_topk.cu",
         "replaces": "src/repro/kernels/cosine_topk.py:165",
-        "launches": launches["merge_splits"], "max_abs_err": merge_err,
-        "ms": merge_ms, "plain_ms": merge_plain_ms,
-        # each partial entry read once, the result written once; at least
-        # ceil(log2 S) comparisons per output slot
-        **bound_entry(8 * (s_ + 1) * m_ * k_,
-                      float(m_) * k_ * int(np.ceil(np.log2(s_)))),
-        "library_ms": merge_lib,
-        "library": "torch.topk over each row's splits x k entries, "
-                   "laid out [M, S*k] beforehand"}
-    log(f"[kernels] merge_splits [{s_} x {m_} x {k_}]: equal to plain, kernel "
-        f"{merge_ms:.3f} ms, plain {merge_plain_ms:.1f} ms, bound "
-        f"{merge_entry['bound_ms']:.4f} ms ({merge_entry['bound_by']}), "
-        f"torch.topk {merge_lib:.3f} ms")
-    del part_s, part_i, got_m, want_m, flat, runs, one, best
+        "fused": "pruned_topk_kernel's epilogue: the last split CTA of each query "
+                 "tile merges its lists and writes them in the caller's order",
+        # the epilogue runs in every pruned_topk launch; merge_splits_kernel
+        # itself never launches on the main path
+        "launches": launches["pruned_topk"],
+        "merge_splits_kernel_launches": launches["merge_splits"],
+        "max_abs_err": max(r["max_abs_err"] for r in merge_runs.values()),
+        "ms": m10["fused_minus_unfused_ms"], "plain_ms": m10["plain_ms"],
+        "bound_ms": m10["bound_ms"], "bound_by": m10["bound_by"],
+        "library_ms": m10["library_ms"],
+        "library": "torch.topk over each row's splits x k entries, laid out "
+                   "[M, S*k] beforehand",
+        "ms_is": "paired median of (fused kernel - kernel without its epilogue), "
+                 "k = 10, chosen splits",
+        "replaced_route": "merge_splits_kernel + argsort(perm) + two gathers by inv",
+        "replaced_route_ms": m10["old_route_minus_unfused_ms"],
+        "replaced_route_alone_ms": m10["old_merge_alone_ms"],
+        "epilogue_us_median": m10["epilogue_us_median"],
+        "epilogue_us_max": m10["epilogue_us_max"],
+        "epilogue_tail_us": m10["epilogue_tail_us"],
+        "k100": {key: m100[key] for key in (
+            "fused_minus_unfused_ms", "old_route_minus_unfused_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "fused_ms", "unfused_ms",
+            "old_route_ms", "old_merge_alone_ms", "epilogue_us_median",
+            "epilogue_us_max", "epilogue_tail_us")},
+        "splits": chosen}
+    topk_entry["ms_fused_k100"] = m100["fused_ms"]
+    del runs, one, best
 
     # 5b. block_bounds in both modes at the main path's [10,000 x 9,247 x 16]
     lo, hi, qps, cap_main = kargs[3], kargs[4], kargs[2], kkw["ub_cap"]
@@ -782,11 +931,11 @@ def main(argv=None) -> int:
 
     # 3b. the main path's shape where the bound skips nothing
     _, _, report["clustered2048"] = phase_search(CLUSTERED2048, args.seed + 3,
-                                                 SearchEngine, kernels)
+                                                 SearchEngine, kernels, absent=absent)
 
     # 4. K-loop over D = 256 and the worst case for the bound
     _, _, report["uniform256"] = phase_search(UNIFORM256, args.seed + 2, SearchEngine,
-                                              kernels)
+                                              kernels, absent=absent)
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry]
     report["seconds"] = time.perf_counter() - t_start

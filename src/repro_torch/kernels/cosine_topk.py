@@ -24,9 +24,14 @@ documented ``(-inf, -1)`` contract (the reference's argmax extraction
 repeats lane 0's id there instead; ROADMAP Queue 3).
 
 ``splits`` cuts each query tile's visit order into interleaved shares,
-one CTA each, whose partial top-k lists :func:`merge_splits` reduces;
-:func:`choose_splits` picks it from the card's SM count and the kernel's
-occupancy.
+one CTA each, with partial top-k lists; :func:`choose_splits` picks it
+from the card's SM count and the kernel's occupancy.  The kernel merges
+the lists in its epilogue (the last split CTA of each query tile to
+finish), as :func:`merge_splits_plain` does, and writes row ``r`` to
+output row ``row_out[r]``, so a caller that sorted its queries gets them
+back in its own order from the one launch.  :func:`merge_splits` and its
+kernel, the unfused route, stay only as the epilogue's yardstick; no
+engine path calls them.
 
 ``pruned_topk.launches`` and ``merge_splits.launches`` count kernel
 launches (never plain calls).
@@ -34,6 +39,7 @@ launches (never plain calls).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -42,13 +48,15 @@ from repro_torch.kernels._build import check_operand, library
 
 __all__ = ["pruned_topk", "pruned_topk_plain", "merge_splits",
            "merge_splits_plain", "choose_splits", "default_splits",
-           "DEFAULT_BM", "DEFAULT_BN"]
+           "DEFAULT_BM", "DEFAULT_BN", "MAX_K"]
 
 DEFAULT_BM = 128
 DEFAULT_BN = 256
 #: the kernel's limits: query rows per CTA and pivots per bound
 MAX_BM = 128
 MAX_PIVOTS = 64
+#: the largest k the kernel's epilogue merges (3k pairs in its copy ring)
+MAX_K = 1024
 #: rows of a k-major panel the kernel copies and scores at once
 _PANEL = 128
 _NEG_INF = float("-inf")
@@ -58,13 +66,15 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
              tau: Tensor, block_order: Tensor, row_valid: Tensor,
              ub_cap: Tensor | None, dp: Tensor | None, *, k: int, bm: int,
              bn: int, m_valid: int, margin: float, prune: bool,
-             splits: int = 1, gaps: bool = False):
+             splits: int = 1, row_out: Tensor | None = None,
+             gaps: bool = False):
     """Tile emulator of the kernel: loops over visit steps and handles every
     (query tile, split) pair at once as its own virtual query tile, each
     gathering its own db tile.  Split ``s`` of query tile ``i`` visits
     ``block_order[i, s::splits]`` with its own running top-k; where
     ``nt % splits != 0`` the short splits take "no tile" steps at the end.
-    The partial lists then merge as :func:`merge_splits_plain` does.
+    The partial lists then merge as :func:`merge_splits_plain` does, and
+    row ``r`` goes to row ``row_out[r]`` of the result.
     ``tau`` [M] holds the already-lowered seeds (``-inf`` = none).
 
     ``gaps=True`` also returns, per (query tile, db tile), how close each
@@ -175,8 +185,17 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
         out_s, out_i = parts(top_s)[0], parts(top_i)[0]
     else:
         out_s, out_i = merge_splits_plain(parts(top_s), parts(top_i))
+    if row_out is not None:
+        out_s, out_i = scatter_rows(out_s, row_out), scatter_rows(out_i, row_out)
     out = (out_s, out_i, computed, elem)
     return out + (gap, near) if gaps else out
+
+
+def scatter_rows(x: Tensor, row_out: Tensor) -> Tensor:
+    """``out[row_out[r]] = x[r]``: rows back to the caller's order."""
+    out = torch.empty_like(x)
+    out[row_out.long()] = x
+    return out
 
 
 def merge_splits_plain(part_s: Tensor, part_i: Tensor):
@@ -195,7 +214,11 @@ def merge_splits(part_s: Tensor, part_i: Tensor):
     descending, then split, then slot; slots that stay ``-inf`` carry the
     ``-1`` ids they had.  CPU tensors run :func:`merge_splits_plain`;
     CUDA tensors launch ``merge_splits_kernel`` in ``csrc/pruned_topk.cu``
-    or raise.  ``merge_splits.launches`` counts kernel launches."""
+    or raise.  ``merge_splits.launches`` counts kernel launches.
+
+    The unfused route: :func:`pruned_topk` merges in its kernel's epilogue
+    and never calls this; ``chip_smoke.py`` times the two against each
+    other."""
     if part_s.device.type == "cpu":
         return merge_splits_plain(part_s, part_i)
     if part_s.device.type != "cuda":
@@ -266,7 +289,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.pruned_topk_launch.argtypes = (
-            [vp] * 13 + [i] * 9 + [ctypes.c_float, i, vp])
+            [vp] * 17 + [i] * 9 + [ctypes.c_float, i, i, vp])
         lib.pruned_topk_launch.restype = i
         lib.merge_splits_launch.argtypes = [vp] * 4 + [i] * 3 + [vp]
         lib.merge_splits_launch.restype = i
@@ -276,12 +299,30 @@ def _lib():
     return lib
 
 
+class Launch(NamedTuple):
+    """What one launch of the kernel leaves: the result, the partial lists
+    it merged (``[splits, M, k]``) and each query tile's merge clock."""
+    sims: Tensor | None
+    idx: Tensor | None
+    computed: Tensor
+    elem: Tensor | None
+    part_s: Tensor
+    part_i: Tensor
+    #: [3, M_tiles] i32 from %globaltimer: ns the epilogue's merge took,
+    #: then the low 32 bits of the ns clock at the tile's last arrival and
+    #: at its merge's end (zeros unfused)
+    merge_clock: Tensor
+
+
 def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
-            k, bm, bn, m_valid, margin, prune, splits):
+            k, bm, bn, m_valid, margin, prune, splits, row_out=None,
+            fused=True) -> Launch:
     """Validate the operands and launch ``csrc/pruned_topk.cu``'s main
-    kernel.  Returns ``(top_s [splits, M, k], top_i, computed, elem)``: at
-    one split ``top_s[0]`` is the result, else :func:`merge_splits`
-    reduces the per-split lists."""
+    kernel.  The partial lists stay in ``part_s``/``part_i`` and the
+    epilogue merges them into ``sims``/``idx``, row ``r`` at row
+    ``row_out[r]``.  ``fused=False`` (the unfused route, for comparison
+    only) launches the kernel without its epilogue: ``sims`` and ``idx``
+    are None and the partial lists are the result."""
     m, d = qn.shape
     n, p = db.shape[0], qp.shape[1]
     nt, mt = n // bn, -(-m // bm)
@@ -294,6 +335,10 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         raise ValueError(f"bm={bm} outside [1, {MAX_BM}] for the CUDA kernel")
     if not 1 <= p <= MAX_PIVOTS:
         raise ValueError(f"{p} pivots outside [1, {MAX_PIVOTS}]")
+    if k > MAX_K:
+        raise ValueError(f"k={k} past the CUDA kernel's merge limit of {MAX_K}")
+    if row_out is not None and not fused:
+        raise ValueError("row_out needs the fused kernel")
     f32 = torch.float32
     check_operand("qn", qn, (m, d), f32, dev)
     check_operand("db", db, (n, d), f32, dev)
@@ -307,8 +352,8 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         check_operand("ub_cap", ub_cap, (m, nt), f32, dev)
     if dp is not None:
         check_operand("dp", dp, (n, p), f32, dev)
-    if int(block_order.min()) < 0 or int(block_order.max()) >= nt:
-        raise ValueError(f"block_order holds tile ids outside [0, {nt})")
+    if row_out is not None:
+        check_operand("row_out", row_out, (m,), torch.int32, dev)
     # the kernel reads every tile k-major in panels of 128 rows, [panel][D]
     # [128], zero past a tile's rows: each K-step of a panel is one
     # contiguous bulk copy, and each column a thread's float4 fragments
@@ -325,11 +370,19 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
     pp = -(-p // 4) * 4
     lh = lo.new_zeros(nt, 2 * pp)
     lh[:, :p], lh[:, pp:pp + p] = lo, hi
-    top_s = torch.empty(splits, m, k, dtype=f32, device=dev)
-    top_i = torch.empty(splits, m, k, dtype=torch.int32, device=dev)
-    computed = torch.zeros(mt, nt, dtype=torch.int32, device=dev)
+    part_s = torch.empty(splits, m, k, dtype=f32, device=dev)
+    part_i = torch.empty(splits, m, k, dtype=torch.int32, device=dev)
+    # computed, then the epilogue's arrival count per query tile (which it
+    # leaves holding the tile's merge clock): one zero-filled allocation, so
+    # no state outlives the call
+    zeros = torch.zeros(mt * nt + 3 * mt, dtype=torch.int32, device=dev)
+    computed, arrive = zeros[:mt * nt].view(mt, nt), zeros[mt * nt:].view(3, mt)
     elem = (None if dp is None
             else torch.zeros(mt, nt, dtype=torch.int32, device=dev))
+    sims = idx = None
+    if fused:
+        sims = torch.empty(m, k, dtype=f32, device=dev)
+        idx = torch.empty(m, k, dtype=torch.int32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -338,19 +391,34 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         rc = _lib().pruned_topk_launch(
             ptr(qt), ptr(dbt), ptr(qp), ptr(lh), ptr(tau),
             ptr(block_order), ptr(row_valid), ptr(ub_cap), ptr(dp),
-            ptr(top_s), ptr(top_i), ptr(computed), ptr(elem),
-            m, m_valid, n, d, p, k, bm, bn, splits, margin, int(prune),
+            ptr(part_s), ptr(part_i), ptr(computed), ptr(elem), ptr(sims),
+            ptr(idx), ptr(row_out), ptr(arrive), m, m_valid, n, d, p, k, bm,
+            bn, splits, margin, int(prune), int(fused),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"pruned_topk kernel launch failed: CUDA error {rc}")
     pruned_topk.launches += 1
-    return top_s, top_i, computed, elem
+    return Launch(sims, idx, computed, elem, part_s, part_i, arrive)
+
+
+def _check_ids(block_order: Tensor, nt: int, row_out: Tensor | None, m: int):
+    """Raise unless ``block_order`` holds tile ids in ``[0, nt)`` and
+    ``row_out`` rows in ``[0, m)``: the kernel indexes with both unchecked.
+    One host sync for both."""
+    ends = [*torch.aminmax(block_order)]
+    if row_out is not None:
+        ends += [*torch.aminmax(row_out)]
+    ends = torch.stack(ends).tolist()
+    if ends[0] < 0 or ends[1] >= nt:
+        raise ValueError(f"block_order holds tile ids outside [0, {nt})")
+    if row_out is not None and (ends[2] < 0 or ends[3] >= m):
+        raise ValueError(f"row_out holds rows outside [0, {m})")
 
 
 def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
               tau_init=None, block_order=None, dp=None, ub_cap=None,
               row_valid=None, *, k, bm=DEFAULT_BM, bn=DEFAULT_BN, margin=4e-7,
-              prune=True, element_stats=False, splits=1):
+              prune=True, element_stats=False, splits=1, row_out=None):
     """The reference wrapper's argument handling: defaults, the τ seeds
     lowered by 1e-6 so genuine candidates at τ displace them, checks."""
     m = qn.shape[0]
@@ -379,11 +447,14 @@ def _operands(qn, db, qp, dp_min, dp_max, n_valid, m_valid=None,
                                    device=dev)[None, :].expand(grid)
     if tuple(block_order.shape) != grid:
         raise ValueError(f"block_order shape {tuple(block_order.shape)} != {grid}")
-    operands = (qn, db, qp, dp_min, dp_max, tau,
-                block_order.int().contiguous(), row_valid.bool(), ub_cap,
-                dp if element_stats else None)
+    block_order = block_order.int().contiguous()
+    if row_out is not None:
+        check_operand("row_out", row_out, (m,), torch.int32, dev)
+    _check_ids(block_order, grid[1], row_out, m)
+    operands = (qn, db, qp, dp_min, dp_max, tau, block_order,
+                row_valid.bool(), ub_cap, dp if element_stats else None)
     return operands, dict(k=k, bm=bm, bn=bn, m_valid=m_valid, margin=margin,
-                          prune=prune, splits=splits)
+                          prune=prune, splits=splits, row_out=row_out)
 
 
 def pruned_topk_plain(*args, gaps: bool = False, **kwargs):
@@ -417,9 +488,10 @@ def pruned_topk(
     prune: bool = True,
     element_stats: bool = False,
     splits: int = 1,
+    row_out: Tensor | None = None,
 ):
     """Fused exact top-k with block pruning (the reference's signature,
-    plus ``splits``).
+    plus ``splits`` and ``row_out``).
 
     Args:
       qn: [M, D] L2-normalized queries.  db: [N, D] normalized database.
@@ -435,27 +507,29 @@ def pruned_topk(
       k: top-k, ``k <= bn``.
       splits: db-axis splits per query tile (:func:`choose_splits`): split
         ``s`` visits ``block_order[i, s::splits]`` with its own top-k and
-        τ, and the partial lists merge (:func:`merge_splits`).  Exact at
-        any value; ``computed`` matches the reference's only at 1 and is a
-        superset of it otherwise.
+        τ, and the partial lists merge (:func:`merge_splits_plain`'s order)
+        in the kernel's epilogue.  Exact at any value; ``computed``
+        matches the reference's only at 1 and is a superset of it otherwise.
+      row_out: [M] i32, a permutation of ``range(M)``: row ``r``'s result
+        goes to row ``row_out[r]`` (a caller that sorted its queries by
+        ``perm`` passes ``perm`` and gets its own order back).  Ids outside
+        ``[0, M)`` raise.  ``computed`` and ``elem`` stay indexed by query
+        tile of the rows as given.
 
     Returns ``(sims [M, k] f32, idx [M, k] i32 db positions, computed
     [M_tiles, N_tiles] i32 by tile id, elem [M_tiles, N_tiles] i32 or
     None)``.  CPU tensors run :func:`pruned_topk_plain`; CUDA tensors
-    launch the kernel or raise.
+    launch the kernel once, at any ``splits``, or raise.
     """
     operands, kw = _operands(
         qn, db, qp, dp_min, dp_max, n_valid, m_valid, tau_init, block_order,
         dp, ub_cap, row_valid, k=k, bm=bm, bn=bn, margin=margin, prune=prune,
-        element_stats=element_stats, splits=splits)
+        element_stats=element_stats, splits=splits, row_out=row_out)
     if qn.device.type == "cpu":
         return _emulate(*operands, **kw)
     if qn.device.type != "cuda":
         raise ValueError(f"pruned_topk runs on cpu or cuda, not {qn.device}")
-    top_s, top_i, computed, elem = _launch(*operands, **kw)
-    if splits == 1:
-        return top_s[0], top_i[0], computed, elem
-    return (*merge_splits(top_s, top_i), computed, elem)
+    return _launch(*operands, **kw)[:4]
 
 
 pruned_topk.launches = 0

@@ -18,11 +18,17 @@
 //   its own running top-k and τ seeded from tau_init, so `computed` stays
 //   deterministic; S = 1 is the reference's single pass.  S fills whole
 //   waves of resident CTAs on the 132 SMs (choose_splits in
-//   cosine_topk.py).  Partial top-k lists go to [S, M, k] scratch and
-//   merge_splits (one warp per row) reduces them: score descending, then
-//   split, then slot.  A split's τ never exceeds the single pass's τ at
-//   the same step, so splits compute a superset of the single pass's
-//   tiles.
+//   cosine_topk.py).  Each split keeps its partial top-k list in [S, M, k]
+//   scratch.  A split's τ never exceeds the single pass's τ at the same
+//   step, so splits compute a superset of the single pass's tiles.
+// - The merge is the epilogue.  A CTA whose visits have ended publishes
+//   its list (a GPU-scope fence, one arrival on its query tile's counter);
+//   the last of the tile's S CTAs to arrive reads the S lists from L2 and
+//   merges them, one warp per row, in split order: score descending, then
+//   split, then slot, as merge_splits_plain.  Each row goes straight to
+//   output row row_out[row], the caller's order.  S = 1 is the same code
+//   (the one CTA is the last; its list is copied out).  No launch of its
+//   own, and no gather or argsort after the kernel to undo a query sort.
 // - k-major panels.  The wrapper hands the kernel the query tiles and the
 //   db tiles transposed into panels of 128 rows, [panel][D][128] (one copy
 //   of the db per call, timed with the kernel).  A K-step of 34
@@ -94,6 +100,13 @@ constexpr int kMaxPivots = 64;
 constexpr int kCand = kTileN;        // merge candidates per half-warp
 constexpr int kLhFloats = 2 * kMaxPivots;  // a step's interval row, per stage
 constexpr size_t kTwoCtaBytes = 113 * 1024;
+// The epilogue merges in the Q tile and the copy ring, free after the last
+// tile: (score, id) pairs, at least 3k per merging warp (the running list,
+// its next version and one staged list); the resident-Q ring alone holds
+// kRingEntries.
+constexpr int kRingEntries = kStages * (kStageFloats + kLhFloats) / 2;
+constexpr int kMaxK = 1024;
+static_assert(3 * kMaxK <= kRingEntries, "one warp merges k = kMaxK in the ring");
 
 struct Params {
   const float* qt;              // [mt, d, 128] query tiles, k-major
@@ -107,6 +120,11 @@ struct Params {
   const float* dp;              // [n, p] or null (element stats)
   float* top_s;                 // [splits, m, k] running top-k per split
   int* top_i;                   // [splits, m, k]
+  float* out_s;                 // [m, k] merged result (fused kernel)
+  int* out_i;                   // [m, k]
+  const int* row_out;           // [m] output row of each row, or null
+  unsigned* arrive;             // [3, mt] zeros: split CTAs done, then
+                                // the epilogue's clock (see epilogue)
   int* computed;                // [mt, nt]
   int* elem;                    // [mt, nt] or null
   int m, m_valid, d, p, k, bm, bn, nt;
@@ -287,6 +305,228 @@ __device__ __forceinline__ void merge_row(float* ts, int* ti, int k,
   __syncwarp(hmask);
 }
 
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Publish this CTA's list and return, in every thread, whether it is the
+// last of its query tile's `splits` CTAs to finish (the threadFenceReduction
+// pattern: each thread's stores, a GPU-scope fence, a block barrier, one
+// arrival on the tile's counter; the last arrival fences again before any
+// thread of its CTA reads the other lists).
+__device__ __forceinline__ bool last_to_arrive(unsigned* count, int splits,
+                                               int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(count, 1u) == (unsigned)splits - 1;
+    if (last) __threadfence();
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+// One warp: the first k of running list r (k entries, descending) merged
+// with list l (descending, from a later split), written to o; an entry of
+// r stays ahead of an equal score of l.  Only the c entries of l above
+// r's k-th score can enter.  Lane t writes output slots [t n, t n + n),
+// n = ceil(k / 32): a binary search finds how many of the slots before
+// them come from r (the co-rank), then it walks both lists.  Returns
+// false, writing nothing, when no entry of l enters.
+__device__ __forceinline__ bool merge_into(const float* rs, const int* ri,
+                                           const float* ls, const int* li,
+                                           float* os, int* oi, int k,
+                                           int lane) {
+  const float kth = rs[k - 1];
+  int c = 0;
+  for (int j0 = 0; j0 < k; j0 += 32) {
+    const unsigned in = __ballot_sync(0xffffffffu, j0 + lane < k && ls[j0 + lane] > kth);
+    c += __popc(in);
+    if (in != 0xffffffffu) break;
+  }
+  if (c == 0) return false;
+  const int n = (k + 31) / 32, d0 = min(lane * n, k), d1 = min(d0 + n, k);
+  int lo = max(0, d0 - c), hi = d0;
+  while (lo < hi) {                       // r[i] ahead of l[j - 1]: more of r
+    const int i = (lo + hi) >> 1, j = d0 - i;
+    if (j > 0 && rs[i] >= ls[j - 1]) lo = i + 1; else hi = i;
+  }
+  for (int d = d0, i = lo, j = d0 - lo; d < d1; ++d) {
+    const bool take_r = j >= c || rs[i] >= ls[j];
+    os[d] = take_r ? rs[i] : ls[j];
+    oi[d] = take_r ? ri[i] : li[j];
+    i += take_r;
+    j += !take_r;
+  }
+  __syncwarp();
+  return true;
+}
+
+// One warp: lists s0 .. s0 + g - 1 (k entries each) of the nq rows row,
+// row + dr, ..., row + (nq - 1) dr, from the [splits, m, k] scratch, with
+// L2-only loads (L1 is not coherent across SMs); row q's lists land one
+// after another at fs + q * stride.  Every lane has up to kStageLoads
+// loads in flight before its first store.
+constexpr int kStageLoads = 16;
+
+__device__ __forceinline__ void stage_lists(float* fs, int* fi, int stride,
+                                            const float* ps, const int* pi,
+                                            size_t m, size_t row, int dr,
+                                            int nq, int s0, int g, int k,
+                                            int lane) {
+  const int per_row = g * k, n = nq * per_row;
+  for (int e0 = lane; e0 < n; e0 += 32 * kStageLoads) {
+    float v[kStageLoads];
+    int id[kStageLoads], to[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int e = e0 + 32 * u, q = e / per_row, x = e - q * per_row, t = x / k;
+      const size_t at = ((size_t)(s0 + t) * m + row + (size_t)q * dr) * k + (x - t * k);
+      to[u] = q * stride + x;
+      if (e < n) {
+        v[u] = __ldcg(ps + at);
+        id[u] = __ldcg(pi + at);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      if (e0 + 32 * u < n) {
+        fs[to[u]] = v[u];
+        fi[to[u]] = id[u];
+      }
+    }
+  }
+}
+
+// In the last CTA of query tile i: merge the tile's `splits` lists in
+// split order, one warp per row, in `entries` free (score, id) pairs of
+// shared memory at `buf`.  A warp stages as many whole rows as its share
+// holds with one batch of loads and merges each list by list behind two
+// running lists (merge_into); a row larger than the share is staged g
+// lists at a time.
+__device__ __forceinline__ void merge_tile(const Params& prm, float* buf,
+                                           int entries, int row0, int rows,
+                                           int splits) {
+  const int k = prm.k, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t m = prm.m;
+  const float* ps = prm.top_s;
+  const int* pi = prm.top_i;
+  const int* row_out = prm.row_out;
+  float* out_s = prm.out_s;
+  int* out_i = prm.out_i;
+  // the main loop's db stream has pushed the lists out of L2: every
+  // thread asks for a share of the tile's 128-byte lines at once, before a
+  // warp waits on one
+  const size_t lines = ((size_t)rows * k * sizeof(float) + 127) / 128;
+  for (size_t x = threadIdx.x; x < splits * lines; x += kThreads) {
+    const size_t at = ((x / lines) * m + row0) * k;
+    const size_t off = (x % lines) * 128;
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+        reinterpret_cast<const char*>(ps + at) + off));
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+        reinterpret_cast<const char*>(pi + at) + off));
+  }
+  const int nw = max(1, min(min(kWarps, rows), entries / (3 * k)));
+  if (warp >= nw) return;
+  const int per = entries / nw;           // pairs per warp
+  float* fs = buf + (size_t)warp * 2 * per;
+  int* fi = reinterpret_cast<int*>(fs + per);
+  auto write_row = [&](const float* rs, const int* ri, size_t row) {
+    const size_t orow = row_out != nullptr ? (size_t)__ldg(row_out + row) : row;
+    for (int j = lane; j < k; j += 32) {
+      out_s[orow * k + j] = rs[j];
+      out_i[orow * k + j] = ri[j];
+    }
+  };
+  // merge the n lists at l0, l0 + k, ... of a row's staging (rs, ri) into
+  // its running list at *cur, the other running buffer at *nxt
+  auto merge_lists = [&](float* rs, int* ri, int l0, int n, int* cur, int* nxt) {
+    for (int t = 0; t < n; ++t) {
+      const int l = l0 + t * k;
+      if (merge_into(rs + *cur, ri + *cur, rs + l, ri + l, rs + *nxt, ri + *nxt, k,
+                     lane)) {
+        const int x = *cur;
+        *cur = *nxt;
+        *nxt = x;
+      }
+    }
+  };
+  // [B: k][A: k][staged lists]: the first load puts list 0 at A
+  const int whole = (splits + 1) * k;
+  if (whole <= per) {
+    const int q = per / whole;            // rows staged at once
+    for (int r0 = warp; r0 < rows; r0 += nw * q) {
+      const int nq = min(q, (rows - r0 + nw - 1) / nw);
+      stage_lists(fs + k, fi + k, whole, ps, pi, m, row0 + r0, nw, nq, 0, splits, k,
+                  lane);
+      __syncwarp();
+      for (int x = 0; x < nq; ++x) {
+        float* rs = fs + x * whole;
+        int* ri = fi + x * whole;
+        int cur = k, nxt = 0;
+        merge_lists(rs, ri, 2 * k, splits - 1, &cur, &nxt);
+        write_row(rs + cur, ri + cur, (size_t)row0 + r0 + x * nw);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  const int g_max = (per - 2 * k) / k;    // staged lists per load, >= 1
+  for (int r = warp; r < rows; r += nw) {
+    const size_t row = (size_t)row0 + r;
+    int cur = k, nxt = 0;
+    for (int s = 0; s < splits;) {
+      const int base = s == 0 ? k : 2 * k;
+      const int g = min(splits - s, s == 0 ? g_max + 1 : g_max);
+      stage_lists(fs + base, fi + base, 0, ps, pi, m, row, 0, 1, s, g, k, lane);
+      __syncwarp();
+      merge_lists(fs, fi, 2 * k, s == 0 ? g - 1 : g, &cur, &nxt);
+      s += g;
+    }
+    write_row(fs + cur, fi + cur, row);
+    __syncwarp();
+  }
+}
+
+// The fused kernel's epilogue, after the CTA's last copy has landed.  Out
+// of line, and taking nothing from the main loop but prm (every other
+// value it needs comes from blockIdx, gridDim and the shared-memory
+// layout), so the main loop's registers are allocated as in the kernel
+// without it: inlined, it moved that loop's spills and cost 3-4 % at one
+// split (PERF.md).  It merges in the Q tile and the copy ring, which
+// follow each other and are both free now.  The tile's counters are spent
+// once the last CTA has arrived: arrive[i] keeps the merge's time in ns,
+// arrive[mt + i] and arrive[2 mt + i] the low 32 bits of %globaltimer at
+// the last arrival and at the merge's end, so a caller can tell what the
+// merge adds to the kernel's end.
+__device__ __noinline__ void epilogue(const Params& prm) {
+  extern __shared__ __align__(16) float smem[];
+  const bool resident = prm.resident;
+  const int stage = kStageFloats * (resident ? 1 : 2) + kLhFloats;
+  float* buf = smem + kBarBytes / sizeof(float);
+  const int floats = (resident ? prm.d * kTileM : 0) + kStages * stage;
+  int* red = reinterpret_cast<int*>(buf + floats + kTileM * prm.p + kTileM +
+                                    kWarps * 2 * 2 * kCand);
+  const int i = blockIdx.x, mt = gridDim.x, splits = gridDim.y, row0 = i * prm.bm;
+  if (!last_to_arrive(prm.arrive + i, splits, red)) return;
+  const unsigned long long t0 = globaltimer_ns();
+  merge_tile(prm, buf, floats / 2, row0, min(prm.bm, prm.m - row0), splits);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long t1 = globaltimer_ns();
+    prm.arrive[i] = (unsigned)(t1 - t0);
+    prm.arrive[mt + i] = (unsigned)t0;
+    prm.arrive[2 * mt + i] = (unsigned)t1;
+  }
+}
+
+// kFused: the epilogue merges the splits into out_s/out_i; without it the
+// partial lists in top_s/top_i are the result (merge_splits_kernel's
+// input, kept as the route the epilogue is compared with).
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads, 2)
 pruned_topk_kernel(const __grid_constant__ Params prm) {
   extern __shared__ __align__(16) float smem[];
@@ -552,10 +792,13 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
     t = tn;
   }
   drain();  // no copy may land after the CTA leaves
+  if constexpr (kFused) epilogue(prm);
 }
 
 // Reduce [splits, m, k] partial lists to [m, k]: score descending, then
-// split, then slot.  One warp per row; each entry's rank is its slot plus
+// split, then slot, the unfused kernel's merge before the epilogue took
+// its place (no engine path launches it; chip_smoke.py times it against
+// the epilogue).  One warp per row; each entry's rank is its slot plus
 // the entries of the other splits that precede it (binary search: the
 // lists are descending).  Ranks are a permutation, so every slot is set.
 __global__ void merge_splits_kernel(const float* ps, const int* pi,
@@ -587,12 +830,13 @@ __global__ void merge_splits_kernel(const float* ps, const int* pi,
   }
 }
 
+template <bool kFused>
 cudaError_t set_smem(size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      pruned_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pruned_topk_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(pruned_topk_kernel,
+  return cudaFuncSetAttribute(pruned_topk_kernel<kFused>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
@@ -606,10 +850,10 @@ extern "C" size_t pruned_topk_smem_bytes(int d, int p) {
 // Resident CTAs per SM at (d, p), or -1 on a CUDA error.
 extern "C" int pruned_topk_ctas_per_sm(int d, int p) {
   const size_t smem = pruned_topk_smem_bytes(d, p);
-  if (set_smem(smem) != cudaSuccess) return -1;
+  if (set_smem<true>(smem) != cudaSuccess) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, pruned_topk_kernel, kThreads, smem) != cudaSuccess)
+          &blocks, pruned_topk_kernel<true>, kThreads, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -618,28 +862,39 @@ extern "C" int pruned_topk_ctas_per_sm(int d, int p) {
 // dbt: [n / bn * ceil(bn / 128), d, 128] db sub-tiles of 128 rows,
 // k-major, rows past a tile's end zero; lh: [n / bn, 2 * pp] each tile's
 // pivot intervals, lo then hi, each padded to pp = p rounded up to 4.  All
-// three 16-byte aligned.  Returns
+// three 16-byte aligned.  top_s/top_i: [splits, m, k] scratch for the
+// partial lists.  fused != 0: the epilogue merges them into out_s/out_i
+// [m, k], row r to row row_out[r] (a permutation of [0, m); null: r), and
+// arrive is [3, ceil(m / bm)] zeros, which the launch leaves holding each
+// query tile's merge clock (see epilogue); fused == 0: the partial lists
+// are the result and out_s, out_i, row_out and arrive are not read.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int pruned_topk_launch(
     const float* qt, const float* dbt, const float* qp, const float* lh,
     const float* tau, const int* block_order,
     const uint8_t* row_valid, const float* ub_cap, const float* dp,
-    float* top_s, int* top_i, int* computed, int* elem, int m, int m_valid,
+    float* top_s, int* top_i, int* computed, int* elem, float* out_s,
+    int* out_i, const int* row_out, unsigned* arrive, int m, int m_valid,
     int n, int d, int p, int k, int bm, int bn, int splits, float margin,
-    int prune, void* stream) {
+    int prune, int fused, void* stream) {
   if (bm < 1 || bm > kTileM || p < 1 || p > kMaxPivots || k < 1 || k > bn ||
-      bn < 1 || n % bn != 0 || m < 1 || d < 1 || splits < 1 ||
+      k > kMaxK || bn < 1 || n % bn != 0 || m < 1 || d < 1 || splits < 1 ||
       splits > n / bn ||
+      (fused && (out_s == nullptr || out_i == nullptr || arrive == nullptr)) ||
       ((uintptr_t)qt | (uintptr_t)dbt | (uintptr_t)lh) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const Params prm{qt, dbt, qp, lh, tau, block_order, row_valid, ub_cap,
-                   dp, top_s, top_i, computed, elem, m, m_valid, d, p, k,
-                   bm, bn, n / bn, margin, prune, q_resident(d, p)};
+                   dp, top_s, top_i, out_s, out_i, row_out, arrive,
+                   computed, elem, m, m_valid, d, p, k, bm, bn, n / bn,
+                   margin, prune, q_resident(d, p)};
   const size_t smem = pruned_topk_smem_bytes(d, p);
-  const cudaError_t err = set_smem(smem);
+  const cudaError_t err = fused ? set_smem<true>(smem) : set_smem<false>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((m + bm - 1) / bm, splits);
-  pruned_topk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
+  if (fused)
+    pruned_topk_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
+  else
+    pruned_topk_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
   return (int)cudaGetLastError();
 }
 

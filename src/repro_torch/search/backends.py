@@ -169,8 +169,9 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
                   margin: float = 4e-7, element_stats: bool = False,
                   warm_start_blocks: int | None = None, n_pivots: int = 0):
     """Everything :func:`kernel_search` hands ``pruned_topk``: returns
-    ``(args, kwargs, perm)`` where ``perm`` is the query sort permutation
-    (``None`` unless ``sort_queries``).  The warm start's best-bound tiles
+    ``(args, kwargs, perm)`` where ``perm`` is the query sort permutation,
+    int32 (``None`` unless ``sort_queries``), which ``pruned_topk`` takes
+    as ``row_out`` to write each result back to its query's row.  The warm start's best-bound tiles
     and the best-first order's per-query-tile maxima come from the
     ``block_bounds_select`` kernel on CUDA, which never writes the
     ``[m, nt]`` bound matrix; a prescan wider than ``SELECT_ROUTE_MAX_N_PRE``
@@ -183,7 +184,7 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     m = qn.shape[0]
     perm = None
     if sort_queries:
-        perm = query_sort_perm(qp)
+        perm = query_sort_perm(qp).int()
         qn, qp = qn[perm], qp[perm]
     n_valid = int(index.valid.sum())
 
@@ -223,15 +224,12 @@ def kernel_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, **kw):
     :func:`kernel_inputs`).
 
     Returns ``(sims [m,k], pos [m,k] padded-row positions, computed
-    [m_tiles, n_tiles], elem_pruned or None)``; results come back in the
-    caller's query order.
+    [m_tiles, n_tiles] by sorted query tile, elem_pruned or None)``;
+    ``pruned_topk`` writes the results back in the caller's query order
+    (``row_out=perm``), so nothing here undoes the query sort.
     """
     args, kwargs, perm = kernel_inputs(index, qn, qp, k, **kw)
-    sims, pos, computed, elem = cosine_topk.pruned_topk(*args, **kwargs)
-    if perm is not None:
-        inv = torch.argsort(perm)
-        sims, pos = sims[inv], pos[inv]
-    return sims, pos, computed, elem
+    return cosine_topk.pruned_topk(*args, **kwargs, row_out=perm)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,8 @@ Every test here is marked ``cuda`` and skips without a GPU; on the card run
 JAX, so it runs where only PyTorch is installed; it also holds the operand
 builders that tests/test_torch_kernels.py feeds to the Pallas kernels.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -16,9 +18,10 @@ from repro_torch.kernels.bound_prune import (SELECT_MAX_N_PRE,  # noqa: E402
                                              block_bounds_select,
                                              block_bounds_select_plain,
                                              sqrt_mismatches)
-from repro_torch.kernels.cosine_topk import (default_splits,  # noqa: E402
-                                             merge_splits, merge_splits_plain,
-                                             pruned_topk, pruned_topk_plain)
+from repro_torch.kernels.cosine_topk import (_launch, _operands,  # noqa: E402
+                                             default_splits, merge_splits,
+                                             merge_splits_plain, pruned_topk,
+                                             pruned_topk_plain, scatter_rows)
 
 
 def clustered(rng, n, d, n_centers=6, noise=0.07):
@@ -348,6 +351,13 @@ def test_cuda_wrappers_reject_wrong_dtype(cuda):
         pruned_topk(pos[0].double(), *pos[1:], 256, k=4, bm=8, bn=64)
     with pytest.raises(TypeError, match="qp"):
         block_bounds(pos[2].double(), pos[3], pos[4])
+    row_out = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="row_out"):
+        pruned_topk(*pos, 256, k=4, bm=8, bn=64, row_out=row_out.long())
+    for bad in (8, -1):
+        with pytest.raises(ValueError, match="row_out holds rows outside"):
+            pruned_topk(*pos, 256, k=4, bm=8, bn=64,
+                        row_out=torch.where(row_out == 3, bad, row_out).int())
 
 
 def run_kernel_and_plain(cuda, ops, splits, *, k, bm, bn, **o):
@@ -369,8 +379,9 @@ def run_kernel_and_plain(cuda, ops, splits, *, k, bm, bn, **o):
     args = (*pos, n)
     before = (pruned_topk.launches, merge_splits.launches)
     got = pruned_topk(*args, **kw)
+    # one launch at any splits: the merge is the kernel's epilogue
     assert pruned_topk.launches == before[0] + 1
-    assert merge_splits.launches == before[1] + (splits > 1)
+    assert merge_splits.launches == before[1]
     r = check_topk(got, pruned_topk_plain(*args, **kw), args, kw, 1e-5,
                    pruned_topk_plain)
     assert topk_ok(r, 1e-5), (splits, r)
@@ -430,3 +441,134 @@ def test_merge_splits_kernel_matches_plain(cuda):
     want = merge_splits_plain(part_s, part_i)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fused merge: pruned_topk's epilogue against merge_splits_plain
+# ---------------------------------------------------------------------------
+
+FUSED_N, FUSED_D, FUSED_P, FUSED_BN = 2048, 32, 8, 128
+
+
+@functools.lru_cache(maxsize=None)
+def fused_operands(m):
+    """m queries over 2,048 rows in 16 db tiles of 128, numpy.  Tiles 0 and
+    1 hold the same rows, so at splits >= 2 (natural order: tile j goes to
+    split j % S) equal scores meet from two splits; query 0 sits next to
+    row 5, so its top-k holds such ties.  Row order by nearest pivot, so
+    the bound prunes."""
+    rng = np.random.default_rng(m)
+    db = clustered(rng, FUSED_N, FUSED_D, n_centers=4, noise=0.05)
+    piv = db[rng.choice(FUSED_N, FUSED_P, replace=False)]
+    dp = db @ piv.T
+    db = db[np.lexsort((-dp.max(1), dp.argmax(1)))]
+    db[FUSED_BN:2 * FUSED_BN] = db[:FUSED_BN]
+    q = db[rng.integers(0, FUSED_N, m)] + 0.02 * rng.normal(size=(m, FUSED_D))
+    q[0] = db[5] + 1e-3 * rng.normal(size=FUSED_D)
+    q = cref.normalize(q).astype(np.float32)
+    dp = (db @ piv.T).astype(np.float32).reshape(-1, FUSED_BN, FUSED_P)
+    return (q, db, (q @ piv.T).astype(np.float32), dp.min(1), dp.max(1))
+
+
+def run_fused(cuda, m, splits, k, *, row_valid=None, seed=0):
+    """pruned_topk's fused launch, with row_out the identity and a seeded
+    permutation, each against merge_splits_plain of its own partial lists
+    scattered by row_out: equal bit for bit, sims and ids.  Returns the
+    splits, k and the identity run's outputs."""
+    pos = [torch.from_numpy(a).to(cuda) for a in fused_operands(m)]
+    nt = FUSED_N // FUSED_BN
+    if splits == "chosen":
+        splits = default_splits(m, FUSED_N, FUSED_D, FUSED_P, bm=128, bn=FUSED_BN,
+                                device=cuda)
+    splits = nt if splits == "nt" else splits
+    k = FUSED_BN if k == "bn" else k
+    perm = np.random.default_rng(seed).permutation(m).astype(np.int32)
+    runs = []
+    for row_out in (torch.arange(m, dtype=torch.int32, device=cuda),
+                    torch.from_numpy(perm).to(cuda)):
+        ops, kw = _operands(*pos, FUSED_N, row_valid=row_valid, k=k, bm=128,
+                            bn=FUSED_BN, splits=splits, row_out=row_out)
+        before = (pruned_topk.launches, merge_splits.launches)
+        out = _launch(*ops, **kw)
+        assert (pruned_topk.launches, merge_splits.launches) == (before[0] + 1,
+                                                                 before[1])
+        sims, idx = out.sims, out.idx
+        want_s, want_i = merge_splits_plain(out.part_s, out.part_i)
+        assert torch.equal(sims, scatter_rows(want_s, row_out)), (m, splits, k)
+        assert torch.equal(idx, scatter_rows(want_i, row_out)), (m, splits, k)
+        assert bool((idx[torch.isneginf(sims)] == -1).all())
+        runs.append(out)
+    return splits, k, runs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 129, 10_000])
+@pytest.mark.parametrize("k", [1, 10, 100, "bn"])
+@pytest.mark.parametrize("splits", [1, 2, 3, "chosen", "nt"])
+def test_fused_merge_equals_plain_merge_of_its_lists(cuda, splits, k, m):
+    """Every splits from 1 to nt = 16, k from 1 to bn = 128, one row (a
+    lone query tile), 129 rows (a ragged second tile) and 10,000 rows."""
+    splits, k, out = run_fused(cuda, m, splits, k, seed=m)
+    if splits >= 2 and k >= 2:
+        # query 0's best score is row 5's and its copy's, row 133, which
+        # different splits hold: the lower split's copy comes first
+        s0, i0 = out.sims[0, :2].tolist(), out.idx[0, :2].tolist()
+        assert s0[0] == s0[1] and i0 == [5, 5 + FUSED_BN], (s0, i0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, "nt"])
+def test_fused_merge_minus_inf_rows(cuda, splits):
+    """No valid row: every row is -inf with id -1.  50 valid rows at
+    k = 100: each row's last 50 slots are."""
+    for valid, k in ((0, 10), (50, 100)):
+        rv = torch.arange(FUSED_N, device=cuda) < valid
+        *_, out = run_fused(cuda, 129, splits, k, row_valid=rv)
+        sims, idx = out.sims, out.idx
+        assert bool(torch.isneginf(sims[:, valid:]).all())
+        assert bool((idx[:, valid:] == -1).all())
+        assert bool(torch.isfinite(sims[:, :valid]).all())
+
+
+@pytest.mark.cuda
+def test_fused_merge_repeats_and_streams(cuda):
+    """The arrival counters start at zero in every call: 50 launches in a
+    row, and two launches on two streams at once, give identical
+    results."""
+    pos = [torch.from_numpy(a).to(cuda) for a in fused_operands(10_000)]
+    perm = torch.from_numpy(
+        np.random.default_rng(3).permutation(10_000).astype(np.int32)).to(cuda)
+    kw = dict(k=10, bm=128, bn=FUSED_BN, splits=3, row_out=perm)
+    first = pruned_topk(*pos, FUSED_N, **kw)
+    for _ in range(50):
+        again = pruned_topk(*pos, FUSED_N, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first[:3], again[:3]))
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize(cuda)
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(pruned_topk(*pos, FUSED_N, **kw))
+    torch.cuda.synchronize(cuda)
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(first[:3], out[:3]))
+
+
+@pytest.mark.cuda
+def test_engine_search_launches_no_merge_splits(cuda):
+    """A SearchEngine search on the card launches pruned_topk once and
+    merge_splits never, at more than one split, and equals brute force."""
+    from repro_torch.search import SearchEngine
+
+    rng = np.random.default_rng(21)
+    db = clustered(rng, 20_000, 32, n_centers=8, noise=0.05)
+    q = db[rng.integers(0, 20_000, 1_000)] + 0.03 * rng.normal(size=(1_000, 32))
+    eng = SearchEngine.build(db, n_pivots=16, block_size=128, device=cuda)
+    before = (pruned_topk.launches, merge_splits.launches)
+    sims, ids, _ = eng.search(q.astype(np.float32), 10)
+    assert (pruned_topk.launches, merge_splits.launches) == (before[0] + 1, before[1])
+    qn = cref.normalize(q).astype(np.float32)
+    s_b, i_b = cref.brute_force_knn(qn, db, 10)
+    np.testing.assert_allclose(sims.cpu().numpy(), s_b, atol=1e-5)
+    assert_topk_sets_close(sims.cpu().numpy(), ids.cpu().numpy(),
+                           s_b.astype(np.float32), i_b.astype(np.int32), tol=1e-5)

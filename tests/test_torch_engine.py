@@ -112,6 +112,28 @@ def test_kernel_engine_matches_reference(shared, case):
         assert float(st_t.block_prune_frac) > 0.2        # the bound engages
 
 
+@pytest.mark.parametrize("sort_queries", [True, False], ids=["sorted", "unsorted"])
+def test_kernel_engine_query_sort_matches_reference(shared, sort_queries):
+    """With and without the query sort, the kernel backend equals the JAX
+    package's, row for row, on queries that the sort moves across query
+    tiles: pruned_topk writes each row back to its query (row_out=perm)
+    where the reference gathers by argsort(perm)."""
+    _, db, q, index = shared
+    j_idx = index(128)
+    idx = index_from_reference(fields(j_idx), "cpu")
+    _, qp = backends.prep_queries(idx, torch.from_numpy(q))
+    perm = backends.query_sort_perm(qp)
+    assert bool((perm // BM != torch.arange(M) // BM).any())
+    j_eng = JEngine(j_idx, backend="kernel", interpret=True, bm=BM,
+                    sort_queries=sort_queries)
+    t_eng = SearchEngine(idx, backend="kernel", bm=BM, device="cpu",
+                         sort_queries=sort_queries)
+    s_j, i_j, st_j = j_eng.search(jnp.asarray(q), 10)
+    s_t, i_t, st_t = t_eng.search(q, 10)
+    assert_same_results(s_j, i_j, s_t, i_t, db, q, 10)
+    assert abs(float(st_j["tile_computed_frac"]) - float(st_t["tile_computed_frac"])) < 1e-6
+
+
 @pytest.mark.parametrize("n_pivots", [0, 8], ids=["eq13", "joint_cap"])
 @pytest.mark.parametrize("blocks", [None, 8, 9], ids=["prescan1", "prescan8", "prescan9"])
 def test_kernel_inputs_select_route_equals_matrix_route(shared, blocks, n_pivots,

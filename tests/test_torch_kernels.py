@@ -375,6 +375,80 @@ def test_merge_splits_tie_rule_and_empty_slots():
     assert torch.equal(s, part_s[0]) and torch.equal(i, part_i[0])
 
 
+# ---------------------------------------------------------------------------
+# row_out: results written back in the caller's query order
+# ---------------------------------------------------------------------------
+
+def row_out_case(seed):
+    """40 queries at bm = 16 (a ragged last query tile of 8), 8 db tiles of
+    32, every option on, and a seeded permutation of the 40 rows."""
+    ops = topk_operands(256, 16, 40, 32, 6, seed=seed, holes=True)
+    kw = optional_operands(ops, bm=16, bn=32, **OPTIONS["all"])
+    kw = {a: None if v is None else torch.from_numpy(v) for a, v in kw.items()}
+    pos = [torch.from_numpy(ops[a]) for a in ("q", "db", "qp", "lo", "hi")]
+    perm = np.random.default_rng(seed).permutation(40).astype(np.int32)
+    return ops, pos, kw, perm
+
+
+@pytest.mark.parametrize("k", [1, 10, 32], ids=["k1", "k10", "k=bn"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_pruned_topk_plain_row_out_scatters(splits, k):
+    """row_out=perm is the result without it, row r moved to row perm[r];
+    computed and elem stay indexed by the query tiles as given."""
+    _, pos, kw, perm = row_out_case(splits * 100 + k)
+    common = dict(k=k, bm=16, bn=32, element_stats=True, splits=splits)
+    plain = pruned_topk_plain(*pos, 256, **kw, **common)
+    got = pruned_topk_plain(*pos, 256, **kw, **common, row_out=torch.from_numpy(perm))
+    for a, b in zip(plain[:2], got[:2]):
+        want = torch.empty_like(a)
+        want[torch.from_numpy(perm).long()] = a
+        assert torch.equal(b, want)
+    for a, b in zip(plain[2:], got[2:]):
+        assert torch.equal(a, b)
+    # the wrapper takes the same path on the CPU
+    wrapped = pruned_topk(*pos, 256, **kw, **common, row_out=torch.from_numpy(perm))
+    for a, b in zip(got, wrapped):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_pruned_topk_row_out_equals_pallas_reordered(k):
+    """At one split, row_out=perm equals the Pallas kernel (interpret mode)
+    re-ordered the same way, ``out[perm] = ref``, as test_pruned_topk_
+    matches_pallas holds the two: sims to 1e-6 (XLA and PyTorch sum the
+    fp32 scores in other orders, 1 ulp apart), ids equal as sets wherever
+    the sims are finite (the reference repeats an id in -inf slots),
+    computed and elem exactly."""
+    ops, pos, kw, perm = row_out_case(k)
+    jkw = {a: None if v is None else jnp.asarray(v.numpy()) for a, v in kw.items()}
+    ref = j_pruned_topk(*map(jnp.asarray, (ops["q"], ops["db"], ops["qp"], ops["lo"],
+                                           ops["hi"])), 256, **jkw, k=k, bm=16, bn=32,
+                        element_stats=True, interpret=True)
+    got = pruned_topk(*pos, 256, **kw, k=k, bm=16, bn=32, element_stats=True,
+                      splits=1, row_out=torch.from_numpy(perm))
+    s_ref, i_ref = (np.empty_like(np.asarray(x)) for x in ref[:2])
+    s_ref[perm], i_ref[perm] = np.asarray(ref[0]), np.asarray(ref[1])
+    assert_topk_match((s_ref, i_ref, np.asarray(ref[2]), np.asarray(ref[3])),
+                      [x.numpy() for x in got])
+
+
+def test_pruned_topk_rejects_bad_row_out():
+    _, pos, _, perm = row_out_case(7)
+    call = dict(k=4, bm=16, bn=32)
+    ro = torch.from_numpy(perm)
+    with pytest.raises(ValueError, match="row_out has shape"):
+        pruned_topk(*pos, 256, **call, row_out=ro[:-1])
+    with pytest.raises(TypeError, match="row_out must be torch.int32"):
+        pruned_topk(*pos, 256, **call, row_out=ro.long())
+    for bad in (40, -1):
+        with pytest.raises(ValueError, match="row_out holds rows outside"):
+            pruned_topk(*pos, 256, **call, row_out=torch.where(ro == 3, bad, ro).int())
+    order = torch.zeros(3, 8, dtype=torch.int32)
+    order[1, 2] = 8
+    with pytest.raises(ValueError, match="block_order holds tile ids"):
+        pruned_topk(*pos, 256, **call, block_order=order)
+
+
 @pytest.mark.parametrize("mt,nt,sms,ctas,want", [
     (79, 9247, 132, 2, 3),      # glove shape: 237 CTAs, one wave of 264
     (79, 9247, 132, 1, 3),      # one CTA per SM: 237 CTAs in 2 waves of 132
