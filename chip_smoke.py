@@ -42,7 +42,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 6. one torch.profiler window over a main-path search call: the device
    operations that take its time; no sort of the [M, NB] bound matrix
    among them, no merge_splits_kernel, and two sorts of [M] (the query
-   sort), none to undo it.
+   sort), none to undo it;
+7. the scan and tree backends (the tree with its scan leaf stage) on
+   phase 3's clustered-64 index at k = 10 and 100 and on phase 4's
+   uniform-256 index at k = 10, against those phases' brute force on the
+   card, tie-aware; with the launch counts set to 0 before each call: a
+   tree call launches block_bounds once per tree level and a scan call
+   once, and pruned_topk and block_bounds_select never; block_bounds on
+   the clustered-64 tree's node tables (the root's children, a middle
+   level, the leaves, empty-subtree sentinels included) bit for bit
+   against block_bounds_plain; each call timed with CUDA events (each is
+   a host loop of one step per index block), and one uniform-256 tree call
+   under torch.profiler for the card's busy share.
 
 Before the last line it prints one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
@@ -90,6 +101,9 @@ CLUSTERED2048 = dict(CLUSTERED64, name="clustered-2048 at glove-100-angular shap
 UNIFORM256 = dict(name="uniform at nytimes-256-angular shape", key="uniform256",
                   n=290_000, d=256, m=10_000, ks=(10,), centers=0, noise=0.0)
 REPS = 5
+#: timed calls of each scan / tree configuration in phase 7, after one
+#: warm-up: each call is a host loop of one step per index block
+SCAN_TREE_REPS = 3
 #: turns of the three merge routes in phase 5a': the epilogue is tens of
 #: microseconds inside a 65-180 ms kernel whose calls spread by ~0.5 ms
 MERGE_TURNS = 15
@@ -243,7 +257,8 @@ def phase_search(spec, seed, SearchEngine, kernels, wide=None, absent=()):
     (pruned_topk) once per search call, and none of ``absent``.  ``wide``:
     ``(warm_start_blocks, kernels)`` of the wide-prescan path, driven after
     the main path on the same index with the counts set to 0 before it.
-    Returns the engine, queries and the report."""
+    Returns the engine, queries, the report and the brute force on the card
+    ({k: (sims, ids)}, numpy) that the results were held to."""
     db_np, q_np = synth(spec, seed)
     for kern in kernels + absent + (wide[1] if wide else ()):
         kern.launches = 0
@@ -301,21 +316,157 @@ def phase_search(spec, seed, SearchEngine, kernels, wide=None, absent=()):
     # exactness: result sets equal a brute force on the card
     dbn = torch.nn.functional.normalize(torch.from_numpy(db_np).cuda(), dim=1)
     qn = torch.nn.functional.normalize(q, dim=1)
+    brute = {}
     for name, (k, sims, ids) in results.items():
-        s_b, i_b = brute_topk(qn, dbn, k)
-        s_g, i_g = sims.cpu().numpy(), ids.cpu().numpy()
-        check((i_g >= 0).all(), f"{spec['name']} {name}: -1 id with k <= rows")
-        check(np.isfinite(s_g).all() and s_g.shape == (spec["m"], k),
-              f"{spec['name']} {name}: non-finite or misshapen sims")
-        err = float(np.abs(s_g - s_b.cpu().numpy()).max())
-        bad = tie_aware_mismatches(s_g, i_g, s_b.cpu().numpy(),
-                                   i_b.cpu().numpy(), 1e-5)
-        log(f"[{spec['name']}] {name} vs brute force: max |sim diff| {err:.3e}, "
-            f"rows differing beyond near-ties: {bad}")
-        check(err <= 1e-5 and bad == 0, f"{spec['name']} {name}: not exact")
-        out[name]["max_abs_err_vs_brute"] = err
+        if k not in brute:
+            brute[k] = tuple(x.cpu().numpy() for x in brute_topk(qn, dbn, k))
+        out[name]["max_abs_err_vs_brute"] = exactness(spec, name, k, sims, ids, brute)[0]
     del dbn
-    return eng, q, out
+    return eng, q, out, brute
+
+
+def exactness(spec, name, k, sims, ids, brute):
+    """A search result against the brute force on the card (``brute[k]``,
+    numpy): finite sims of the right shape, no -1 id, the same result set
+    up to near-ties (1e-5); fails otherwise.  Returns (max |sim diff|,
+    rows differing beyond near-ties)."""
+    s_b, i_b = brute[k]
+    s_g, i_g = sims.cpu().numpy(), ids.cpu().numpy()
+    check((i_g >= 0).all(), f"{spec['name']} {name}: -1 id with k <= rows")
+    check(np.isfinite(s_g).all() and s_g.shape == (spec["m"], k),
+          f"{spec['name']} {name}: non-finite or misshapen sims")
+    err = float(np.abs(s_g - s_b).max())
+    bad = tie_aware_mismatches(s_g, i_g, s_b, i_b, 1e-5)
+    log(f"[{spec['name']}] {name} vs brute force: max |sim diff| {err:.3e}, "
+        f"rows differing beyond near-ties: {bad}")
+    check(err <= 1e-5 and bad == 0, f"{spec['name']} {name}: not exact")
+    return err, bad
+
+
+def phase_scan_tree(spec, eng, q, brute, ks, kernel_prune, kernels, profile=()):
+    """Phase 7: the scan and tree backends on ``eng``'s index at each k of
+    ``ks``, each configuration called once with the launch counts of
+    ``kernels`` (block_bounds, block_bounds_select, pruned_topk) set to 0
+    just before and read just after, then timed over SCAN_TREE_REPS calls
+    after that one warm-up; results held to ``brute``.  ``kernel_prune``:
+    the kernel backend's block_prune_frac per k on the same queries (phase
+    3 or 4), printed beside the tree's.  The configurations named in
+    ``profile`` (e.g. "tree_k10") also run one call under torch.profiler
+    (device_busy; a 9,247-step call takes minutes there).  Returns the
+    report and the tree the tree engine built."""
+    from repro_torch.search import SearchEngine
+
+    block_bounds, select, topk = kernels
+    out = {}
+    for backend in ("scan", "tree"):
+        engine = SearchEngine(eng.index, backend=backend)
+        for k in ks:
+            name = f"{backend}_k{k}"
+            for kern in kernels:
+                kern.launches = 0
+            sims, ids, st = engine.search(q, k)
+            torch.cuda.synchronize()
+            seen = {kern.__name__: kern.launches for kern in kernels}
+            levels = st.extras.get("tree_levels")
+            want_bb = levels if backend == "tree" else 1
+            check(seen == {block_bounds.__name__: want_bb, select.__name__: 0,
+                           topk.__name__: 0},
+                  f"{spec['name']} {name}: launches {seen}, want block_bounds "
+                  f"{want_bb} and no other kernel")
+            err, _ = exactness(spec, name, k, sims, ids, brute)
+            del sims, ids
+            ms = cuda_ms(lambda: engine.search(q, k), SCAN_TREE_REPS)
+            r = {"ms": ms, "p50_ms": float(np.median(ms)), "reps": SCAN_TREE_REPS,
+                 "warmup": 1, "launches": seen, "max_abs_err_vs_brute": err,
+                 "block_prune_frac": float(st.block_prune_frac),
+                 "kernel_block_prune_frac": kernel_prune[k]}
+            if backend == "tree":
+                r.update(tree_levels=levels,
+                         tree_prune_frac=float(st.tree_prune_frac),
+                         tree_node_eval_frac=float(st.tree_node_eval_frac))
+            if name in profile:
+                r["device"] = device_busy(lambda: engine.search(q, k), r["p50_ms"])
+            out[name] = r
+            said = (f"[{spec['name']}] {name}: p50 {r['p50_ms']:.1f} ms/call over "
+                    f"{SCAN_TREE_REPS} calls after 1 warm-up {['%.1f' % x for x in ms]}, "
+                    f"block_prune_frac {r['block_prune_frac']:.4f}")
+            if backend == "tree":
+                said += (f", tree_prune_frac {r['tree_prune_frac']:.4f}, "
+                         f"tree_node_eval_frac {r['tree_node_eval_frac']:.4f}, "
+                         f"tree_levels {levels}")
+            said += f"; launches {seen}"
+            if "device" in r:
+                dev = r["device"]
+                said += (f"; under the profiler one call kept the card busy "
+                         f"{dev['busy_ms']:.1f} ms in {dev['kernels']} kernels, "
+                         f"{dev['busy_share']:.3f} of the p50; top: "
+                         + "; ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in dev["top"]))
+            if kernel_prune[k] < r["block_prune_frac"]:
+                said += (f"; the kernel backend's block_prune_frac on the same "
+                         f"queries is lower: {kernel_prune[k]:.4f} (of query-tile "
+                         f"x kernel-tile pairs)")
+            log(said)
+        if backend == "tree":
+            tree = engine._tree_index
+        del engine
+    return out, tree
+
+
+def device_busy(fn, p50_ms, top=4):
+    """One call of ``fn`` under torch.profiler: the card's busy time (the
+    sum of the device's own events, kernels and copies; an aten operation's
+    device time is its kernels' and is not counted again), the number of
+    those events, their share of ``p50_ms`` (the call's time without the
+    profiler) and the events that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+            ops.append((e.key, us / 1e3, e.count))
+    ops.sort(key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in ops)
+    return {"busy_ms": busy, "busy_share": busy / p50_ms,
+            "kernels": int(sum(n for *_, n in ops)),
+            "top": [(name, ms) for name, ms, _ in ops[:top]]}
+
+
+def node_table_checks(tree, qp, levels):
+    """block_bounds on the tree's node tables of ``levels`` against
+    block_bounds_plain, bit for bit; every empty subtree's column -inf.
+    Returns {level: {nodes, empty, equal, kernel_ms, plain_ms}}; fails if
+    one differs."""
+    from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
+
+    out = {}
+    for level in levels:
+        base = 1 << level
+        lo, hi = tree.node_lo[base:2 * base], tree.node_hi[base:2 * base]
+        empty = ~tree.node_valid[base:2 * base]
+        got = block_bounds(qp, lo, hi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = block_bounds_plain(qp, lo, hi)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = bounds_equal(got, want) and bool(torch.isneginf(got[:, empty]).all())
+        del got, want
+        ms = cuda_ms(lambda: block_bounds(qp, lo, hi), REPS)
+        out[level] = {"nodes": base, "empty": int(empty.sum()), "equal": equal,
+                      "kernel_ms": float(np.median(ms)), "plain_ms": plain_ms}
+        log(f"[tree nodes] level {level}: {base} nodes ({out[level]['empty']} empty), "
+            f"block_bounds equal to its plain version bit for bit, sentinels -inf: "
+            f"{equal}; kernel {out[level]['kernel_ms']:.3f} ms, plain {plain_ms:.1f} ms")
+        check(equal, f"block_bounds on the tree's level {level} differs from its "
+                     f"plain version")
+    return out
 
 
 def profile_search(eng, q, k, matrix_elems, top=12):
@@ -570,8 +721,8 @@ def main(argv=None) -> int:
     wide_path = (SELECT_ROUTE_MAX_N_PRE + 1, (pruned_topk, block_bounds))
 
     # 3. the main path at full width, and its wide-prescan path
-    eng, q, report["clustered64"] = phase_search(CLUSTERED64, args.seed, SearchEngine,
-                                                 kernels, wide=wide_path, absent=absent)
+    eng, q, report["clustered64"], brute64 = phase_search(
+        CLUSTERED64, args.seed, SearchEngine, kernels, wide=wide_path, absent=absent)
     launches = dict(report["clustered64"]["launches"],
                     block_bounds=report["clustered64"]["wide_prescan_k10"]["launches"][
                         "block_bounds"])
@@ -861,6 +1012,8 @@ def main(argv=None) -> int:
         log(f"[kernels] {e['name']} [{m_} x {nb_} x {p_}]: max |diff| "
             f"{e['max_abs_err']:.3e}, kernel {e['ms']:.3f} ms, plain "
             f"{e['plain_ms']:.1f} ms, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    # phase 7 reads phase 3's index, queries and brute force
+    eng64, q64 = eng, q
     del kargs, kkw, qn, qp, eng, q
     torch.cuda.empty_cache()
 
@@ -930,12 +1083,41 @@ def main(argv=None) -> int:
     del small, idx
 
     # 3b. the main path's shape where the bound skips nothing
-    _, _, report["clustered2048"] = phase_search(CLUSTERED2048, args.seed + 3,
-                                                 SearchEngine, kernels, absent=absent)
+    report["clustered2048"] = phase_search(CLUSTERED2048, args.seed + 3,
+                                           SearchEngine, kernels, absent=absent)[2]
+    torch.cuda.empty_cache()
 
     # 4. K-loop over D = 256 and the worst case for the bound
-    _, _, report["uniform256"] = phase_search(UNIFORM256, args.seed + 2, SearchEngine,
-                                              kernels, absent=absent)
+    eng256, q256, report["uniform256"], brute256 = phase_search(
+        UNIFORM256, args.seed + 2, SearchEngine, kernels, absent=absent)
+
+    # 7. the scan and tree backends on phase 3's and phase 4's indexes
+    t7 = time.perf_counter()
+    st_kernels = (block_bounds, block_bounds_select, pruned_topk)
+    phase7 = {}
+    for spec, e, qq, brute, key in ((CLUSTERED64, eng64, q64, brute64, "clustered64"),
+                                    (UNIFORM256, eng256, q256, brute256, "uniform256")):
+        kprune = {k: report[key][f"k{k}"]["block_prune_frac"] for k in spec["ks"]}
+        phase7[key], tree = phase_scan_tree(
+            spec, e, qq, brute, spec["ks"], kprune, st_kernels,
+            profile=("tree_k10",) if key == "uniform256" else ())
+        if key == "clustered64":
+            phase7["node_tables"] = node_table_checks(
+                tree, prep_queries(e.index, qq)[1], (1, tree.n_levels // 2, tree.n_levels))
+        del tree
+        torch.cuda.empty_cache()
+    del eng64, q64, eng256, q256, brute64, brute256
+    phase7["seconds"] = time.perf_counter() - t7
+    report["scan_tree"] = phase7
+    log(f"[scan/tree] phase 7: {phase7['seconds']:.1f} s")
+    tree_launches = sum(r["launches"]["block_bounds"] for key in ("clustered64", "uniform256")
+                        for name, r in phase7[key].items() if name.startswith("tree"))
+    scan_launches = sum(r["launches"]["block_bounds"] for key in ("clustered64", "uniform256")
+                        for name, r in phase7[key].items() if name.startswith("scan"))
+    bb_entry["launches_by_path"] = {"wide_prescan": bb_entry["launches"],
+                                    "tree": tree_launches, "scan": scan_launches}
+    bb_entry["launches"] += tree_launches + scan_launches
+    bb_entry["tree_node_tables"] = phase7["node_tables"]
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry]
     report["seconds"] = time.perf_counter() - t_start

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from repro_torch.kernels.ref import sqrt_rn
+
 __all__ = [
     "lb_euclid",
     "lb_euclid_fast",
@@ -58,7 +60,7 @@ def lb_arccos(a: Tensor, b: Tensor) -> Tensor:
 
 def lb_mult(a: Tensor, b: Tensor) -> Tensor:
     """Eq. (10): ``sim >= a*b - sqrt((1-a^2)(1-b^2))`` (recommended)."""
-    return a * b - torch.sqrt(_radicand(a) * _radicand(b))
+    return a * b - sqrt_rn(_radicand(a) * _radicand(b))
 
 
 def lb_mult_fast1(a: Tensor, b: Tensor) -> Tensor:
@@ -74,7 +76,7 @@ def lb_mult_fast2(a: Tensor, b: Tensor) -> Tensor:
 
 def ub_mult(a: Tensor, b: Tensor) -> Tensor:
     """Eq. (13): ``sim <= a*b + sqrt((1-a^2)(1-b^2))`` — the pruning bound."""
-    return a * b + torch.sqrt(_radicand(a) * _radicand(b))
+    return a * b + sqrt_rn(_radicand(a) * _radicand(b))
 
 
 def ub_euclid(a: Tensor, b: Tensor) -> Tensor:

@@ -5,8 +5,20 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-__all__ = ["l2_normalize", "cosine_scores", "block_bounds", "kth_value",
-           "cosine_topk", "pruned_cosine_topk"]
+__all__ = ["sqrt_rn", "l2_normalize", "cosine_scores", "block_bounds",
+           "kth_value", "cosine_topk", "pruned_cosine_topk"]
+
+
+def sqrt_rn(x: Tensor) -> Tensor:
+    """The square root rounded to nearest, as XLA's and the card's are.
+
+    torch's vectorized CPU square root of float32 can be an ulp off; taken
+    in float64 and rounded to float32 it is exact (float64 carries more than
+    twice float32's 24 bits, so the double rounding is innocuous).
+    """
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def l2_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
@@ -31,8 +43,8 @@ def block_bounds(qp: Tensor, dp_min: Tensor, dp_max: Tensor) -> Tensor:
     lo = dp_min.float()[None, :, :]               # [1, NB, P]
     hi = dp_max.float()[None, :, :]
     rad_q = torch.clamp(1.0 - qp * qp, min=0.0)
-    ub_lo = qp * lo + torch.sqrt(rad_q * torch.clamp(1.0 - lo * lo, min=0.0))
-    ub_hi = qp * hi + torch.sqrt(rad_q * torch.clamp(1.0 - hi * hi, min=0.0))
+    ub_lo = qp * lo + sqrt_rn(rad_q * torch.clamp(1.0 - lo * lo, min=0.0))
+    ub_hi = qp * hi + sqrt_rn(rad_q * torch.clamp(1.0 - hi * hi, min=0.0))
     at_ends = torch.maximum(ub_lo, ub_hi)
     inside = (qp >= lo) & (qp <= hi)
     per_pivot = torch.where(inside, torch.ones_like(at_ends), at_ends)

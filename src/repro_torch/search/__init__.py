@@ -2,19 +2,24 @@
 
   engine   — :class:`SearchEngine` (build, query prep, τ warm-start,
              best-first order, id mapping, stats)
-  backends — registry + the ``kernel`` and ``brute`` inner loops
+  backends — registry + the ``scan``, ``kernel`` and ``brute`` inner loops
+  tree     — the pivot-tree backend (``backend="tree"``): transitive Eq. 13
+             descent over an array-encoded balanced tree, scan leaf stage
   stats    — the one :class:`SearchStats` every path returns
 """
 from repro_torch.search.backends import (available_backends, get_backend,
                                          register_backend)
 from repro_torch.search.engine import SearchEngine, auto_backend
 from repro_torch.search.stats import SearchStats
+from repro_torch.search.tree import TreeIndex, build_tree
 
 __all__ = [
     "SearchEngine",
     "SearchStats",
+    "TreeIndex",
     "auto_backend",
     "available_backends",
+    "build_tree",
     "get_backend",
     "register_backend",
 ]

@@ -7,6 +7,9 @@ Counterpart of :mod:`repro.search.backends`.  Every backend implements::
 
 and registers itself under a name with :func:`register_backend`:
 
+  ``scan``    a loop over the index blocks (masked matmuls), fed by the
+              ``block_bounds`` kernel; also the ``tree`` backend's leaf
+              stage (:mod:`repro_torch.search.tree`)
   ``kernel``  the hand-written ``pruned_topk`` kernel (tiles it proves
               unnecessary are skipped), fed by the ``block_bounds_select``
               kernel
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from repro_torch.core.bounds import ub_mult
 from repro_torch.core.index import BlockIndex, multipivot_block_cap
 from repro_torch.core.pivots import normalize
 from repro_torch.kernels import cosine_topk
@@ -31,9 +35,10 @@ from repro_torch.kernels.bound_prune import (block_bounds, block_bounds_select,
 
 __all__ = [
     "register_backend", "get_backend", "available_backends",
-    "prep_queries", "map_row_ids", "kernel_inputs", "kernel_search",
-    "brute_search", "tau_warm_start", "prescan_blocks", "coarsen_intervals",
-    "query_sort_perm", "best_first_order", "SELECT_ROUTE_MAX_N_PRE",
+    "prep_queries", "map_row_ids", "scan_search", "kernel_inputs",
+    "kernel_search", "brute_search", "tau_warm_start", "bound_ranked_tau",
+    "prescan_blocks", "coarsen_intervals", "query_sort_perm",
+    "best_first_order", "SELECT_ROUTE_MAX_N_PRE",
 ]
 
 #: the widest prescan (tiles per query) that :func:`kernel_inputs` takes
@@ -127,6 +132,17 @@ def tau_warm_start(qn: Tensor, db_blocks: Tensor, valid_blocks: Tensor,
     return torch.where(torch.isfinite(tau), tau, float("-inf"))
 
 
+def bound_ranked_tau(index: BlockIndex, qn: Tensor, ub: Tensor, k: int,
+                     n_pre: int) -> Tensor:
+    """:func:`tau_warm_start` over each query's ``n_pre`` highest-bound
+    index blocks of ``ub [m, nb]``, ranked by :func:`select_bounds` (among
+    equal bounds the lower block wins, as ``lax.top_k`` does)."""
+    nb, bs = index.n_blocks, index.block_size
+    _, best = select_bounds(ub, bm=max(1, ub.shape[0]), n_pre=n_pre)
+    return tau_warm_start(qn, index.db.reshape(nb, bs, -1),
+                          index.valid.reshape(nb, bs), best, k)
+
+
 def query_sort_perm(qp: Tensor) -> Tensor:
     """Permutation grouping queries by nearest pivot (desc sim within group),
     so a query tile is angularly coherent; the reference's ``jnp.lexsort``
@@ -142,6 +158,104 @@ def best_first_order(tile_max: Tensor) -> Tensor:
     block *any* query still needs comes first, which drives every τ up
     fastest."""
     return torch.argsort(-tile_max, dim=-1, stable=True).int()
+
+
+# ---------------------------------------------------------------------------
+# scan backend
+# ---------------------------------------------------------------------------
+
+def scan_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
+                prune: bool = True, margin: float = 4e-7,
+                warm_start: bool = False, best_first: bool = False,
+                element_stats: bool = False,
+                warm_start_blocks: int | None = None, n_pivots: int = 0,
+                tau0: Tensor | None = None, ub_all: Tensor | None = None,
+                leaf_mask: Tensor | None = None):
+    """The scan backend's inner loop: one step per index block, in natural
+    or best-first order, each a ``[m, d] x [d, bs]`` matmul whose rows the
+    Eq. 13 bound proves unnecessary are masked to ``-inf`` (computed, then
+    masked, as in the reference), merged into a running top-k.
+
+    Returns ``(top_s [m, k], pos [m, k] padded-row positions, blk_pruned,
+    elem_pruned)``, the counts as 0-dim int64 tensors on the device.
+    ``blk_pruned`` counts the (query, block) pairs skipped, ``elem_pruned``
+    (with ``element_stats``) the (query, valid row) pairs whose own Eq. 13
+    bound + margin lay below τ at the visit.
+
+    The bound matrix ``ub_all [m, nb]`` comes from the ``block_bounds``
+    kernel (its plain version on CPU tensors), min'd with the joint
+    multi-pivot cap when ``prune`` and ``n_pivots > 0``; it feeds the
+    warm start, the best-first order and every step's prune test.  The
+    running top-k starts at ``tau0 - 1e-6`` with position -1; each step
+    keeps the k best of (running list, block scores) by a stable sort, so
+    among equal scores the lower candidate wins and an entry already held
+    beats a new one (``lax.top_k``'s rule).
+
+    The hooks let the tree backend reuse this loop as its leaf stage:
+    ``tau0 [m]`` replaces the warm start's seed (a true lower bound on
+    each query's final k-th best, or -inf); ``ub_all [m, nb]`` is a bound
+    matrix already computed (the descent's leaf level), so none is
+    computed here; ``leaf_mask [m, nb]`` marks the blocks a caller has not
+    proven prunable (False: skipped and counted in ``blk_pruned``; the
+    proof is the caller's).
+    """
+    m = qn.shape[0]
+    nb, bs = index.n_blocks, index.block_size
+    db_blocks = index.db.reshape(nb, bs, -1)
+    valid_blocks = index.valid.reshape(nb, bs)
+    dp_blocks = index.dp.reshape(nb, bs, -1) if element_stats else None
+    pos_blocks = torch.arange(nb * bs, dtype=torch.int32,
+                              device=qn.device).reshape(nb, bs)
+    cap = (multipivot_block_cap(index, qn, n_pivots=n_pivots)
+           if prune and n_pivots > 0 else None)
+    if ub_all is None and (prune or warm_start or best_first):
+        ub_all = block_bounds(qp, index.dp_min, index.dp_max, cap)
+    elif cap is not None:
+        ub_all = torch.minimum(ub_all, cap)
+    if tau0 is None:
+        tau0 = qn.new_full((m,), float("-inf"))
+        if warm_start:
+            tau0 = bound_ranked_tau(
+                index, qn, ub_all, k,
+                prescan_blocks(k, bs, nb, warm_start_blocks))
+
+    # per-block operands, block-major so each step reads contiguous rows
+    ub_t = ub_all.T if prune else None
+    mask_t = leaf_mask.T if leaf_mask is not None else None
+    if best_first:
+        order = best_first_order(ub_all.amax(0)).long()
+        db_blocks, valid_blocks = db_blocks[order], valid_blocks[order]
+        pos_blocks = pos_blocks[order]
+        dp_blocks = dp_blocks[order] if element_stats else None
+        ub_t = ub_t[order] if prune else None
+        mask_t = mask_t[order] if mask_t is not None else None
+    else:
+        ub_t = ub_t.contiguous() if prune else None
+        mask_t = mask_t.contiguous() if mask_t is not None else None
+
+    top_s = (tau0 - 1e-6)[:, None].expand(m, k).contiguous()
+    top_i = torch.full((m, k), -1, dtype=torch.int32, device=qn.device)
+    blk_pruned = torch.zeros((), dtype=torch.int64, device=qn.device)
+    elem_pruned = torch.zeros((), dtype=torch.int64, device=qn.device)
+    for j in range(nb):
+        tau = top_s[:, -1]                                # running k-th best
+        needed = (ub_t[j] + margin >= tau if prune else
+                  torch.ones(m, dtype=torch.bool, device=qn.device))
+        if mask_t is not None:
+            needed = needed & mask_t[j]
+        vb = valid_blocks[j]
+        scores = (qn @ db_blocks[j].T).masked_fill(
+            ~(needed[:, None] & vb[None, :]), float("-inf"))
+        cand_s = torch.cat([top_s, scores], 1)
+        cand_i = torch.cat([top_i, pos_blocks[j].expand(m, bs)], 1)
+        cand_s, sel = torch.sort(cand_s, dim=1, descending=True, stable=True)
+        top_s = cand_s[:, :k]
+        top_i = cand_i.gather(1, sel[:, :k])
+        blk_pruned += (~needed).sum()
+        if element_stats:
+            eub = ub_mult(qp[:, None, :], dp_blocks[j][None, :, :]).amin(-1)
+            elem_pruned += ((eub + margin < tau[:, None]) & vb[None, :]).sum()
+    return top_s, top_i, blk_pruned, elem_pruned
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +367,27 @@ def brute_search(index: BlockIndex, qn: Tensor, k: int):
 # ---------------------------------------------------------------------------
 # the registered backends
 # ---------------------------------------------------------------------------
+
+@register_backend("scan")
+class ScanBackend:
+    """The block loop over the ``block_bounds`` kernel's bound matrix."""
+
+    name = "scan"
+
+    def run(self, eng, queries, k, *, prune=True, element_stats=False):
+        qn, qp = prep_queries(eng.index, queries)
+        s, pos, blk_pruned, elem_pruned = scan_search(
+            eng.index, qn, qp, k, prune=prune, margin=eng.margin,
+            warm_start=eng.warm_start, best_first=eng.best_first,
+            element_stats=element_stats,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        ids = map_row_ids(eng.index.row_ids, pos)
+        m, nb = qn.shape[0], eng.index.n_blocks
+        raw = {"block_prune_frac": blk_pruned / (m * nb)}
+        if element_stats:
+            raw["elem_prune_frac"] = elem_pruned / (m * max(1, eng.n_valid))
+        return s, ids, raw
+
 
 @register_backend("kernel")
 class KernelBackend:

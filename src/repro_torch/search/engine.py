@@ -7,7 +7,8 @@ Counterpart of :mod:`repro.search.engine`::
 
 τ warm-start and best-first tile ordering are engine policy (on by
 default); they change how fast τ rises, never the result set, which stays
-the brute-force one.  Ported backends: ``kernel`` and ``brute``.
+the brute-force one.  Ported backends: ``kernel``, ``scan``, ``tree`` (with
+its scan leaf stage) and ``brute``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,12 @@ _KERNEL_MAX_DIM = 4096
 def auto_backend(index: BlockIndex) -> str:
     """``brute`` for tiny datastores (≤ 256 padded rows), else ``kernel``
     when ``d ≤ 4096``, else ``brute``.  A shard-stacked index raises: the
-    sharded backend is not ported."""
+    sharded backend is not ported.
+
+    Off the TPU the reference picks ``tree`` or ``scan`` past 256 padded
+    rows.  The port does not yet: with the fixed fp32 ``margin`` both can
+    drop a true neighbour where a query lies nearly (anti)parallel to a
+    pivot (ROADMAP.md Queue 3), so they are chosen by name only."""
     if index.db.ndim == 3:
         raise ValueError("shard-stacked indexes need the sharded backend, "
                          "which repro_torch does not have yet")
@@ -47,7 +53,8 @@ class SearchEngine:
 
     Args (the reference's knobs and defaults):
       index: the block index; moved to ``device`` if it lies elsewhere.
-      backend: ``"kernel"``, ``"brute"`` or ``"auto"`` (default).
+      backend: ``"kernel"``, ``"scan"``, ``"tree"``, ``"brute"`` or
+        ``"auto"`` (default, :func:`auto_backend`).
       warm_start: seed each query's τ by exact-scoring its best-bound tiles.
       warm_start_blocks: widen that prescan (``None``: the ``ceil(k / bn)``
         floor).
@@ -97,6 +104,8 @@ class SearchEngine:
             n_pivots = FALLBACK_DEFAULTS["n_pivots"]
         self.n_pivots = max(0, min(int(n_pivots), index.bound_table_width))
         self.margin = margin
+        self._tree_index = None             # built by the tree backend
+        self._tree_valid_nodes = 0          # its node count, read once
         self.bm = bm
         self.bn = bn
         self.sort_queries = sort_queries
@@ -157,8 +166,14 @@ class SearchEngine:
             block_prune_frac=raw.get("block_prune_frac", 0.0),
             tile_computed_frac=raw.get("tile_computed_frac"),
             elem_prune_frac=raw.get("elem_prune_frac"),
+            tree_prune_frac=raw.get("tree_prune_frac"),
+            tree_node_eval_frac=raw.get("tree_node_eval_frac"),
             warm_start=self.warm_start,
             best_first=self.best_first,
             n_pivots=None if self.backend_name == "brute" else self.n_pivots,
+            extras={key: v for key, v in raw.items()
+                    if key not in ("block_prune_frac", "tile_computed_frac",
+                                   "elem_prune_frac", "tree_prune_frac",
+                                   "tree_node_eval_frac")},
         )
         return sims, ids, stats

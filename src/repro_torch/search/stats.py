@@ -21,10 +21,17 @@ class SearchStats:
     ``element_stats``): fraction of (query, valid row) pairs whose own
     Eq. 13 bound fell below the running τ at visit time.
 
-    **Absent-stage fields are ``None``, never 0.**  ``retraces`` is always
-    ``None``: the port has no trace cache.  ``tree_*``, ``generation`` and
-    ``decay_estimate`` stay ``None`` until the tree backend and online
-    mutation are ported.
+    ``tree_prune_frac`` (``tree`` backend, with pruning): fraction of
+    (query, block) pairs the transitive descent alone cut;
+    ``tree_node_eval_frac``: (query, node) bound evaluations the descent
+    needed over ``m`` times the valid nodes; ``extras["tree_levels"]``: the
+    tree's depth.
+
+    **Absent-stage fields are ``None``, never 0.**  ``tree_*`` are ``None``
+    on every backend but ``tree``, and there with ``prune=False`` (the
+    descent did not run).  ``retraces`` is always ``None``: the port has no
+    trace cache.  ``generation`` and ``decay_estimate`` stay ``None`` until
+    online mutation is ported.
     """
 
     backend: str

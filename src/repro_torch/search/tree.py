@@ -1,0 +1,316 @@
+"""Pivot-tree exact search (counterpart of :mod:`repro.search.tree`).
+
+The paper's bound applied transitively: a balanced binary tree over the
+block index's consecutive blocks, whose every node caches the union of
+its descendants' per-pivot similarity intervals.  One Eq. 13 evaluation
+at a node bounds every row below it, so ``ub(node) + margin < τ`` cuts the
+whole subtree (DESIGN.md §3.5).
+
+* **Heap layout.**  Node 1 is the root, node ``i`` has children ``2i`` and
+  ``2i+1``; leaves sit at ``[nl, 2·nl)`` with ``nl`` the block count
+  rounded up to a power of two, leaf slot ``s`` = index block ``s``.
+* **Level-synchronous descent.**  Each level's ``[m, 2^l]`` bound matrix
+  is one launch of the ``block_bounds`` kernel (its plain version on CPU
+  tensors) over that level's node intervals; a boolean frontier per query
+  masks it.  Empty subtrees carry the inverted sentinel interval
+  (lo = +inf, hi = -inf), which the bound maps to ``-inf``.
+* **Leaves reuse the scan loop** through its ``tau0`` / ``ub_all`` /
+  ``leaf_mask`` hooks (:func:`repro_torch.search.backends.scan_search`).
+
+Exactness: the τ₀ seeds are k-th bests of real scored candidates, a node
+bound dominates every descendant similarity, and the leaf stage is the
+scan loop, so ``backend="tree"`` returns the brute-force result set.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from repro_torch.core.index import (BlockIndex, interval_upper_bound,
+                                    multipivot_block_cap)
+from repro_torch.kernels.bound_prune import block_bounds
+from repro_torch.search import backends as _bk
+
+__all__ = ["TreeIndex", "build_tree", "tree_warm_start",
+           "tree_warm_start_topk", "tree_descend", "tree_search"]
+
+
+class TreeIndex(NamedTuple):
+    """Array-encoded balanced pivot tree over a :class:`BlockIndex`.
+
+    ``node_lo`` / ``node_hi`` ``[2·nl, P]`` cache the union of descendant
+    per-pivot similarity intervals; ``node_valid [2·nl]`` is True iff the
+    subtree holds a real row.  Node 0 is unused (the beam's empty slot).
+    """
+
+    index: BlockIndex
+    node_lo: Tensor
+    node_hi: Tensor
+    node_valid: Tensor
+
+    @property
+    def n_leaf_slots(self) -> int:
+        return self.node_valid.shape[0] // 2
+
+    @property
+    def n_levels(self) -> int:
+        """Tree depth: leaves live ``n_levels`` below the root."""
+        return self.n_leaf_slots.bit_length() - 1
+
+    @property
+    def n_blocks(self) -> int:
+        return self.index.n_blocks
+
+    @property
+    def block_size(self) -> int:
+        return self.index.block_size
+
+    @property
+    def n_valid_nodes(self) -> int:
+        """Host int: nodes whose subtree holds a real row (one device sync;
+        the tree backend reads it once per tree)."""
+        return int(self.node_valid.sum())
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << (x - 1).bit_length() if x > 1 else 1
+
+
+def _tree_arrays(dp_min: Tensor, dp_max: Tensor, block_valid: Tensor, *,
+                 nl: int):
+    """Bottom-up interval union into heap-ordered node arrays.  Empty
+    subtrees keep the ±inf identity of the reduce, the same inverted
+    interval ``build_index`` writes for all-padding blocks."""
+    nb, p = dp_min.shape
+    dev = dp_min.device
+    lo = torch.full((2 * nl, p), float("inf"), device=dev)
+    hi = torch.full((2 * nl, p), float("-inf"), device=dev)
+    valid = torch.zeros(2 * nl, dtype=torch.bool, device=dev)
+    lo[nl:nl + nb] = dp_min.float().masked_fill(~block_valid[:, None],
+                                                float("inf"))
+    hi[nl:nl + nb] = dp_max.float().masked_fill(~block_valid[:, None],
+                                                float("-inf"))
+    valid[nl:nl + nb] = block_valid
+    sz = nl // 2
+    while sz >= 1:
+        lo[sz:2 * sz] = lo[2 * sz:4 * sz].reshape(sz, 2, p).amin(1)
+        hi[sz:2 * sz] = hi[2 * sz:4 * sz].reshape(sz, 2, p).amax(1)
+        valid[sz:2 * sz] = valid[2 * sz:4 * sz].reshape(sz, 2).any(1)
+        sz //= 2
+    return lo, hi, valid
+
+
+def build_tree(index: BlockIndex) -> TreeIndex:
+    """Build the balanced pivot tree over ``index``'s blocks: one min/max
+    reduce per level over the cached block intervals.  Shard-stacked
+    indexes are refused (the ``sharded`` backend owns those)."""
+    if index.db.ndim != 2:
+        raise ValueError("build_tree needs a single-shard BlockIndex; "
+                         "shard-stacked indexes are served by the 'sharded' "
+                         "backend")
+    nb, bs = index.n_blocks, index.block_size
+    block_valid = index.valid.reshape(nb, bs).any(1)
+    lo, hi, valid = _tree_arrays(index.dp_min, index.dp_max, block_valid,
+                                 nl=_next_pow2(nb))
+    return TreeIndex(index, lo, hi, valid)
+
+
+def _gathered_bounds(qp: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """Eq. 13 interval bound for per-query node gathers: ``qp [m, P]``,
+    ``lo / hi [m, W, P]`` -> ``[m, W]``."""
+    return interval_upper_bound(qp[:, None, :], lo, hi).amin(-1)
+
+
+def _top_w(x: Tensor, w: int) -> Tensor:
+    """Positions of each row's ``w`` largest values, ties to the lower
+    position (``lax.top_k``'s rule)."""
+    return torch.argsort(x, dim=1, descending=True, stable=True)[:, :w]
+
+
+def tree_warm_start_topk(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int,
+                         width: int):
+    """Beam-descend to ``width`` best-bound leaves and exact-score them.
+
+    A beam of ``width`` nodes starts at the root; each level expands to the
+    ``2·width`` children and keeps the ``width`` highest Eq. 13 bounds, so
+    ``2·width·depth`` bounds are evaluated per query, not ``n_blocks``.
+    Returns ``(scores [m, k], valid [m, k])``: the k highest similarities
+    among the reached real candidates, descending, padded with ``-inf`` /
+    ``False`` when fewer than k were reached.
+    """
+    idx = tree.index
+    m = qp.shape[0]
+    nl, depth = tree.n_leaf_slots, tree.n_levels
+    nb, bs = idx.n_blocks, idx.block_size
+    w = max(1, min(width, nb))
+    dev = qp.device
+    beam = torch.zeros((m, w), dtype=torch.int64, device=dev)
+    beam[:, 0] = 1                       # node 0 is the empty slot
+    for _ in range(depth):
+        live = beam > 0
+        cand = torch.cat([torch.where(live, 2 * beam, 0),
+                          torch.where(live, 2 * beam + 1, 0)], 1)  # [m, 2w]
+        ub = _gathered_bounds(qp, tree.node_lo[cand], tree.node_hi[cand])
+        ok = tree.node_valid[cand] & (cand > 0)
+        sel = _top_w(ub.masked_fill(~ok, float("-inf")), w)
+        beam = torch.where(ok.gather(1, sel), cand.gather(1, sel), 0)
+    blocks = beam - nl                                    # leaf slot = block
+    okb = (beam >= nl) & (blocks < nb)
+    blocks = blocks.clamp(0, nb - 1)
+    blk = idx.db.reshape(nb, bs, -1)[blocks].reshape(m, w * bs, -1)
+    vb = (idx.valid.reshape(nb, bs)[blocks] & okb[:, :, None]).reshape(m, w * bs)
+    scores = torch.bmm(blk, qn[:, :, None])[:, :, 0].masked_fill(
+        ~vb, float("-inf"))
+    kk = min(k, w * bs)
+    sel = _top_w(scores, kk)
+    top_s, top_v = scores.gather(1, sel), vb.gather(1, sel)
+    if kk < k:
+        top_s = torch.cat([top_s, top_s.new_full((m, k - kk), float("-inf"))], 1)
+        top_v = torch.cat([top_v, top_v.new_zeros((m, k - kk))], 1)
+    return top_s, top_v
+
+
+def tree_warm_start(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int,
+                    width: int) -> Tensor:
+    """Tree-native τ seed: the k-th best beam candidate, or -inf where the
+    reached leaves hold fewer than k valid rows.  The k-th best of any set
+    of real candidates is a valid lower bound on the final k-th best."""
+    m = qp.shape[0]
+    w = max(1, min(width, tree.n_blocks))
+    if w * tree.block_size < k:
+        return qp.new_full((m,), float("-inf"))
+    scores, valid = tree_warm_start_topk(tree, qn, qp, k, width)
+    return torch.where(valid[:, -1], scores[:, -1], float("-inf"))
+
+
+def tree_descend(tree: TreeIndex, qp: Tensor, tau0: Tensor,
+                 margin: float = 4e-7):
+    """Level-synchronous transitive-bound descent (DESIGN.md §3.5).
+
+    A node is evaluated when its parent survived, and survives when its
+    Eq. 13 interval bound + ``margin`` reaches τ₀.  Each level's bounds are
+    one ``block_bounds`` call over the level's ``2^l`` node intervals.
+
+    Returns ``(leaf_alive [m, nb] bool, leaf_ub [m, nb], n_evals)``: the
+    surviving leaves, the leaf level's bound matrix (what the flat scan
+    would compute; the leaf stage reuses it) and the number of (query,
+    node) bound evaluations a pointer walk would need, a 0-dim int64.
+    """
+    m = qp.shape[0]
+    depth, nb = tree.n_levels, tree.n_blocks
+    alive = tree.node_valid[1].expand(m, 1)                   # root frontier
+    evals = torch.full((), m, dtype=torch.int64, device=qp.device)
+    for level in range(1, depth + 1):
+        base = 1 << level
+        ub = block_bounds(qp, tree.node_lo[base:2 * base],
+                          tree.node_hi[base:2 * base])        # [m, 2^l]
+        evaluated = (alive.repeat_interleave(2, dim=1)
+                     & tree.node_valid[base:2 * base][None, :])
+        alive = evaluated & (ub + margin >= tau0[:, None])
+        evals += evaluated.sum()
+    if depth == 0:                                            # single block
+        ub = block_bounds(qp, tree.node_lo[1:2], tree.node_hi[1:2])
+        alive = alive & (ub + margin >= tau0[:, None])
+    return alive[:, :nb], ub[:, :nb], evals
+
+
+def _seed_and_descend(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
+                      warm_start: bool, warm_start_blocks: int | None,
+                      margin: float):
+    """Beam seed -> transitive descent -> flat reseed, the one sequence
+    every leaf stage shares.
+
+    Returns ``(tau0 [m] or None, leaf_alive [m, nb], leaf_ub [m, nb],
+    n_evals)``.  The flat reseed scores the leaf level's best-bound blocks
+    too (from the descent's own bound matrix), so τ₀ is at least the scan
+    backend's seed and the tree prunes at least what the scan prunes.
+    """
+    idx = tree.index
+    m = qn.shape[0]
+    nb, bs = idx.n_blocks, idx.block_size
+    tau0 = qn.new_full((m,), float("-inf"))
+    n_pre = _bk.prescan_blocks(k, bs, nb, warm_start_blocks)
+    if warm_start:
+        tau0 = tree_warm_start(tree, qn, qp, k, n_pre)
+    leaf_alive, leaf_ub, evals = tree_descend(tree, qp, tau0, margin)
+    if warm_start:
+        tau0 = torch.maximum(
+            tau0, _bk.bound_ranked_tau(idx, qn, leaf_ub, k, n_pre))
+    return (tau0 if warm_start else None), leaf_alive, leaf_ub, evals
+
+
+def tree_search(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
+                prune: bool = True, margin: float = 4e-7,
+                warm_start: bool = True, best_first: bool = True,
+                element_stats: bool = False,
+                warm_start_blocks: int | None = None, n_pivots: int = 0):
+    """Tree search with the scan leaf stage: beam seed -> descent -> the
+    scan loop over the surviving leaves, fed the descent's leaf bound
+    matrix (with ``n_pivots > 0`` min'd with the joint cap; the descent and
+    ``tree_pruned`` stay interval-only), the surviving-leaf mask and τ₀.
+
+    Returns ``(top_s, pos, blk_pruned, elem_pruned, tree_pruned,
+    node_evals)``: the first four as :func:`scan_search`, then the (query,
+    block) pairs the descent alone cut and the (query, node) bound
+    evaluations it needed, 0-dim int64 tensors.
+    """
+    idx = tree.index
+    zero = torch.zeros((), dtype=torch.int64, device=qn.device)
+    tau0 = leaf_alive = leaf_ub = None
+    evals = zero
+    if prune:
+        tau0, leaf_alive, leaf_ub, evals = _seed_and_descend(
+            tree, qn, qp, k, warm_start=warm_start,
+            warm_start_blocks=warm_start_blocks, margin=margin)
+        if n_pivots > 0:
+            leaf_ub = torch.minimum(
+                leaf_ub, multipivot_block_cap(idx, qn, n_pivots=n_pivots))
+    top_s, pos, blk_pruned, elem_pruned = _bk.scan_search(
+        idx, qn, qp, k, prune=prune, margin=margin, warm_start=False,
+        best_first=best_first, element_stats=element_stats,
+        tau0=tau0, ub_all=leaf_ub, leaf_mask=leaf_alive)
+    tree_pruned = (~leaf_alive).sum() if prune else zero
+    return top_s, pos, blk_pruned, elem_pruned, tree_pruned, evals
+
+
+@_bk.register_backend("tree")
+class TreeBackend:
+    """Hierarchical pivot-tree backend (``backend="tree"``).
+
+    Builds a :class:`TreeIndex` over the engine's index on first use and
+    caches it on the engine.  The leaf stage is the scan loop (the
+    reference's ``leaf_eval="scan"``); its kernel leaf stage is not ported
+    yet.
+    """
+
+    name = "tree"
+
+    def _tree(self, eng) -> TreeIndex:
+        if eng._tree_index is None:
+            eng._tree_index = build_tree(eng.index)
+            eng._tree_valid_nodes = eng._tree_index.n_valid_nodes
+        return eng._tree_index
+
+    def run(self, eng, queries, k, *, prune=True, element_stats=False):
+        tree = self._tree(eng)
+        qn, qp = _bk.prep_queries(eng.index, queries)
+        m, nb = qn.shape[0], tree.n_blocks
+        top_s, pos, blk_pruned, elem_pruned, tree_pruned, evals = tree_search(
+            tree, qn, qp, k, prune=prune, margin=eng.margin,
+            warm_start=eng.warm_start, best_first=eng.best_first,
+            element_stats=element_stats,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        ids = _bk.map_row_ids(eng.index.row_ids, pos)
+        raw = {"block_prune_frac": blk_pruned / (m * nb),
+               "tree_levels": tree.n_levels}
+        if prune:
+            # absent-stage rule: with prune off the descent never ran, so
+            # the tree fractions stay None (engine raw.get), never 0
+            raw["tree_prune_frac"] = tree_pruned / (m * nb)
+            raw["tree_node_eval_frac"] = evals / (
+                m * max(1, eng._tree_valid_nodes))
+        if element_stats:
+            raw["elem_prune_frac"] = elem_pruned / (m * max(1, eng.n_valid))
+        return top_s, ids, raw

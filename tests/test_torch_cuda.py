@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import ref as cref  # noqa: E402
+from repro_torch.core.bounds import ub_mult  # noqa: E402
+from repro_torch.core.index import build_index, multipivot_block_cap  # noqa: E402
 from repro_torch.kernels.bound_prune import (SELECT_MAX_N_PRE,  # noqa: E402
                                              block_bounds, block_bounds_plain,
                                              block_bounds_select,
@@ -22,6 +24,10 @@ from repro_torch.kernels.cosine_topk import (_launch, _operands,  # noqa: E402
                                              default_splits, merge_splits,
                                              merge_splits_plain, pruned_topk,
                                              pruned_topk_plain, scatter_rows)
+from repro_torch.search import backends as t_bk  # noqa: E402
+
+#: the engines' fp32 guard on every bound test
+MARGIN = 4e-7
 
 
 def clustered(rng, n, d, n_centers=6, noise=0.07):
@@ -31,6 +37,67 @@ def clustered(rng, n, d, n_centers=6, noise=0.07):
     c /= np.linalg.norm(c, axis=1, keepdims=True)
     x = c[rng.integers(0, n_centers, n)] + noise * rng.normal(size=(n, d))
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def scan_gaps(idx, qn, qp, k, *, prune=True, margin=MARGIN, warm_start=False,
+              best_first=False, warm_start_blocks=None, n_pivots=0, tau0=None,
+              ub_all=None, leaf_mask=None):
+    """Replay the scan's decisions with its own operands: ``(blk_pruned,
+    elem_pruned, block gaps [m, nb], elem gaps [m, n_valid_rows])``, where
+    a gap is bound + margin - τ at the visit (a decision prunes where the
+    gap is negative).  A plain loop over the same steps as scan_search."""
+    m = qn.shape[0]
+    nb, bs = idx.n_blocks, idx.block_size
+    cap = multipivot_block_cap(idx, qn, n_pivots=n_pivots) if prune and n_pivots else None
+    if ub_all is None:
+        ub_all = block_bounds(qp, idx.dp_min, idx.dp_max, cap)
+    elif cap is not None:
+        ub_all = torch.minimum(ub_all, cap)
+    if tau0 is None:
+        tau0 = torch.full((m,), float("-inf"))
+        if warm_start:
+            tau0 = t_bk.bound_ranked_tau(idx, qn, ub_all, k, t_bk.prescan_blocks(
+                k, bs, nb, warm_start_blocks))
+    order = (torch.argsort(-ub_all.amax(0), stable=True) if best_first
+             else torch.arange(nb))
+    valid = idx.valid.reshape(nb, bs)
+    top = (tau0 - 1e-6)[:, None].expand(m, k)
+    blk_gap = torch.full((m, nb), float("inf"))
+    elem_gap = []
+    for b in order.tolist():
+        tau = top[:, -1]
+        if prune:
+            blk_gap[:, b] = ub_all[:, b] + margin - tau
+        if leaf_mask is not None:       # a caller's proof, not a decision
+            blk_gap[:, b] = blk_gap[:, b].masked_fill(~leaf_mask[:, b], float("inf"))
+        needed = (blk_gap[:, b] >= 0) & (leaf_mask[:, b] if leaf_mask is not None else True)
+        rows = slice(b * bs, (b + 1) * bs)
+        eub = ub_mult(qp[:, None, :], idx.dp[rows][None]).amin(-1)
+        elem_gap.append((eub + margin - tau[:, None])[:, valid[b]])
+        scores = (qn @ idx.db[rows].T).masked_fill(~(needed[:, None] & valid[b][None]),
+                                                   float("-inf"))
+        top = torch.sort(torch.cat([top, scores], 1), dim=1, descending=True,
+                         stable=True).values[:, :k]
+    elem_gap = torch.cat(elem_gap, 1)
+    blk_pruned = int((blk_gap < 0).sum()) + (0 if leaf_mask is None
+                                             else int((~leaf_mask).sum()))
+    return blk_pruned, int((elem_gap < 0).sum()), blk_gap, elem_gap
+
+
+def near_decisions(gaps, margin=MARGIN) -> int:
+    return int((gaps.abs() <= 2 * margin).sum())
+
+
+def assert_same_counts(got, want, replay):
+    """``got`` / ``want``: (blk_pruned, elem_pruned) of the port and the
+    reference.  Equal, or apart by no more than the decisions within
+    2·margin of τ (``replay``: a thunk giving :func:`scan_gaps`)."""
+    if got == want:
+        return
+    blk, elem, blk_gap, elem_gap = replay()
+    assert (blk, elem) == got, "the replay does not reproduce the port's counts"
+    assert abs(got[0] - want[0]) <= near_decisions(blk_gap), (got, want)
+    assert abs(got[1] - want[1]) <= near_decisions(elem_gap), (got, want)
 
 
 @pytest.fixture
@@ -572,3 +639,92 @@ def test_engine_search_launches_no_merge_splits(cuda):
     np.testing.assert_allclose(sims.cpu().numpy(), s_b, atol=1e-5)
     assert_topk_sets_close(sims.cpu().numpy(), ids.cpu().numpy(),
                            s_b.astype(np.float32), i_b.astype(np.int32), tol=1e-5)
+
+
+def descent_near_decisions(eng, qn, qp, k) -> int:
+    """(query, node) decisions of the tree engine's descent whose gap
+    (bound + margin - τ₀) lies within 2·margin: where the descent of two
+    devices, whose τ₀ seeds differ by fp32 rounding, may cut differently."""
+    from repro_torch.search import tree as t_tree
+
+    tree = eng._tree_index
+    tau0 = t_tree.tree_warm_start(tree, qn, qp, k, t_bk.prescan_blocks(
+        k, tree.block_size, tree.n_blocks, eng.warm_start_blocks))
+    near = 0
+    for level in range(1, tree.n_levels + 1):
+        base = 1 << level
+        ub = block_bounds(qp, tree.node_lo[base:2 * base], tree.node_hi[base:2 * base])
+        near += near_decisions((ub + MARGIN - tau0[:, None])[:, tree.node_valid[base:2 * base]])
+    return near
+
+
+@pytest.fixture(scope="module")
+def deep_corpus():
+    """20,000 clustered rows at d = 32 in blocks of 64: 313 blocks, a tree
+    of 9 levels; 300 queries near rows."""
+    rng = np.random.default_rng(22)
+    db = clustered(rng, 20_000, 32, n_centers=8, noise=0.05)
+    q = db[rng.integers(0, 20_000, 300)] + 0.03 * rng.normal(size=(300, 32))
+    return db, cref.normalize(q).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(), dict(n_pivots=8, best_first=False)],
+                         ids=["default", "joint_cap_natural_order"])
+@pytest.mark.parametrize("backend", ["scan", "tree"])
+def test_scan_and_tree_on_cuda_match_cpu(cuda, deep_corpus, backend, knobs,
+                                         monkeypatch):
+    """The scan and tree engines on the card against the same engines on the
+    CPU, on the same prepared queries (so the bounds agree bit for bit and
+    only the score matmuls differ): result sets equal, the stats equal up to
+    the decisions within 2·margin of τ; and the launches: a tree call runs
+    block_bounds once per level, a scan call once, and no other kernel."""
+    from repro_torch.search import SearchEngine
+
+    db, q = deep_corpus
+    idx = build_index(db, n_pivots=16, block_size=64, device="cpu")
+    cpu = SearchEngine(idx, backend=backend, device="cpu", **knobs)
+    s_c, i_c, st_c = cpu.search(q, 10, element_stats=True)
+    qn, qp = t_bk.prep_queries(idx, q)
+    monkeypatch.setattr(t_bk, "prep_queries", lambda index, queries: (
+        qn.to(index.device), qp.to(index.device)))
+    gpu = SearchEngine(idx, backend=backend, device=cuda, **knobs)
+    kernels = (block_bounds, block_bounds_select, pruned_topk)
+    for kern in kernels:
+        kern.launches = 0
+    s_g, i_g, st_g = gpu.search(q, 10, element_stats=True)
+    torch.cuda.synchronize(cuda)
+    launches = [kern.launches for kern in kernels]
+    levels = st_c.extras.get("tree_levels", 1)
+    assert launches == [levels, 0, 0] and (backend == "scan" or levels == 9)
+    np.testing.assert_allclose(s_g.cpu().numpy(), s_c.numpy(), atol=1e-6)
+    assert_topk_sets_close(s_g.cpu().numpy(), i_g.cpu().numpy(), s_c.numpy(),
+                           i_c.numpy(), tol=1e-6)
+    s_b, i_b = cref.brute_force_knn(q, db, 10)
+    assert_topk_sets_close(s_g.cpu().numpy(), i_g.cpu().numpy(), s_b.astype(np.float32),
+                           i_b.astype(np.int32), tol=1e-5)
+    m, nb = q.shape[0], idx.n_blocks
+    count = {name: (round(float(st.block_prune_frac) * m * nb),
+                    round(float(st.elem_prune_frac) * m * cpu.n_valid))
+             for name, st in (("gpu", st_g), ("cpu", st_c))}
+    if backend == "tree":
+        fracs = [(float(st.tree_prune_frac), float(st.tree_node_eval_frac))
+                 for st in (st_g, st_c)]
+        assert fracs[0] == fracs[1] or descent_near_decisions(cpu, qn, qp, 10) > 0, fracs
+
+    def replay():
+        from repro_torch.search import tree as t_tree
+
+        if backend == "scan":
+            return scan_gaps(idx, qn, qp, 10, warm_start=True,
+                             best_first=cpu.best_first, n_pivots=cpu.n_pivots)
+        tau0, alive, leaf_ub, _ = t_tree._seed_and_descend(
+            cpu._tree_index, qn, qp, 10, warm_start=True, warm_start_blocks=None,
+            margin=MARGIN)
+        if cpu.n_pivots:
+            leaf_ub = torch.minimum(leaf_ub, multipivot_block_cap(
+                idx, qn, n_pivots=cpu.n_pivots))
+        return scan_gaps(idx, qn, qp, 10, best_first=cpu.best_first, tau0=tau0,
+                         ub_all=leaf_ub, leaf_mask=alive)
+
+    assert_same_counts(count["gpu"], count["cpu"], replay)

@@ -230,7 +230,7 @@ def test_auto_backend_and_defaults():
     with pytest.raises(ValueError, match="sharded"):
         SearchEngine(stacked, device="cpu")
     with pytest.raises(ValueError, match="unknown search backend"):
-        SearchEngine(big, backend="scan", device="cpu")
+        SearchEngine(big, backend="sharded", device="cpu")
     assert t_defaults.REGIME_WIDTH_THRESHOLD == j_defaults.REGIME_WIDTH_THRESHOLD
     for knob, v in t_defaults.FALLBACK_DEFAULTS.items():
         assert j_defaults.FALLBACK_DEFAULTS[knob] == v
