@@ -43,7 +43,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    operations that take its time; no sort of the [M, NB] bound matrix
    among them, no merge_splits_kernel, and two sorts of [M] (the query
    sort), none to undo it;
-7. the scan and tree backends (the tree with its scan leaf stage) on
+7. the scan and tree backends (the tree with its scan leaf stage,
+   leaf_eval="scan") on
    phase 3's clustered-64 index at k = 10 and 100 and on phase 4's
    uniform-256 index at k = 10, against those phases' brute force on the
    card, tie-aware; with the launch counts set to 0 before each call: a
@@ -53,7 +54,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    level, the leaves, empty-subtree sentinels included) bit for bit
    against block_bounds_plain; each call timed with CUDA events (each is
    a host loop of one step per index block), and one uniform-256 tree call
-   under torch.profiler for the card's busy share.
+   under torch.profiler for the card's busy share;
+8. the tree backend with its kernel leaf stage (leaf_eval="kernel":
+   the descent, then pruned_topk over the compacted union of the batch's
+   surviving leaves, kernels/leaf_gather.py) on phase 3's clustered-64
+   index at k = 10 and 100, on phase 4's uniform-256 index at k = 10, and
+   on one query tile of 128 clustered-64 queries at k = 10: brute-force
+   result sets; per call one pruned_topk launch and tree_levels + 1
+   block_bounds launches (the levels, and the kept tiles' order); n_keep
+   over n_blocks, tile_computed_frac, tree_prune_frac, the compaction's
+   time alone, and the p50 beside the kernel backend's on the same index
+   and queries; gathered_topk at the main path's operands against
+   pruned_topk's plain version on the same compacted operands;
+9. soundness near +-1: queries planted at pivot similarities
+   +-(1 - 1e-3), +-(1 - 1e-5) and +-1 to every pivot of the clustered-64
+   index; on the card, block_bounds over every block and every tree node
+   plus the margin at least the float64 maximum similarity of the valid
+   rows below it (and bit for bit with the plain version), and the kernel,
+   scan and tree (both leaf stages) backends exact on those queries.
+
+Every configuration's block_prune_frac is printed beside its value under
+the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
+query's interval and the sound block intervals.
 
 Before the last line it prints one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA GPU it exits 2
@@ -76,16 +98,18 @@ ROOT = Path(__file__).resolve().parent
 #: NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-#: fp32 operations the Eq. 13 interval bound needs, an FMA counting 2 as in
-#: the peak rate, each term computed once at the coarsest index it depends
-#: on.  Per (query, tile, pivot): each end a*s + sqrt(1-a^2)*sqrt(1-s^2) as
-#: a multiply and an FMA (3 + 3), the larger end, two compares and their
-#: "and" for a inside [lo, hi], the select of 1, the min over pivots.
-BOUND_OPS_QBP = 12
-#: per (tile, pivot): sqrt(max(0, 1 - s*s)) at lo and at hi, and lo > hi
-BOUND_OPS_BP = 9
-#: per (query, pivot): sqrt(max(0, 1 - a*a))
-BOUND_OPS_QP = 4
+#: fp32 operations the Eq. 13 bound over the box [a_lo, a_hi] x [lo, hi]
+#: needs, an FMA counting 2 as in the peak rate, each term computed once at
+#: the coarsest index it depends on.  Per (query, tile, pivot): the test
+#: that picks the nearest corner, x*y + sqrt(1-x^2)*sqrt(1-y^2) there as a
+#: multiply and an FMA (3), two compares and their "and" for the intervals
+#: meeting, the select of 1, the min over pivots.
+BOUND_OPS_QBP = 9
+#: per (tile, pivot): sqrt(max(0, (1 - s)(1 + s))) at lo and at hi, and lo > hi
+BOUND_OPS_BP = 11
+#: per (query, pivot): the two float32 neighbours of a, clamped to [-1, 1],
+#: and sqrt((1 - x)(1 + x)) of each
+BOUND_OPS_QP = 14
 #: per (query, tile) in pruned_topk: margin add, compare with tau, and live
 SKIP_OPS = 3
 
@@ -109,6 +133,21 @@ SCAN_TREE_REPS = 3
 MERGE_TURNS = 15
 #: rows of the corpus behind the small kernel cases
 SMALL_N = 20_000
+#: block_prune_frac of each configuration under the point bound (the float32
+#: query similarity and the float32 block intervals), as this script
+#: measured it on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6); None: not
+#: recorded
+POINT_BOUND_PRUNE = {"clustered64": {"k10": 0.3156, "k100": 0.3121, "wide_prescan_k10": None},
+              "clustered2048": {"k10": 0.0}, "uniform256": {"k10": 0.0},
+              "scan_tree": {"clustered64": {"scan_k10": 0.4239, "scan_k100": 0.3552,
+                                            "tree_k10": 0.4242, "tree_k100": 0.3553},
+                            "uniform256": {"scan_k10": 0.0, "tree_k10": 0.0}}}
+#: pivot similarities phase 9 plants its queries at, and queries per
+#: (pivot, similarity)
+NEAR_PM1 = (1 - 1e-3, 1 - 1e-5, 1.0, -(1 - 1e-3), -(1 - 1e-5), -1.0)
+NEAR_PM1_REPEATS = 4
+#: queries of phase 8's one-tile batch
+TILE_BATCH = 128
 
 
 def log(*a):
@@ -359,7 +398,10 @@ def phase_scan_tree(spec, eng, q, brute, ks, kernel_prune, kernels, profile=()):
     block_bounds, select, topk = kernels
     out = {}
     for backend in ("scan", "tree"):
-        engine = SearchEngine(eng.index, backend=backend)
+        # the tree's scan leaf stage by name (on the card "auto" is the
+        # kernel leaf stage, phase 8)
+        engine = SearchEngine(eng.index, backend=backend,
+                              **({"leaf_eval": "scan"} if backend == "tree" else {}))
         for k in ks:
             name = f"{backend}_k{k}"
             for kern in kernels:
@@ -466,6 +508,247 @@ def node_table_checks(tree, qp, levels):
             f"{equal}; kernel {out[level]['kernel_ms']:.3f} ms, plain {plain_ms:.1f} ms")
         check(equal, f"block_bounds on the tree's level {level} differs from its "
                      f"plain version")
+    return out
+
+
+def kept_blocks(eng, q, k):
+    """The tree engine's kernel leaf stage up to its compaction, replayed:
+    (keep, sorted qn, sorted qp, sorted tau0, perm), as _run_kernel_leaves
+    computes them (no joint cap: the engines here run n_pivots = 0)."""
+    from repro_torch.search import backends as bk
+    from repro_torch.search import tree as t_tree
+
+    tree = eng._tree_index
+    qn, qp = bk.prep_queries(eng.index, q)
+    tau0, alive, _, _ = t_tree._seed_and_descend(
+        tree, qn, qp, k, warm_start=eng.warm_start,
+        warm_start_blocks=eng.warm_start_blocks, margin=eng.margin)
+    keep = torch.nonzero(alive.any(0))[:, 0].int()
+    perm = bk.query_sort_perm(qp).int()
+    return keep, qn[perm], qp[perm], tau0[perm], perm
+
+
+def phase_tree_kernel(spec, eng, q, brute, ks, kernel_p50, kernels, prefix="tree_kernel",
+                      profile=()):
+    """Phase 8: the tree backend with its kernel leaf stage on ``eng``'s
+    index at each k of ``ks``: one call with the launch counts of
+    ``kernels`` (block_bounds, block_bounds_select, pruned_topk) set to 0
+    just before and read just after (pruned_topk once, block_bounds
+    tree_levels + 1 times, the select kernel never), results held to
+    ``brute``, then REPS timed calls after it; the compaction's gathers
+    timed alone on the call's kept blocks.  ``kernel_p50``: the kernel
+    backend's p50 per k on the same index and queries.  The configurations
+    named in ``profile`` also run one call under torch.profiler
+    (device_busy).  Returns the report and the engine."""
+    from repro_torch.kernels.leaf_gather import compact_blocks
+    from repro_torch.search import SearchEngine
+    from repro_torch.search.tree import TreeBackend
+
+    block_bounds, select, topk = kernels
+    engine = SearchEngine(eng.index, backend="tree")        # leaf_eval "auto"
+    check(TreeBackend._resolve_leaf_eval(engine) == "kernel",
+          "the tree engine on the card does not resolve leaf_eval to the kernel")
+    out = {}
+    for k in ks:
+        name = f"{prefix}_k{k}"
+        for kern in kernels:
+            kern.launches = 0
+        sims, ids, st = engine.search(q, k)
+        torch.cuda.synchronize()
+        seen = {kern.__name__: kern.launches for kern in kernels}
+        levels = st.extras["tree_levels"]
+        check(seen == {block_bounds.__name__: levels + 1, select.__name__: 0,
+                       topk.__name__: 1},
+              f"{spec['name']} {name}: launches {seen}, want block_bounds "
+              f"{levels + 1}, pruned_topk 1 and no select kernel")
+        err, _ = exactness(spec, name, k, sims, ids, brute)
+        del sims, ids
+        ms = cuda_ms(lambda: engine.search(q, k), REPS)
+        keep = kept_blocks(engine, q, k)[0]
+        check(keep.numel() == st.extras["n_keep"], f"{name}: kept blocks differ")
+        comp_ms = cuda_ms(lambda: compact_blocks(engine.index, keep), REPS)
+        r = {"ms": ms, "p50_ms": float(np.median(ms)), "reps": REPS, "warmup": 1,
+             "launches": seen, "max_abs_err_vs_brute": err,
+             "n_keep": int(st.extras["n_keep"]), "n_blocks": eng.n_blocks,
+             "block_prune_frac": float(st.block_prune_frac),
+             "tile_computed_frac": float(st.tile_computed_frac),
+             "tree_prune_frac": float(st.tree_prune_frac),
+             "tree_node_eval_frac": float(st.tree_node_eval_frac),
+             "tree_levels": levels, "compaction_ms": float(np.median(comp_ms)),
+             "kernel_backend_p50_ms": kernel_p50[k]}
+        if name in profile:
+            r["device"] = device_busy(lambda: engine.search(q, k), r["p50_ms"], top=8)
+            log(f"[{spec['name']}] {name} under the profiler: the card busy "
+                f"{r['device']['busy_ms']:.1f} ms in {r['device']['kernels']} device "
+                f"events, {r['device']['busy_share']:.3f} of the p50; top: "
+                + "; ".join(f"{n[:50]} {ms_:.2f} ms" for n, ms_ in r["device"]["top"]))
+        out[name] = r
+        log(f"[{spec['name']}] {name}: p50 {r['p50_ms']:.3f} ms/call (kernel backend "
+            f"{kernel_p50[k]:.3f} ms), n_keep {r['n_keep']} of {eng.n_blocks} blocks, "
+            f"tile_computed_frac {r['tile_computed_frac']:.4f}, block_prune_frac "
+            f"{r['block_prune_frac']:.4f}, tree_prune_frac {r['tree_prune_frac']:.4f}, "
+            f"compaction {r['compaction_ms']:.3f} ms; launches {seen}")
+    return out, engine
+
+
+def gathered_entry(eng64, tree_eng, q64, phase8):
+    """gathered_topk at the main path's operands (k = 10): the tree engine's
+    own call (its kept blocks, sorted queries and seeds), timed alone,
+    against pruned_topk's plain version over the same compacted operands,
+    visit order and splits (check_topk, in compact positions).  Returns the
+    kernels line's entry; its launches are phase 8's pruned_topk launches."""
+    from repro_torch.kernels.cosine_topk import default_splits, pruned_topk_plain
+    from repro_torch.kernels.leaf_gather import (best_first_tiles, compact_blocks,
+                                                 gathered_topk)
+
+    keep, gqn, gqp, gtau, gperm = kept_blocks(tree_eng, q64, 10)
+
+    def gather_call():
+        return gathered_topk(eng64.index, keep, gqn, gqp, gtau, k=10, bm=tree_eng.bm,
+                             margin=tree_eng.margin, row_out=gperm)
+
+    got = gather_call()
+    db_c, valid_c, lo_c, hi_c, _ = compact_blocks(eng64.index, keep)
+    n_c, nk, bs_ = valid_c.numel(), keep.numel(), eng64.index.block_size
+    # the visit order from block_bounds, which phase 5b holds to its plain
+    # version bit for bit; the plain route here is pruned_topk's
+    order = best_first_tiles(gqp, lo_c, hi_c, tree_eng.bm)
+    g_args = (gqn, db_c, gqp, lo_c, hi_c, n_c)
+    g_kw = dict(tau_init=gtau, block_order=order, row_valid=valid_c, k=10,
+                bm=tree_eng.bm, bn=bs_, margin=tree_eng.margin,
+                splits=default_splits(gqn.shape[0], n_c, gqn.shape[1], gqp.shape[1],
+                                      bm=tree_eng.bm, bn=bs_, device=gqn.device),
+                row_out=gperm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pruned_topk_plain(*g_args, **g_kw)
+    torch.cuda.synchronize()
+    g_plain_ms = (time.perf_counter() - t0) * 1e3
+    # gathered_topk's padded-db positions back to compact ones, the plain
+    # version's (every returned block is a kept one)
+    pos = got[1].long()
+    compact = torch.searchsorted(keep.long(), (pos // bs_).clamp(min=0)) * bs_ + pos % bs_
+    got = (got[0], torch.where(pos >= 0, compact, -1).int(), got[2], got[3])
+    g_r = check_topk(got, want, g_args, g_kw, 1e-5, pruned_topk_plain)
+    check(topk_ok(g_r, 1e-5), f"gathered_topk differs from its plain route: {g_r}")
+    g_ms = cuda_ms(gather_call, REPS)
+    g_nbytes, g_ops = pruned_topk_costs(g_args, g_kw, got[2])
+    comp_bytes = 2 * (db_c.numel() * 4 + valid_c.numel() + 2 * lo_c.numel() * 4)
+    g_lib = []
+    for s0 in range(0, gqn.shape[0], 2000):
+        qc = gqn[s0:s0 + 2000]
+        g_lib += cuda_ms(lambda: torch.topk(
+            (qc @ db_c.T).masked_fill_(~valid_c[None, :], float("-inf")), 10, dim=1), 1)
+    del got, want, db_c, valid_c, lo_c, hi_c
+    gather_launches = sum(r["launches"]["pruned_topk"] for part in phase8.values()
+                          for r in part.values())
+    gather_entry = {
+        "name": "gathered_topk", "route": "cuda",
+        "source": "src/repro_torch/kernels/leaf_gather.py",
+        "replaces": "src/repro/kernels/leaf_gather.py:43",
+        "launches": gather_launches, "max_abs_err": g_r["max_abs_err"],
+        "ms": float(np.median(g_ms)), "plain_ms": g_plain_ms,
+        **bound_entry(g_nbytes + comp_bytes, g_ops),
+        "library_ms": float(sum(g_lib)),
+        "library": "torch.matmul + torch.topk over the same queries and the kept rows, "
+                   "5 calls of 2,000 queries",
+        "path": "no kernel of its own: the compaction's gathers, block_bounds for the "
+                "kept tiles' order and one pruned_topk launch; launches counts those "
+                "pruned_topk launches of phase 8's tree calls",
+        "n_keep": nk, "n_blocks": eng64.n_blocks, "ids_equal": g_r["ids_equal"],
+        "computed_flips": g_r["computed_flips"],
+        "flips_unexplained": g_r["flips_unexplained"], "ms_all": g_ms}
+    log(f"[kernels] gathered_topk at the main path's operands (k = 10, {nk} of "
+        f"{eng64.n_blocks} blocks kept): {gather_entry['ms']:.3f} ms, plain route "
+        f"{g_plain_ms:.1f} ms, bound {gather_entry['bound_ms']:.3f} ms "
+        f"({gather_entry['bound_by']}), matmul+topk {gather_entry['library_ms']:.3f} ms; "
+        f"against the plain route {g_r}")
+    return gather_entry
+
+
+def planted_queries(index, seed):
+    """NEAR_PM1_REPEATS queries per (pivot, similarity of NEAR_PM1), each at
+    that float64 cosine to the pivot, float32 (numpy)."""
+    rng = np.random.default_rng(seed)
+    piv = index.pivots.double().cpu().numpy()
+    piv /= np.linalg.norm(piv, axis=1, keepdims=True)
+    out = []
+    for p in piv:
+        for c in NEAR_PM1:
+            for _ in range(NEAR_PM1_REPEATS):
+                v = rng.standard_normal(p.shape)
+                v -= (v @ p) * p
+                v /= np.linalg.norm(v)
+                out.append(c * p + np.sqrt(max(0.0, 1 - c * c)) * v)
+    return np.array(out, dtype=np.float32)
+
+
+def phase_near_pm1(eng, seed, kernels):
+    """Phase 9 on ``eng``'s index: planted_queries; block_bounds over the
+    blocks' and the tree nodes' sound intervals on the card, bit for bit
+    with the plain version, plus the margin at least the float64 maximum
+    similarity of the valid rows below each; then the kernel, scan and
+    tree engines (both leaf stages) against the brute force at k = 10."""
+    from repro_torch.core.index import search_brute
+    from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
+    from repro_torch.search import SearchEngine
+    from repro_torch.search import backends as bk
+    from repro_torch.search.tree import build_tree
+
+    idx = eng.index
+    q = torch.from_numpy(planted_queries(idx, seed)).cuda()
+    qn, qp = bk.prep_queries(idx, q)
+    nb, bs = idx.n_blocks, idx.block_size
+    tree = build_tree(idx)
+    nl = tree.n_leaf_slots
+    # float64 maxima per block, then up the tree
+    best = []
+    db64 = idx.db.double()
+    for s in range(0, q.shape[0], 32):
+        sims = (qn[s:s + 32].double() @ db64.T).masked_fill(~idx.valid[None, :],
+                                                            float("-inf"))
+        best.append(sims.view(-1, nb, bs).amax(2))
+    del db64, sims
+    best = torch.cat(best)
+    nodes = torch.full((q.shape[0], 2 * nl), float("-inf"), dtype=torch.float64,
+                       device=q.device)
+    nodes[:, nl:nl + nb] = best
+    sz = nl // 2
+    while sz >= 1:
+        nodes[:, sz:2 * sz] = nodes[:, 2 * sz:4 * sz].view(-1, sz, 2).amax(2)
+        sz //= 2
+    out = {"queries": int(q.shape[0]), "similarities": list(NEAR_PM1)}
+    for what, lo, hi, want in (("blocks", idx.dp_lo, idx.dp_hi, best),
+                               ("tree_nodes", tree.node_lo, tree.node_hi, nodes)):
+        ub = block_bounds(qp, lo, hi)
+        equal = bounds_equal(ub, block_bounds_plain(qp, lo, hi))
+        slack = (ub.double() + 4e-7 - want)
+        fin = torch.isfinite(want)
+        if what == "tree_nodes":
+            fin[:, 0] = False
+        short = int((slack[fin] < 0).sum())
+        out[what] = {"pairs": int(fin.sum()), "short": short, "equal_to_plain": equal,
+                     "least_slack": float(slack[fin].min())}
+        log(f"[near +-1] {what}: {out[what]['pairs']} (query, {what}) pairs, bound + "
+            f"margin below the float64 maximum in {short}, least slack "
+            f"{out[what]['least_slack']:.3e}; block_bounds equal to its plain "
+            f"version bit for bit: {equal}")
+        check(short == 0 and equal, f"near +-1: the bound over the {what} is short "
+                                    f"or differs from its plain version")
+        del ub, slack
+    k = 10
+    s_b, i_b = search_brute(idx, q, k)
+    brute = {k: (s_b.cpu().numpy(), i_b.cpu().numpy())}
+    spec = dict(CLUSTERED64, name="clustered-64, queries planted near +-1",
+                m=int(q.shape[0]))
+    for name, engine in (("kernel", SearchEngine(idx, backend="kernel")),
+                         ("scan", SearchEngine(idx, backend="scan")),
+                         ("tree_kernel", SearchEngine(idx, backend="tree", leaf_eval="kernel")),
+                         ("tree_scan", SearchEngine(idx, backend="tree", leaf_eval="scan"))):
+        sims, ids, st = engine.search(q, k)
+        err, _ = exactness(spec, name, k, sims, ids, brute)
+        out[name] = {"max_abs_err_vs_brute": err,
+                     "block_prune_frac": float(st.block_prune_frac)}
     return out
 
 
@@ -1106,20 +1389,70 @@ def main(argv=None) -> int:
                 tree, prep_queries(e.index, qq)[1], (1, tree.n_levels // 2, tree.n_levels))
         del tree
         torch.cuda.empty_cache()
-    del eng64, q64, eng256, q256, brute64, brute256
     phase7["seconds"] = time.perf_counter() - t7
     report["scan_tree"] = phase7
     log(f"[scan/tree] phase 7: {phase7['seconds']:.1f} s")
+
+    # 8. the tree's kernel leaf stage on the same indexes and queries, and
+    # on one query tile of clustered-64 queries
+    t8 = time.perf_counter()
+    phase8 = {}
+    kp50 = {key: {k: report[key][f"k{k}"]["p50_ms"] for k in spec["ks"]}
+            for key, spec in (("clustered64", CLUSTERED64), ("uniform256", UNIFORM256))}
+    phase8["clustered64"], tree_eng = phase_tree_kernel(
+        CLUSTERED64, eng64, q64, brute64, CLUSTERED64["ks"], kp50["clustered64"],
+        st_kernels, profile=("tree_kernel_k10",))
+    phase8["uniform256"] = phase_tree_kernel(
+        UNIFORM256, eng256, q256, brute256, UNIFORM256["ks"], kp50["uniform256"],
+        st_kernels)[0]
+    qt = q64[:TILE_BATCH]
+    eng64.search(qt, 10)
+    tile_kernel_p50 = float(np.median(cuda_ms(lambda: eng64.search(qt, 10), REPS)))
+    phase8["clustered64_one_tile"] = phase_tree_kernel(
+        dict(CLUSTERED64, name=f"clustered-64, one query tile of {TILE_BATCH}",
+             m=TILE_BATCH), eng64, qt, {10: tuple(x[:TILE_BATCH] for x in brute64[10])},
+        (10,), {10: tile_kernel_p50}, st_kernels, prefix="tree_kernel_tile")[0]
+    gather_entry = gathered_entry(eng64, tree_eng, q64, phase8)
+    phase8["seconds"] = time.perf_counter() - t8
+    report["tree_kernel"] = phase8
+    log(f"[tree kernel leaves] phase 8: {phase8['seconds']:.1f} s")
+    del tree_eng
+
+    # 9. soundness near +-1 at full size on the clustered-64 index
+    t9 = time.perf_counter()
+    report["near_pm1"] = phase_near_pm1(eng64, args.seed + 5, st_kernels)
+    report["near_pm1"]["seconds"] = time.perf_counter() - t9
+    log(f"[near +-1] phase 9: {report['near_pm1']['seconds']:.1f} s")
+    del eng64, q64, eng256, q256, brute64, brute256
+
+    # every configuration's block_prune_frac beside the point bound's
+    for key, runs in POINT_BOUND_PRUNE.items():
+        for name, old in runs.items():
+            if key == "scan_tree":
+                for cfg, was in old.items():
+                    now = report["scan_tree"][name][cfg]["block_prune_frac"]
+                    log(f"[prune] {name} {cfg}: block_prune_frac {now:.4f} (point bound: "
+                        f"{was:.4f})")
+                continue
+            now = report[key][name]["block_prune_frac"]
+            was = "not recorded" if old is None else f"{old:.4f}"
+            log(f"[prune] {key} {name}: block_prune_frac {now:.4f} (point bound: {was})")
     tree_launches = sum(r["launches"]["block_bounds"] for key in ("clustered64", "uniform256")
                         for name, r in phase7[key].items() if name.startswith("tree"))
     scan_launches = sum(r["launches"]["block_bounds"] for key in ("clustered64", "uniform256")
                         for name, r in phase7[key].items() if name.startswith("scan"))
+    tk_bb = sum(r["launches"]["block_bounds"] for part in phase8.values()
+                if isinstance(part, dict) for r in part.values())
     bb_entry["launches_by_path"] = {"wide_prescan": bb_entry["launches"],
-                                    "tree": tree_launches, "scan": scan_launches}
-    bb_entry["launches"] += tree_launches + scan_launches
+                                    "tree": tree_launches, "scan": scan_launches,
+                                    "tree_kernel_leaves": tk_bb}
+    bb_entry["launches"] += tree_launches + scan_launches + tk_bb
     bb_entry["tree_node_tables"] = phase7["node_tables"]
+    topk_entry["launches_by_path"] = {"main": topk_entry["launches"],
+                                      "tree_kernel_leaves": gather_entry["launches"]}
+    topk_entry["launches"] += gather_entry["launches"]
 
-    report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry]
+    report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,14 +3,16 @@
 PyTorch counterpart of :mod:`repro.core.bounds`.  All functions are
 elementwise over tensors of *similarities* ``a = sim(x, z)``,
 ``b = sim(z, y)`` in ``[-1, 1]`` and return a bound on ``sim(x, y)``;
-equation numbers follow the paper.  The ``1 - s^2`` radicands are clamped
-at zero so a tiny negative value from rounding cannot produce NaN.
+equation numbers follow the paper.  The ``1 - s^2`` radicands are taken
+as ``(1 - s)(1 + s)``, which does not cancel near ``|s| = 1``, and clamped
+at zero so a value outside ``[-1, 1]`` cannot produce NaN.
 """
 from __future__ import annotations
 
 import torch
 from torch import Tensor
 
+from repro_torch.kernels.ref import radicand as _radicand
 from repro_torch.kernels.ref import sqrt_rn
 
 __all__ = [
@@ -33,11 +35,6 @@ __all__ = [
     "register_bound_provider",
     "block_upper_provider",
 ]
-
-
-def _radicand(s: Tensor) -> Tensor:
-    """``max(0, 1 - s^2)``."""
-    return torch.clamp(1.0 - s * s, min=0.0)
 
 
 def lb_euclid(a: Tensor, b: Tensor) -> Tensor:
@@ -168,7 +165,7 @@ def _eq13_provider(index, qn: Tensor, qp: Tensor, n_pivots: int = 0) -> Tensor:
     """Interval Eq. 13 bound, intersected over the index's pivots."""
     from repro_torch.kernels import ref as kref
 
-    return kref.block_bounds(qp, index.dp_min, index.dp_max)
+    return kref.block_bounds(qp, index.dp_lo, index.dp_hi)
 
 
 @register_bound_provider("eq13_multi")
@@ -177,7 +174,7 @@ def _eq13_multi_provider(index, qn: Tensor, qp: Tensor, n_pivots: int) -> Tensor
     from repro_torch.core.index import multipivot_block_cap
     from repro_torch.kernels import ref as kref
 
-    base = kref.block_bounds(qp, index.dp_min, index.dp_max)
+    base = kref.block_bounds(qp, index.dp_lo, index.dp_hi)
     if n_pivots <= 0 or index.ortho is None:
         return base
     return torch.minimum(base, multipivot_block_cap(index, qn, n_pivots=n_pivots))

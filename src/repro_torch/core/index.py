@@ -6,7 +6,9 @@ top-k; the index applies it at block granularity so surviving work stays
 dense:
 
   build:   normalize db, pick P pivots, cache ``dp = db @ pivots.T`` and the
-           per-block per-pivot interval ``[dp_min, dp_max]``; rows are
+           per-block per-pivot interval ``[dp_min, dp_max]``, and beside it
+           ``[dp_lo, dp_hi]``, the same interval widened to contain every
+           row's float64 pivot cosine (what every bound reads); rows are
            reordered so each block is angularly coherent.
   search:  :class:`repro_torch.search.SearchEngine` (this module keeps the
            structure, the bounds over it and the brute-force baseline).
@@ -19,14 +21,15 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from repro_torch.core.bounds import joint_row_upper_bound, ub_mult
+from repro_torch.core.bounds import joint_row_upper_bound
 from repro_torch.core.pivots import (normalize, orthonormal_pivot_basis,
                                      select_pivots_maxmin, select_pivots_random)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ref as kref
 
 __all__ = ["BlockIndex", "build_index", "search_brute", "interval_upper_bound",
            "block_upper_bound", "reorder_perm", "multipivot_block_cap",
-           "index_from_reference"]
+           "index_from_reference", "pivot_cosines64", "sound_intervals"]
 
 
 class BlockIndex(NamedTuple):
@@ -34,7 +37,10 @@ class BlockIndex(NamedTuple):
 
     ``db`` is padded to a multiple of the block size; ``valid`` masks
     padding.  ``dp_min/dp_max`` are the per-block pivot-similarity
-    intervals ``[n_blocks, P]``; ``block_size = db.shape[0] // n_blocks``.
+    intervals ``[n_blocks, P]`` of the float32 ``dp``, as the reference
+    builds them; ``dp_lo/dp_hi`` (:func:`sound_intervals`) widen them to
+    contain every valid row's float64 pivot cosine, and every Eq. 13 bound
+    reads those.  ``block_size = db.shape[0] // n_blocks``.
     ``ortho``/``beta``/``beta_nsq`` are the joint multi-pivot bound tables
     (``None`` when absent).
     """
@@ -49,6 +55,8 @@ class BlockIndex(NamedTuple):
     ortho: Tensor | None = None     # [P, d]  orthonormalized pivot basis
     beta: Tensor | None = None      # [n_pad, P]  db @ ortho.T
     beta_nsq: Tensor | None = None  # [n_pad, P]  cumsum(beta**2, dim=1)
+    dp_lo: Tensor | None = None     # [n_blocks, P]  sound_intervals
+    dp_hi: Tensor | None = None     # [n_blocks, P]
 
     @property
     def n_blocks(self) -> int:
@@ -127,7 +135,37 @@ def build_index(
     beta64 = dbn.double() @ u64.T
     return BlockIndex(dbn, dp, pivots, dp_min, dp_max, valid, row_ids,
                       u64.float(), beta64.float(),
-                      torch.cumsum(beta64 * beta64, dim=1).float())
+                      torch.cumsum(beta64 * beta64, dim=1).float(),
+                      *sound_intervals(dbn, pivots, valid, dp_min, dp_max))
+
+
+def pivot_cosines64(x: Tensor, pivots: Tensor) -> Tensor:
+    """``[n, P]`` float64 cosines of the stored rows ``x`` with the stored
+    pivots, each normalized again in float64 (0 for an all-zero row)."""
+    x64, p64 = x.double(), pivots.double()
+    norms = (torch.linalg.vector_norm(x64, dim=1)[:, None]
+             * torch.linalg.vector_norm(p64, dim=1)[None, :])
+    return (x64 @ p64.T) / torch.where(norms > 0, norms, 1.0)
+
+
+def sound_intervals(db: Tensor, pivots: Tensor, valid: Tensor, dp_min: Tensor,
+                    dp_max: Tensor) -> tuple[Tensor, Tensor]:
+    """``(dp_lo, dp_hi) [n_blocks, P]``: each block's interval of its valid
+    rows' float64 pivot cosines (:func:`pivot_cosines64`), rounded outward
+    to float32 (the neighbours of the nearest float32, as
+    :func:`~repro_torch.kernels.ref.query_interval`), clamped to ``[-1,
+    1]`` and joined with ``[dp_min, dp_max]``, so no interval shrinks.
+    Blocks with no valid row keep ``[dp_min, dp_max]`` (the inverted
+    sentinel where the build found the block empty)."""
+    nb = dp_min.shape[0]
+    cos = pivot_cosines64(db, pivots).reshape(nb, -1, pivots.shape[0])
+    rows = valid.reshape(nb, -1, 1)
+    lo64 = torch.where(rows, cos, float("inf")).amin(1)
+    hi64 = torch.where(rows, cos, float("-inf")).amax(1)
+    lo, hi = dp_min.float(), dp_max.float()
+    filled = rows.any(1)
+    return (torch.where(filled, torch.minimum(kref.query_interval(lo64.float())[0], lo), lo),
+            torch.where(filled, torch.maximum(kref.query_interval(hi64.float())[1], hi), hi))
 
 
 def reorder_perm(dp: Tensor, valid: Tensor, n_pivots: int) -> Tensor:
@@ -144,16 +182,54 @@ def reorder_perm(dp: Tensor, valid: Tensor, n_pivots: int) -> Tensor:
 
 
 def interval_upper_bound(qp: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
-    """Max of Eq. 13 over ``b in [lo, hi]``, elementwise (pivot axis kept).
+    """Max of Eq. 13 over ``a`` in the query's interval and ``b in [lo,
+    hi]``, elementwise (pivot axis kept); an inverted interval (``lo >
+    hi``, the empty-block sentinel) bounds at ``-inf``.
 
-    1 when ``b = qp`` is reachable, else the value at the nearer interval
-    end; an inverted interval (``lo > hi``, the empty-block sentinel) has no
-    reachable similarity and bounds at ``-inf``.
+    ``qp`` is the pivot cosine rounded to nearest float32 from float64
+    (``prep_queries``); the bound is taken over its float32 neighbours
+    ``[a_lo, a_hi]`` (:func:`~repro_torch.kernels.ref.query_interval`) and
+    is :func:`~repro_torch.kernels.ref.box_bound` of that box, which the
+    kernels in ``csrc/eq13.cuh`` compute bit for bit.
+
+    Why it is sound (u = 2^-24, float32's unit roundoff): for a valid row
+    x below a block or tree node, ``bound + margin >= q . x`` in float64
+    of the stored float32 vectors, at every ``|a|`` and ``|s|`` up to 1.
+
+    1. Containment.  Let ``a``, ``s`` be the cosines of the stored q and x
+       with pivot p, normalized again in float64.  Their float64 values err
+       by at most (d + 3)·2^-53 (1.1e-14 at d = 100), below half a float32
+       ulp unless ``|a| < 2e-7``, so ``a`` lies in ``[a_lo, a_hi]``; near
+       0 the bound's slope in ``a`` is at most about 1, and a slip of 1e-14
+       stays far inside the margin.  ``[dp_lo, dp_hi]`` holds ``s`` for
+       every valid row by the same rounding (:func:`sound_intervals`).
+    2. The box.  With ``t = arccos``, ``cos(q, x) <= cos(t(a) - t(s))``,
+       which is Eq. 13.  Over the box it is largest where ``|t(a) - t(s)|``
+       is least: 0 where the intervals meet (the bound 1), else at the
+       nearest corner, ``(a_lo, hi)`` when ``a_lo > hi`` and ``(a_hi, lo)``
+       when ``a_hi < lo`` (``arccos`` decreases).  One corner per pivot.
+    3. Evaluation.  Each radicand is ``(1 - x)(1 + x)``: for ``|x| >=
+       1/2``, ``1 - x`` is exact (Sterbenz), so the radicand carries at
+       most 2u of relative error and no cancellation, however close ``|x|``
+       comes to 1 (the old ``1 - x·x`` lost 2.4e-7 of the bound at ``|x| =
+       0.998`` and 1e-6 at 0.9999).  The product of radicands, the root,
+       ``x·y`` and the sum then leave at most about 6.5u = 3.9e-7 of
+       absolute error, a few u in practice.
+    4. What ``margin = 4e-7`` (6.7u) covers: that evaluation error, the
+       stored vectors' norms off 1 (``q . x = |q| |x| cos(q, x)``; about 2u
+       each after float32 normalization), and the float32 score's own
+       rounding against float64 (a few u at d = 100).  The worst cases of
+       the last two grow with d (d·u/2 each); the property tests and
+       ``chip_smoke.py``'s soundness phase check them against float64.
+
+    Before, the query's similarity was a float32 dot product: near ``|a| =
+    1`` its ~2u of error, amplified by the bound's slope ``|a| / sqrt(1 -
+    a^2)`` (16 at ``a = -0.998``), moved the bound by more than the margin
+    (n = 124, d = 2, seed 1: short by 1.53e-6).
     """
-    at_ends = torch.maximum(ub_mult(qp, lo), ub_mult(qp, hi))
-    inside = (qp >= lo) & (qp <= hi)
-    ub = torch.where(inside, torch.ones_like(at_ends), at_ends)
-    return torch.where(lo > hi, torch.full_like(ub, float("-inf")), ub)
+    a_lo, a_hi = kref.query_interval(qp)
+    ub = kref.box_bound(a_lo, a_hi, lo.float(), hi.float())
+    return ub.masked_fill(lo > hi, float("-inf"))
 
 
 def block_upper_bound(qp: Tensor, dp_min: Tensor, dp_max: Tensor) -> Tensor:
@@ -194,7 +270,8 @@ def index_from_reference(arrays: dict[str, np.ndarray], device=None) -> BlockInd
 
     ``arrays`` maps each field name to a numpy array (``{f: np.asarray(
     getattr(idx, f)) for f in idx._fields}``), so both packages can search
-    the identical index.  Missing or ``None`` joint tables stay ``None``.
+    the identical index.  Missing or ``None`` joint tables stay ``None``;
+    missing ``dp_lo/dp_hi`` (the reference has none) are computed.
     """
     dev = resolve_device(device)
     dtypes = {"valid": torch.bool, "row_ids": torch.int32}
@@ -206,4 +283,8 @@ def index_from_reference(arrays: dict[str, np.ndarray], device=None) -> BlockInd
         return torch.tensor(np.asarray(a), dtype=dtypes.get(name, torch.float32),
                             device=dev)
 
-    return BlockIndex(*(conv(f) for f in BlockIndex._fields))
+    idx = BlockIndex(*(conv(f) for f in BlockIndex._fields))
+    if idx.dp_lo is None:
+        idx = idx._replace(**dict(zip(("dp_lo", "dp_hi"), sound_intervals(
+            idx.db, idx.pivots, idx.valid, idx.dp_min, idx.dp_max))))
+    return idx

@@ -115,9 +115,11 @@ def _ptr(t: Tensor | None):
 
 def block_bounds(qp: Tensor, dp_min: Tensor, dp_max: Tensor,
                  ub_cap: Tensor | None = None) -> Tensor:
-    """``[M, NB]`` float32 block upper bounds: the Eq. 13 interval bound,
-    min over pivots, ``-inf`` for inverted intervals (``lo > hi``), min'd
-    with ``ub_cap [M, NB]`` when given.
+    """``[M, NB]`` float32 block upper bounds: the Eq. 13 bound over the
+    box of each query's interval (the float32 neighbours of ``qp``,
+    ``kernels/ref.py:query_interval``) and each block interval, min over
+    pivots, ``-inf`` for inverted intervals (``lo > hi``), min'd with
+    ``ub_cap [M, NB]`` when given.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     and must be contiguous float32 (no fallback: anything else raises).

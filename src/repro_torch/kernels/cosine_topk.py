@@ -4,7 +4,9 @@ Replaces the TPU kernel ``src/repro/kernels/cosine_topk.py:pruned_topk``
 (body ``_make_kernel``, ``pallas_call`` at line 310).  Per (query tile
 ``bm``, db tile ``bn``), in ``block_order`` visit order:
 
-  1. the Eq. 13 interval bound, min over pivots (∩ optional ``ub_cap``);
+  1. the Eq. 13 interval bound, min over pivots (∩ optional ``ub_cap``),
+     over each query's pivot-similarity interval (``kernels/ref.py``
+     ``query_interval`` and ``box_bound``);
   2. skip the tile unless ``any((ub + margin >= τ) & live)`` for the rows'
      running k-th best τ;
   3. else fp32 ``q @ dbᵀ``, masked by ``row_valid``, merged into a running
@@ -44,6 +46,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels._build import check_operand, library
 
 __all__ = ["pruned_topk", "pruned_topk_plain", "merge_splits",
@@ -101,7 +104,7 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
 
     q_t = tiles(qn.float(), 0.0)                           # [mv, bm, d]
     qp_t = tiles(qp.float(), 1.0)                          # [mv, bm, p]
-    rad_q = torch.clamp(1.0 - qp_t * qp_t, min=0.0)
+    a_lo, a_hi = kref.query_interval(qp_t)
     live = tiles(torch.arange(m, device=dev) < m_valid, False)
     top_s = tiles(tau.float(), _NEG_INF)[:, :, None].repeat(1, 1, k)
     mv = top_s.shape[0]
@@ -127,13 +130,7 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
         active = order[:, j] >= 0                          # [mv]
         jb = order[:, j].clamp(min=0)
         lo_j, hi_j = lo[jb].float()[:, None, :], hi[jb].float()[:, None, :]
-        ub_l = qp_t * lo_j + torch.sqrt(
-            rad_q * torch.clamp(1.0 - lo_j * lo_j, min=0.0))
-        ub_h = qp_t * hi_j + torch.sqrt(
-            rad_q * torch.clamp(1.0 - hi_j * hi_j, min=0.0))
-        inside = (qp_t >= lo_j) & (qp_t <= hi_j)
-        ub = torch.where(inside, torch.ones_like(ub_l),
-                         torch.maximum(ub_l, ub_h)).amin(-1)   # [mv, bm]
+        ub = kref.box_bound(a_lo, a_hi, lo_j, hi_j).amin(-1)   # [mv, bm]
         if cap_t is not None:
             ub = torch.minimum(ub, cap_t[ar, :, jb])
         tau_j = top_s[:, :, k - 1]
@@ -153,8 +150,8 @@ def _emulate(qn: Tensor, db: Tensor, qp: Tensor, lo: Tensor, hi: Tensor,
             eub = None
             for q in range(p):
                 b = dpj[:, None, :, q]                     # [mv, 1, bn]
-                rad = rad_q[:, :, q:q + 1] * torch.clamp(1.0 - b * b, min=0.0)
-                cand = qp_t[:, :, q:q + 1] * b + torch.sqrt(rad)
+                cand = kref.box_bound(a_lo[:, :, q:q + 1], a_hi[:, :, q:q + 1],
+                                      b, b)
                 eub = cand if eub is None else torch.minimum(eub, cand)
             counted = vmask[:, None, :] & live[:, :, None]
             pruned = (eub + margin < tau_j[:, :, None]) & counted
@@ -495,7 +492,8 @@ def pruned_topk(
 
     Args:
       qn: [M, D] L2-normalized queries.  db: [N, D] normalized database.
-      qp: [M, P] query-pivot similarities.
+      qp: [M, P] query-pivot similarities, each the float64 cosine rounded
+        to nearest; the bound runs over their float32 neighbours.
       dp_min/dp_max: [N // bn, P] pivot intervals at kernel tile granularity.
       n_valid: real rows in db (the prefix mask when ``row_valid`` is None).
       m_valid: live query rows (default M); later rows never force a tile.

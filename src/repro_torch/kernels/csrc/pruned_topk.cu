@@ -4,7 +4,9 @@
 // (body _make_kernel, pallas_call at cosine_topk.py:310).  It computes
 // what that kernel computes: per (query tile, db tile) in block_order
 // visit order, the Eq. 13 interval bound (min over pivots, optionally
-// min'd with ub_cap), a skip test against every row's running k-th best
+// min'd with ub_cap; over the box of the query's interval [a_lo, a_hi],
+// the float32 neighbours of qp, and the tile's [lo, hi]: eq13.cuh), a skip
+// test against every row's running k-th best
 // τ, and for tiles that survive the fp32 scores q @ dbᵀ merged into a
 // running top-k.  computed and elem are indexed by db tile id.
 //
@@ -70,7 +72,10 @@
 //   reference's: an existing slot beats an equal new score, a lower column
 //   beats a higher one.
 // - What is left: the per-step skip decision (128 rows x p pivots of
-//   Eq. 13 with IEEE square roots, then a block vote) and the block
+//   Eq. 13 over the box, one corner and one root each, then a block vote;
+//   each pivot also derives the query's interval from qp, which stays one
+//   float per (row, pivot) in shared memory: two would cost 8 KB and the
+//   resident Q tile at D = 100) and the block
 //   barriers around it and around the merge keep the FMA pipes idle for a
 //   large share of each tile (PERF.md).
 //
@@ -79,7 +84,8 @@
 // about 3 digits, and 3xTF32 on wgmma reaches about fp32 accuracy but not
 // fp32 rounding, for a ceiling only ~2.5x higher.  No --use_fast_math.
 // Bounds come from eq13.cuh, rounded op by op so they equal the plain
-// PyTorch version bit for bit.
+// PyTorch version bit for bit; its header says why they are sound near
+// |a| = 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -604,7 +610,9 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
         lh_j = ring + slot * stage + stage - kLhFloats;
       }
       // two threads per row, each taking every other pivot; the interval
-      // ends of 16 pivots load at once (min over pivots is order-free)
+      // ends of 16 pivots load at once (min over pivots is order-free).
+      // Each pivot: the query's interval from qp, then the box's corner
+      // (no inverted-interval case, as in the reference's skip test)
       const int r = tid >> 1, h = tid & 1;
       const float cap = prm.ub_cap != nullptr && r < rows
           ? prm.ub_cap[(size_t)(row0 + r) * nt + jb] : 0.f;
@@ -621,10 +629,10 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
         for (int u = 0; u < 8; ++u) {
           const int q = q0 + h + 2 * u;
           if (q < p) {
-            const float a = qp_s[r * p + q], ra = radicand(a);
-            const float per = (a >= lv[u] && a <= hv[u])
-                ? 1.f : nan_max(ub_mult(a, ra, lv[u]), ub_mult(a, ra, hv[u]));
-            ub = nan_min(ub, per);
+            const float a = qp_s[r * p + q];
+            ub = nan_min(ub, box_ub<false>(query_lo(a), query_hi(a), lv[u],
+                                           hv[u], radicand(lv[u]),
+                                           radicand(hv[u])));
           }
         }
       }
@@ -638,7 +646,8 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
       const int needed = __syncthreads_or(pred) || !prm.prune;
       if (tid == 0) prm.computed[(size_t)i * nt + jb] = needed;
 
-      // per-(query, row) Eq. 13 bound against τ, skipped tile or not
+      // per-(query, row) Eq. 13 bound against τ, skipped tile or not: the
+      // box of the query's interval and the row's point dp
       if (prm.elem != nullptr) {
         int cnt = 0;
         for (int e = tid; e < bm * bn; e += kThreads) {
@@ -647,8 +656,10 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
           if (row0 + er >= prm.m_valid || !prm.row_valid[row]) continue;
           float eub = 0.f;
           for (int q = 0; q < p; ++q) {
-            const float a = qp_s[er * p + q];
-            const float cand_ub = ub_mult(a, radicand(a), prm.dp[row * p + q]);
+            const float a = qp_s[er * p + q], s = prm.dp[row * p + q];
+            const float rs = radicand(s);
+            const float cand_ub =
+                box_ub<false>(query_lo(a), query_hi(a), s, s, rs, rs);
             eub = q == 0 ? cand_ub : nan_min(eub, cand_ub);
           }
           cnt += __fadd_rn(eub, prm.margin) < thr_s[er];

@@ -5,8 +5,9 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-__all__ = ["sqrt_rn", "l2_normalize", "cosine_scores", "block_bounds",
-           "kth_value", "cosine_topk", "pruned_cosine_topk"]
+__all__ = ["sqrt_rn", "radicand", "query_interval", "box_bound",
+           "l2_normalize", "cosine_scores", "block_bounds", "kth_value",
+           "cosine_topk", "pruned_cosine_topk"]
 
 
 def sqrt_rn(x: Tensor) -> Tensor:
@@ -32,23 +33,55 @@ def cosine_scores(q: Tensor, db: Tensor) -> Tensor:
     return l2_normalize(q).float() @ l2_normalize(db).float().T
 
 
+def radicand(s: Tensor) -> Tensor:
+    """``max(0, (1 - s)(1 + s))``: ``1 - s^2`` without cancellation (for
+    ``|s| >= 1/2``, ``1 - s`` is exact), 0 outside ``[-1, 1]``."""
+    return torch.clamp((1.0 - s) * (1.0 + s), min=0.0)
+
+
+def query_interval(qp: Tensor) -> tuple[Tensor, Tensor]:
+    """``(a_lo, a_hi)``: the float32 neighbours of each pivot similarity,
+    clamped to ``[-1, 1]`` (NaN stays NaN).
+
+    ``qp`` is the pivot cosine rounded to nearest from a more precise value
+    (``prep_queries`` computes it in float64), so ``[a_lo, a_hi]`` contains
+    that value; every Eq. 13 bound is taken over this interval.
+    """
+    qp = qp.float()
+    inf = torch.tensor(float("inf"), device=qp.device)
+    return (torch.nextafter(qp, -inf).clamp(-1.0, 1.0),
+            torch.nextafter(qp, inf).clamp(-1.0, 1.0))
+
+
+def box_bound(a_lo: Tensor, a_hi: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """Eq. 13 over the box ``[a_lo, a_hi] x [lo, hi]``, elementwise: 1 where
+    the two intervals meet, else the bound at the nearest corner, ``(a_hi,
+    lo)`` where the query lies below the block and ``(a_lo, hi)`` where it
+    lies above (the angle difference is least there; core/index.py's
+    ``interval_upper_bound`` has the argument).  An inverted interval is not
+    special-cased here.  NaN in ``a_lo``, ``a_hi`` or ``lo`` gives NaN; so
+    does NaN in ``hi`` unless the query lies below ``lo``.
+    """
+    below = ~(a_hi >= lo)
+    x = torch.where(below, a_hi, a_lo)
+    y = torch.where(below, lo, hi)
+    at_corner = x * y + sqrt_rn(radicand(x) * radicand(y))
+    meet = (a_lo <= hi) & (a_hi >= lo)
+    return torch.where(meet, torch.ones_like(at_corner), at_corner)
+
+
 def block_bounds(qp: Tensor, dp_min: Tensor, dp_max: Tensor) -> Tensor:
     """Per-(query, block) Eq. 13 interval upper bound, min over pivots.
 
-    qp: [M, P]; dp_min/dp_max: [NB, P] -> [M, NB] f32.  An inverted
-    interval (lo > hi, the empty-block sentinel) bounds at -inf.
+    qp: [M, P]; dp_min/dp_max: [NB, P] -> [M, NB] f32: :func:`box_bound`
+    over :func:`query_interval` of ``qp`` and each block interval.  An
+    inverted interval (lo > hi, the empty-block sentinel) bounds at -inf.
     Materializes ``[M, NB, P]`` intermediates.
     """
-    qp = qp.float()[:, None, :]                   # [M, 1, P]
+    a_lo, a_hi = (a[:, None, :] for a in query_interval(qp))    # [M, 1, P]
     lo = dp_min.float()[None, :, :]               # [1, NB, P]
     hi = dp_max.float()[None, :, :]
-    rad_q = torch.clamp(1.0 - qp * qp, min=0.0)
-    ub_lo = qp * lo + sqrt_rn(rad_q * torch.clamp(1.0 - lo * lo, min=0.0))
-    ub_hi = qp * hi + sqrt_rn(rad_q * torch.clamp(1.0 - hi * hi, min=0.0))
-    at_ends = torch.maximum(ub_lo, ub_hi)
-    inside = (qp >= lo) & (qp <= hi)
-    per_pivot = torch.where(inside, torch.ones_like(at_ends), at_ends)
-    per_pivot = per_pivot.masked_fill(lo > hi, float("-inf"))
+    per_pivot = box_bound(a_lo, a_hi, lo, hi).masked_fill(lo > hi, float("-inf"))
     return per_pivot.amin(dim=-1)                 # [M, NB]
 
 

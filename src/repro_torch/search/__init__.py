@@ -4,7 +4,8 @@
              best-first order, id mapping, stats)
   backends — registry + the ``scan``, ``kernel`` and ``brute`` inner loops
   tree     — the pivot-tree backend (``backend="tree"``): transitive Eq. 13
-             descent over an array-encoded balanced tree, scan leaf stage
+             descent over an array-encoded balanced tree, then the scan
+             or the kernel leaf stage (``leaf_eval``)
   stats    — the one :class:`SearchStats` every path returns
 """
 from repro_torch.search.backends import (available_backends, get_backend,

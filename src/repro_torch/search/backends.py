@@ -25,8 +25,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from repro_torch.core.bounds import ub_mult
-from repro_torch.core.index import BlockIndex, multipivot_block_cap
+from repro_torch.core.index import (BlockIndex, multipivot_block_cap,
+                                    pivot_cosines64)
 from repro_torch.core.pivots import normalize
 from repro_torch.kernels import cosine_topk
 from repro_torch.kernels import ref as kref
@@ -78,10 +78,14 @@ def available_backends() -> list[str]:
 # ---------------------------------------------------------------------------
 
 def prep_queries(index: BlockIndex, queries) -> tuple[Tensor, Tensor]:
-    """Normalize queries and compute query-pivot similarities once."""
+    """Normalize queries and compute query-pivot similarities once:
+    ``qp`` is each float64 cosine (:func:`pivot_cosines64`) rounded to
+    nearest float32, so its float32 neighbours contain it; every bound
+    reads that interval (``core/index.py:interval_upper_bound``), while the
+    query sort and the warm start read ``qp`` itself."""
     qn = normalize(torch.as_tensor(queries, dtype=torch.float32,
                                    device=index.device))
-    return qn, qn @ index.pivots.T
+    return qn, pivot_cosines64(qn, index.pivots).float()
 
 
 def map_row_ids(row_ids: Tensor, pos: Tensor) -> Tensor:
@@ -209,7 +213,7 @@ def scan_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     cap = (multipivot_block_cap(index, qn, n_pivots=n_pivots)
            if prune and n_pivots > 0 else None)
     if ub_all is None and (prune or warm_start or best_first):
-        ub_all = block_bounds(qp, index.dp_min, index.dp_max, cap)
+        ub_all = block_bounds(qp, index.dp_lo, index.dp_hi, cap)
     elif cap is not None:
         ub_all = torch.minimum(ub_all, cap)
     if tau0 is None:
@@ -233,6 +237,8 @@ def scan_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
         ub_t = ub_t.contiguous() if prune else None
         mask_t = mask_t.contiguous() if mask_t is not None else None
 
+    if element_stats:
+        a_lo, a_hi = (a[:, None, :] for a in kref.query_interval(qp))
     top_s = (tau0 - 1e-6)[:, None].expand(m, k).contiguous()
     top_i = torch.full((m, k), -1, dtype=torch.int32, device=qn.device)
     blk_pruned = torch.zeros((), dtype=torch.int64, device=qn.device)
@@ -253,7 +259,8 @@ def scan_search(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
         top_i = cand_i.gather(1, sel[:, :k])
         blk_pruned += (~needed).sum()
         if element_stats:
-            eub = ub_mult(qp[:, None, :], dp_blocks[j][None, :, :]).amin(-1)
+            dpj = dp_blocks[j][None, :, :]
+            eub = kref.box_bound(a_lo, a_hi, dpj, dpj).amin(-1)
             elem_pruned += ((eub + margin < tau[:, None]) & vb[None, :]).sum()
     return top_s, top_i, blk_pruned, elem_pruned
 
@@ -294,7 +301,7 @@ def kernel_inputs(index: BlockIndex, qn: Tensor, qp: Tensor, k: int, *,
     (:func:`cosine_topk.default_splits`) on CUDA and 1 on the CPU."""
     bn = _resolve_bn(index, bn)
     factor = bn // index.block_size
-    lo, hi = coarsen_intervals(index.dp_min, index.dp_max, factor)
+    lo, hi = coarsen_intervals(index.dp_lo, index.dp_hi, factor)
     m = qn.shape[0]
     perm = None
     if sort_queries:

@@ -19,6 +19,7 @@ REGIME_WIDTH_THRESHOLD = 0.4508
 FALLBACK_DEFAULTS = {
     "best_first": True,
     "warm_start_blocks": None,
+    "leaf_eval": None,          # None -> the tree backend's device rule ("auto")
     "n_pivots": 0,              # joint-bound depth; 0 = eq13 intervals only
 }
 

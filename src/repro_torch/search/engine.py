@@ -8,7 +8,7 @@ Counterpart of :mod:`repro.search.engine`::
 τ warm-start and best-first tile ordering are engine policy (on by
 default); they change how fast τ rises, never the result set, which stays
 the brute-force one.  Ported backends: ``kernel``, ``scan``, ``tree`` (with
-its scan leaf stage) and ``brute``.
+its scan and kernel leaf stages) and ``brute``.
 """
 from __future__ import annotations
 
@@ -28,24 +28,29 @@ __all__ = ["SearchEngine", "auto_backend"]
 _BRUTE_MAX_ROWS = 256
 #: feature widths the reference's kernel backend is chosen for
 _KERNEL_MAX_DIM = 4096
+#: blocks from which the reference prefers the tree to the scan off the TPU
+_TREE_MIN_BLOCKS = 256
+_LEAF_EVALS = ("scan", "kernel", "auto")
 
 
 def auto_backend(index: BlockIndex) -> str:
-    """``brute`` for tiny datastores (≤ 256 padded rows), else ``kernel``
-    when ``d ≤ 4096``, else ``brute``.  A shard-stacked index raises: the
-    sharded backend is not ported.
+    """``brute`` for tiny datastores (≤ 256 padded rows).  Past that, on a
+    CUDA index ``kernel`` when ``d ≤ 4096``, else ``brute``; on a CPU index
+    the reference's rule off the TPU: ``tree`` from 256 blocks, else
+    ``scan``.  A shard-stacked index raises: the sharded backend is not
+    ported.
 
-    Off the TPU the reference picks ``tree`` or ``scan`` past 256 padded
-    rows.  The port does not yet: with the fixed fp32 ``margin`` both can
-    drop a true neighbour where a query lies nearly (anti)parallel to a
-    pivot (ROADMAP.md Queue 3), so they are chosen by name only."""
+    The scan and tree follow the reference again since their bound is
+    sound near ±1 (``core/index.py:interval_upper_bound``)."""
     if index.db.ndim == 3:
         raise ValueError("shard-stacked indexes need the sharded backend, "
                          "which repro_torch does not have yet")
     n_pad, d = index.db.shape
     if n_pad <= _BRUTE_MAX_ROWS:
         return "brute"
-    return "kernel" if d <= _KERNEL_MAX_DIM else "brute"
+    if index.device.type == "cuda":
+        return "kernel" if d <= _KERNEL_MAX_DIM else "brute"
+    return "tree" if index.n_blocks >= _TREE_MIN_BLOCKS else "scan"
 
 
 class SearchEngine:
@@ -64,7 +69,15 @@ class SearchEngine:
       n_pivots: joint multi-pivot bound depth (``None``: fallback 0),
         clamped to the index's table width.
       margin: fp32 guard added to bounds before comparing with τ.
-      bm / bn / sort_queries: kernel tile options.
+      leaf_eval: the tree backend's leaf stage: ``"scan"`` (the scan loop
+        over the surviving leaves), ``"kernel"`` (the union of the batch's
+        surviving leaves compacted and searched by ``pruned_topk``; with
+        pruning on and ``k <= block_size``, else the scan serves the call,
+        as in the reference) or ``"auto"`` (default; the fallback table,
+        then kernel on a CUDA index with ``d <= 4096``, else scan).
+        Ignored by the other backends.
+      bm / bn / sort_queries: kernel tile options (``bm`` and
+        ``sort_queries`` also apply to the tree's kernel leaf stage).
       device: ``None`` means CUDA and raises without a GPU; pass ``"cpu"``
         for the plain PyTorch versions of the kernels.
     """
@@ -80,6 +93,7 @@ class SearchEngine:
         element_stats: bool = False,
         n_pivots: int | None = None,
         margin: float = 4e-7,
+        leaf_eval: str = "auto",
         bm: int = 128,
         bn: int | None = None,
         sort_queries: bool = True,
@@ -104,6 +118,11 @@ class SearchEngine:
             n_pivots = FALLBACK_DEFAULTS["n_pivots"]
         self.n_pivots = max(0, min(int(n_pivots), index.bound_table_width))
         self.margin = margin
+        if leaf_eval not in _LEAF_EVALS:
+            raise ValueError(f"leaf_eval={leaf_eval!r}; one of {_LEAF_EVALS}")
+        if leaf_eval == "auto":
+            leaf_eval = FALLBACK_DEFAULTS["leaf_eval"] or "auto"
+        self.leaf_eval = leaf_eval
         self._tree_index = None             # built by the tree backend
         self._tree_valid_nodes = 0          # its node count, read once
         self.bm = bm

@@ -25,7 +25,8 @@ class SearchStats:
     (query, block) pairs the transitive descent alone cut;
     ``tree_node_eval_frac``: (query, node) bound evaluations the descent
     needed over ``m`` times the valid nodes; ``extras["tree_levels"]``: the
-    tree's depth.
+    tree's depth; ``extras["n_keep"]`` (kernel leaf stage): the blocks the
+    batch's union of surviving leaves kept, over which ``pruned_topk`` ran.
 
     **Absent-stage fields are ``None``, never 0.**  ``tree_*`` are ``None``
     on every backend but ``tree``, and there with ``prune=False`` (the

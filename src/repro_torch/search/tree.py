@@ -14,12 +14,17 @@ whole subtree (DESIGN.md §3.5).
   tensors) over that level's node intervals; a boolean frontier per query
   masks it.  Empty subtrees carry the inverted sentinel interval
   (lo = +inf, hi = -inf), which the bound maps to ``-inf``.
-* **Leaves reuse the scan loop** through its ``tau0`` / ``ub_all`` /
-  ``leaf_mask`` hooks (:func:`repro_torch.search.backends.scan_search`).
+* **Two leaf stages** (the engine's ``leaf_eval``): the scan loop through
+  its ``tau0`` / ``ub_all`` / ``leaf_mask`` hooks
+  (:func:`repro_torch.search.backends.scan_search`), or the fused kernel
+  over the union of the batch's surviving leaves, compacted
+  (:func:`repro_torch.kernels.leaf_gather.gathered_topk`).
 
 Exactness: the τ₀ seeds are k-th bests of real scored candidates, a node
-bound dominates every descendant similarity, and the leaf stage is the
-scan loop, so ``backend="tree"`` returns the brute-force result set.
+bound dominates every descendant similarity (the node tables hold the
+sound ``dp_lo/dp_hi`` intervals; ``core/index.py:interval_upper_bound``
+has the argument), and either leaf stage skips only what a bound proves,
+so ``backend="tree"`` returns the brute-force result set.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from torch import Tensor
 from repro_torch.core.index import (BlockIndex, interval_upper_bound,
                                     multipivot_block_cap)
 from repro_torch.kernels.bound_prune import block_bounds
+from repro_torch.kernels.leaf_gather import gathered_topk
 from repro_torch.search import backends as _bk
 
 __all__ = ["TreeIndex", "build_tree", "tree_warm_start",
@@ -104,7 +110,9 @@ def _tree_arrays(dp_min: Tensor, dp_max: Tensor, block_valid: Tensor, *,
 
 def build_tree(index: BlockIndex) -> TreeIndex:
     """Build the balanced pivot tree over ``index``'s blocks: one min/max
-    reduce per level over the cached block intervals.  Shard-stacked
+    reduce per level over the sound block intervals ``dp_lo/dp_hi`` (so
+    every node interval holds the float64 pivot cosine of every valid row
+    below it).  Shard-stacked
     indexes are refused (the ``sharded`` backend owns those)."""
     if index.db.ndim != 2:
         raise ValueError("build_tree needs a single-shard BlockIndex; "
@@ -112,7 +120,7 @@ def build_tree(index: BlockIndex) -> TreeIndex:
                          "backend")
     nb, bs = index.n_blocks, index.block_size
     block_valid = index.valid.reshape(nb, bs).any(1)
-    lo, hi, valid = _tree_arrays(index.dp_min, index.dp_max, block_valid,
+    lo, hi, valid = _tree_arrays(index.dp_lo, index.dp_hi, block_valid,
                                  nl=_next_pow2(nb))
     return TreeIndex(index, lo, hi, valid)
 
@@ -280,9 +288,15 @@ class TreeBackend:
     """Hierarchical pivot-tree backend (``backend="tree"``).
 
     Builds a :class:`TreeIndex` over the engine's index on first use and
-    caches it on the engine.  The leaf stage is the scan loop (the
-    reference's ``leaf_eval="scan"``); its kernel leaf stage is not ported
-    yet.
+    caches it on the engine.  The leaf stage is the engine's ``leaf_eval``:
+    ``"scan"`` (the scan loop over the surviving leaves), ``"kernel"``
+    (:meth:`_run_kernel_leaves`: the union of the batch's surviving leaves
+    compacted and searched by the fused kernel) or ``"auto"`` (kernel on a
+    CUDA index with d <= 4096, else scan; the reference's rule with the
+    card in the TPU's place).  As in the reference, the kernel leaf stage
+    runs only with pruning on and ``k <= block_size`` (the kernel's tile);
+    otherwise the scan leaf stage serves the call.  That is the reference's
+    semantics, not a fallback from a failure.
     """
 
     name = "tree"
@@ -293,10 +307,23 @@ class TreeBackend:
             eng._tree_valid_nodes = eng._tree_index.n_valid_nodes
         return eng._tree_index
 
+    @staticmethod
+    def _resolve_leaf_eval(eng) -> str:
+        if eng.leaf_eval != "auto":
+            return eng.leaf_eval
+        # the flat kernel's rule in auto_backend: the fused kernel on the
+        # card up to d = 4096
+        return ("kernel" if eng.index.device.type == "cuda"
+                and eng.index.db.shape[-1] <= 4096 else "scan")
+
     def run(self, eng, queries, k, *, prune=True, element_stats=False):
         tree = self._tree(eng)
         qn, qp = _bk.prep_queries(eng.index, queries)
         m, nb = qn.shape[0], tree.n_blocks
+        if (self._resolve_leaf_eval(eng) == "kernel" and prune
+                and k <= tree.block_size):
+            return self._run_kernel_leaves(eng, tree, qn, qp, k,
+                                           element_stats=element_stats)
         top_s, pos, blk_pruned, elem_pruned, tree_pruned, evals = tree_search(
             tree, qn, qp, k, prune=prune, margin=eng.margin,
             warm_start=eng.warm_start, best_first=eng.best_first,
@@ -314,3 +341,58 @@ class TreeBackend:
         if element_stats:
             raw["elem_prune_frac"] = elem_pruned / (m * max(1, eng.n_valid))
         return top_s, ids, raw
+
+    def _run_kernel_leaves(self, eng, tree: TreeIndex, qn: Tensor, qp: Tensor,
+                           k: int, *, element_stats: bool):
+        """Seed and descent, then the fused kernel over the compacted union
+        of the batch's surviving leaves (:func:`gathered_topk`).
+
+        With ``n_pivots > 0`` and no element stats, the joint cap against
+        the τ seed first drops leaves from the union (element stats count
+        every never-kept row as pruned by its interval bound, which the cap
+        does not imply).  The union is one host sync; an empty union keeps
+        block 0, so the kernel has a tile.  The queries are sorted into
+        angularly coherent tiles, and ``pruned_topk``'s epilogue writes
+        each row back to its caller's place (``row_out``).
+        """
+        idx = tree.index
+        m, nb, bs = qn.shape[0], tree.n_blocks, tree.block_size
+        tau0, leaf_alive, _, evals = _seed_and_descend(
+            tree, qn, qp, k, warm_start=eng.warm_start,
+            warm_start_blocks=eng.warm_start_blocks, margin=eng.margin)
+        # tree_prune_frac counts the descent's cuts alone
+        tree_pruned = (~leaf_alive).sum()
+        if eng.n_pivots > 0 and tau0 is not None and not element_stats:
+            cap = multipivot_block_cap(idx, qn, n_pivots=eng.n_pivots)
+            leaf_alive = leaf_alive & (cap + eng.margin >= tau0[:, None])
+        keep = torch.nonzero(leaf_alive.any(0))[:, 0].int()   # ascending
+        if keep.numel() == 0:
+            keep = keep.new_zeros(1)
+        perm = None
+        if eng.sort_queries:
+            perm = _bk.query_sort_perm(qp).int()
+            qn, qp = qn[perm], qp[perm]
+            tau0 = None if tau0 is None else tau0[perm]
+        sims, pos, computed, elem = gathered_topk(
+            idx, keep, qn, qp, tau0, k=k, bm=eng.bm, margin=eng.margin,
+            element_stats=element_stats, best_first=eng.best_first,
+            row_out=perm)
+        ids = _bk.map_row_ids(idx.row_ids, pos)
+        # over the full (query tile, block) grid: the compacted-away tiles
+        # were never launched
+        grid = computed.shape[0] * nb
+        computed_sum = computed.float().sum()
+        raw = {"block_prune_frac": 1.0 - computed_sum / grid,
+               "tile_computed_frac": computed_sum / grid,
+               "tree_prune_frac": tree_pruned / (m * nb),
+               "tree_node_eval_frac": evals / (m * max(1, eng._tree_valid_nodes)),
+               "tree_levels": tree.n_levels,
+               "n_keep": keep.numel()}
+        if element_stats:
+            # rows of never-kept blocks: the descent proved each below τ₀
+            # (its own bound lies under its leaf's node bound)
+            per_block = idx.valid.view(nb, bs).sum(1)
+            never = per_block.sum() - per_block[keep.long()].sum()
+            raw["elem_prune_frac"] = ((elem.float().sum() + m * never)
+                                      / (m * max(1, eng.n_valid)))
+        return sims, ids, raw

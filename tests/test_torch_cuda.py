@@ -13,7 +13,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import ref as cref  # noqa: E402
-from repro_torch.core.bounds import ub_mult  # noqa: E402
 from repro_torch.core.index import build_index, multipivot_block_cap  # noqa: E402
 from repro_torch.kernels.bound_prune import (SELECT_MAX_N_PRE,  # noqa: E402
                                              block_bounds, block_bounds_plain,
@@ -24,10 +23,62 @@ from repro_torch.kernels.cosine_topk import (_launch, _operands,  # noqa: E402
                                              default_splits, merge_splits,
                                              merge_splits_plain, pruned_topk,
                                              pruned_topk_plain, scatter_rows)
+from repro_torch.kernels.ref import box_bound, query_interval  # noqa: E402
 from repro_torch.search import backends as t_bk  # noqa: E402
 
 #: the engines' fp32 guard on every bound test
 MARGIN = 4e-7
+#: how far the port's Eq. 13 bound may lie from the reference's where no
+#: pivot similarity of the (query, block) pair exceeds NEAR_ONE in
+#: magnitude.  The port bounds over the query's float32 neighbours and the
+#: block's float64 interval rounded outward (an ulp or two wider each way,
+#: at a slope of at most 22 at 0.999), with radicands (1 - s)(1 + s); the
+#: reference over the float32 point and interval with 1 - s*s.  Nearer to
+#: +-1 the two may differ by more, and the port is held to the float64
+#: truth instead (eq13_fp64).
+REF_SLACK = 1e-5
+NEAR_ONE = 0.999
+
+
+def eq13_fp64(qp, lo, hi):
+    """``[m, nb]`` float64: the Eq. 13 interval bound at the point ``qp``
+    over ``[lo, hi]``, min over pivots, from the angles (``cos`` of the
+    least angle between ``arccos(qp)`` and ``arccos([lo, hi])``), -inf for
+    an inverted interval: what the reference's formula computes in exact
+    arithmetic."""
+    qp, lo, hi = (np.asarray(x, dtype=np.float64) for x in (qp, lo, hi))
+    inv = lo > hi
+    ta = np.arccos(np.clip(qp, -1, 1))[:, None, :]
+    tl = np.arccos(np.clip(np.where(inv, 0, lo), -1, 1))[None]
+    th = np.arccos(np.clip(np.where(inv, 0, hi), -1, 1))[None]
+    gap = np.maximum(0.0, np.maximum(th - ta, ta - tl))
+    return np.where(inv[None], -np.inf, np.cos(gap)).min(-1)
+
+
+def assert_bounds_against_reference(got, want, qp, lo, hi, cap=None):
+    """The port's bound matrix ``got`` against the reference's ``want`` (all
+    numpy): -inf at the same places; ``got + MARGIN`` at least the float64
+    truth (:func:`eq13_fp64`, min'd with ``cap``) everywhere; within
+    REF_SLACK of ``want`` where no pivot of the pair lies past NEAR_ONE."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    truth = eq13_fp64(qp, lo, hi)
+    if cap is not None:
+        truth = np.minimum(truth, np.asarray(cap, np.float64))
+    fin = np.isfinite(truth)
+    short = fin & (got + MARGIN < truth)
+    assert not short.any(), f"bound + margin below the float64 truth by " \
+        f"{float((truth - got - MARGIN)[short].max()):.3e} at {np.argwhere(short)[0]}"
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+
+    def past(x):
+        return np.isfinite(x) & (np.abs(x) > NEAR_ONE)
+
+    near = (past(np.asarray(qp, np.float64)).any(1)[:, None]
+            | (past(lo) | past(hi)).any(1)[None, :])
+    away = fin & ~near
+    np.testing.assert_allclose(got[away], want[away], atol=REF_SLACK, rtol=0)
+    return int(away.sum())
 
 
 def clustered(rng, n, d, n_centers=6, noise=0.07):
@@ -50,7 +101,7 @@ def scan_gaps(idx, qn, qp, k, *, prune=True, margin=MARGIN, warm_start=False,
     nb, bs = idx.n_blocks, idx.block_size
     cap = multipivot_block_cap(idx, qn, n_pivots=n_pivots) if prune and n_pivots else None
     if ub_all is None:
-        ub_all = block_bounds(qp, idx.dp_min, idx.dp_max, cap)
+        ub_all = block_bounds(qp, idx.dp_lo, idx.dp_hi, cap)
     elif cap is not None:
         ub_all = torch.minimum(ub_all, cap)
     if tau0 is None:
@@ -61,6 +112,7 @@ def scan_gaps(idx, qn, qp, k, *, prune=True, margin=MARGIN, warm_start=False,
     order = (torch.argsort(-ub_all.amax(0), stable=True) if best_first
              else torch.arange(nb))
     valid = idx.valid.reshape(nb, bs)
+    a_lo, a_hi = (a[:, None, :] for a in query_interval(qp))
     top = (tau0 - 1e-6)[:, None].expand(m, k)
     blk_gap = torch.full((m, nb), float("inf"))
     elem_gap = []
@@ -72,7 +124,8 @@ def scan_gaps(idx, qn, qp, k, *, prune=True, margin=MARGIN, warm_start=False,
             blk_gap[:, b] = blk_gap[:, b].masked_fill(~leaf_mask[:, b], float("inf"))
         needed = (blk_gap[:, b] >= 0) & (leaf_mask[:, b] if leaf_mask is not None else True)
         rows = slice(b * bs, (b + 1) * bs)
-        eub = ub_mult(qp[:, None, :], idx.dp[rows][None]).amin(-1)
+        dpb = idx.dp[rows][None]
+        eub = box_bound(a_lo, a_hi, dpb, dpb).amin(-1)
         elem_gap.append((eub + margin - tau[:, None])[:, valid[b]])
         scores = (qn @ idx.db[rows].T).masked_fill(~(needed[:, None] & valid[b][None]),
                                                    float("-inf"))
@@ -138,10 +191,11 @@ def select_operands(m, nb, p, seed):
 def nan_operands(m, nb, p, seed, *, nan_in_lo=True):
     """bound_operands with the inputs that make NaN or infinities: NaN in
     qp (row 5) and in the cap (row 9, block 11); qp = 0 against an interval
-    [-inf, -inf] (block 13, which is not inverted: 0 * -inf is NaN at both
-    ends); an inverted pivot beside an infinite end (block 19); with
-    ``nan_in_lo``, NaN in lo (block 7) and an inverted pivot beside a NaN
-    end (block 17): NaN bounds for every query."""
+    [-inf, -inf] (block 13, which is not inverted; the query's interval is
+    [-2^-149, 2^-149], so the corner is -2^-149 * -inf = +inf, and the other
+    pivots decide); an inverted pivot beside an infinite end (block 19);
+    with ``nan_in_lo``, NaN in lo (block 7) and an inverted pivot beside a
+    NaN end (block 17): NaN bounds for every query."""
     qp, lo, hi, cap = bound_operands(m, nb, p, np.float32, seed)
     qp[5, 2] = np.nan
     cap[9, 11] = np.nan
@@ -283,7 +337,8 @@ def test_block_bounds_kernel_nan_and_inf_match_plain(cuda, p):
         got, want = block_bounds(*args[:3], c), block_bounds_plain(*args[:3], c)
         # row 5 is NaN but where every pivot is inverted (block 150)
         assert int(torch.isnan(want[5]).sum()) == 299
-        assert bool(torch.isnan(want[20:30, 13]).all() & torch.isnan(want[:, 7]).all())
+        assert bool(torch.isnan(want[:, 7]).all() & torch.isnan(want[:, 17]).all())
+        assert bool(torch.isfinite(want[20:30, 13]).all())
         torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
 
 
@@ -337,7 +392,7 @@ def test_block_bounds_select_kernel_nan_rows(cuda, nan_in_lo):
     want = block_bounds_select_plain(*args, bm=32, n_pre=4)
     nan = torch.isnan(block_bounds_plain(*args))
     clean = ~nan.any(1)
-    assert int(clean.sum()) == (0 if nan_in_lo else 138)
+    assert int(clean.sum()) == (0 if nan_in_lo else 148)
     assert_select_equal(got, want, rows=clean)
     for r in torch.nonzero(~clean)[:, 0].tolist():
         first = torch.nonzero(nan[r])[:4, 0].tolist()
@@ -683,6 +738,9 @@ def test_scan_and_tree_on_cuda_match_cpu(cuda, deep_corpus, backend, knobs,
 
     db, q = deep_corpus
     idx = build_index(db, n_pivots=16, block_size=64, device="cpu")
+    # the tree's scan leaf stage by name: on a CUDA index "auto" is the kernel's
+    if backend == "tree":
+        knobs = dict(knobs, leaf_eval="scan")
     cpu = SearchEngine(idx, backend=backend, device="cpu", **knobs)
     s_c, i_c, st_c = cpu.search(q, 10, element_stats=True)
     qn, qp = t_bk.prep_queries(idx, q)
@@ -728,3 +786,152 @@ def test_scan_and_tree_on_cuda_match_cpu(cuda, deep_corpus, backend, knobs,
                          ub_all=leaf_ub, leaf_mask=alive)
 
     assert_same_counts(count["gpu"], count["cpu"], replay)
+
+
+# ---------------------------------------------------------------------------
+# the bound near +-1, and the tree's kernel leaf stage
+# ---------------------------------------------------------------------------
+
+#: pivot similarities at and next to the ends of [-1, 1], zeros, the
+#: smallest denormals and a middle value
+EDGES = np.array([1, -1, 1 - 1e-3, -(1 - 1e-3), 1 - 1e-5, -(1 - 1e-5),
+                  np.nextafter(np.float32(1), np.float32(0)),
+                  np.nextafter(np.float32(-1), np.float32(0)), 0.0, -0.0,
+                  1e-45, -1e-45, 0.5], np.float32)
+
+
+def near_pm1_operands(m, nb, p, seed):
+    """bound_operands with a third of qp and of the interval ends drawn from
+    EDGES: intervals that end at or next to +-1, queries at or next to
+    them, touching intervals (lo == hi), and the empty-block sentinels."""
+    qp, lo, hi, cap = bound_operands(m, nb, p, np.float32, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def mix(x):
+        pick = rng.uniform(size=x.shape) < 1 / 3
+        return np.where(pick, rng.choice(EDGES, size=x.shape), x).astype(np.float32)
+
+    a, b = mix(lo), mix(hi)
+    sentinel = np.isinf(lo)
+    lo = np.where(sentinel, lo, np.minimum(a, b))
+    hi = np.where(sentinel, hi, np.maximum(a, b))
+    return mix(qp), lo.astype(np.float32), hi.astype(np.float32), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [16, 24])
+def test_bound_kernels_match_plain_near_pm1(cuda, p):
+    """block_bounds and block_bounds_select against their plain versions
+    bit for bit where the query interval and the block ends reach +-1, 0
+    and the denormals (every path of the kernels: fast, general, sentinel);
+    the bounds dominate the float64 truth by the margin."""
+    qp, lo, hi, cap = near_pm1_operands(300, 700, p, seed=p)
+    args = [torch.from_numpy(a).to(cuda) for a in (qp, lo, hi, cap)]
+    for c in (None, args[3]):
+        got, want = block_bounds(*args[:3], c), block_bounds_plain(*args[:3], c)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        truth = eq13_fp64(qp, lo, hi)
+        if c is not None:
+            truth = np.minimum(truth, cap)
+        fin = np.isfinite(truth)
+        assert (got.cpu().numpy()[fin] + MARGIN >= truth[fin]).all()
+        for bm in (8, 128):
+            assert_select_equal(block_bounds_select(*args[:3], c, bm=bm, n_pre=3),
+                                block_bounds_select_plain(*args[:3], c, bm=bm, n_pre=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, "chosen"])
+def test_pruned_topk_kernel_matches_plain_near_pm1(cuda, splits):
+    """The skip test and the element bound with a third of qp at EDGES:
+    the kernel's decisions equal the plain version's (flips only within
+    2·margin of τ), as do its results."""
+    ops = topk_operands(2048, 100, 300, 128, 16, seed=13)
+    rng = np.random.default_rng(13)
+    pick = rng.uniform(size=ops["qp"].shape) < 1 / 3
+    ops["qp"] = np.where(pick, rng.choice(EDGES, size=pick.shape),
+                         ops["qp"]).astype(np.float32)
+    run_kernel_and_plain(cuda, ops, splits, k=10, bm=128, bn=128, tau=True,
+                         elem=True)
+
+
+@pytest.fixture(scope="module")
+def leaf_corpus():
+    """4,096 clustered rows at d = 32 in blocks of 128 (32 blocks, 5 levels)
+    with a tenth of the rows tombstoned, 300 queries near rows."""
+    rng = np.random.default_rng(23)
+    db = clustered(rng, 4096, 32, n_centers=8, noise=0.05)
+    q = db[rng.integers(0, 4096, 300)] + 0.03 * rng.normal(size=(300, 32))
+    idx = build_index(db, n_pivots=16, block_size=128, device="cpu")
+    holes = torch.from_numpy(rng.uniform(size=idx.valid.shape[0]) > 0.1)
+    return db, cref.normalize(q).astype(np.float32), idx._replace(valid=idx.valid & holes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 128], ids=["k10", "k_block"])
+def test_gathered_topk_on_cuda_matches_its_plain_route(cuda, leaf_corpus, k):
+    """gathered_topk on CUDA tensors (the block_bounds and pruned_topk
+    kernels, one launch each) against the same call on CPU tensors (their
+    plain versions): sims within 1e-5, id sets equal up to near-ties, and
+    the card's computed tiles a superset of the single pass's (its splits
+    each keep their own τ)."""
+    from repro_torch.kernels.leaf_gather import gathered_topk
+    from repro_torch.search import tree as t_tree
+
+    _, q, idx = leaf_corpus
+    qn, qp = t_bk.prep_queries(idx, q)
+    tau0 = t_tree.tree_warm_start(t_tree.build_tree(idx), qn, qp, k, 1)
+    keep = torch.arange(1, idx.n_blocks, 2, dtype=torch.int32)
+    want = gathered_topk(idx, keep, qn, qp, tau0, k=k)
+    gpu = idx.to(cuda)
+    before = (block_bounds.launches, pruned_topk.launches, block_bounds_select.launches)
+    got = gathered_topk(gpu, keep.to(cuda), qn.to(cuda), qp.to(cuda), tau0.to(cuda), k=k)
+    torch.cuda.synchronize(cuda)
+    assert (block_bounds.launches, pruned_topk.launches, block_bounds_select.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    s_g, i_g, c_g = (x.cpu().numpy() for x in got[:3])
+    s_w, i_w, c_w = (x.numpy() for x in want[:3])
+    assert_topk_sets_close(s_g, i_g, s_w, i_w, tol=1e-5)
+    assert (c_g >= c_w).all()
+    assert np.isin(i_g[i_g >= 0] // 128, keep.numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(), dict(n_pivots=8, best_first=False)],
+                         ids=["default", "joint_cap_natural_order"])
+def test_tree_kernel_leaves_on_cuda_match_cpu(cuda, deep_corpus, knobs, monkeypatch):
+    """The tree engine with the kernel leaf stage on the card against the
+    same engine on the CPU, on the same prepared queries: result sets equal
+    each other and the float64 brute force; one pruned_topk launch per call,
+    block_bounds once per tree level and, with best_first, once for the
+    kept tiles' order, block_bounds_select never; the descent's fractions
+    equal up to
+    decisions within 2·margin of τ₀."""
+    from repro_torch.search import SearchEngine
+
+    db, q = deep_corpus
+    idx = build_index(db, n_pivots=16, block_size=64, device="cpu")
+    cpu = SearchEngine(idx, backend="tree", leaf_eval="kernel", device="cpu", **knobs)
+    s_c, i_c, st_c = cpu.search(q, 10)
+    qn, qp = t_bk.prep_queries(idx, q)
+    monkeypatch.setattr(t_bk, "prep_queries", lambda index, queries: (
+        qn.to(index.device), qp.to(index.device)))
+    gpu = SearchEngine(idx, backend="tree", device=cuda, **knobs)
+    assert gpu.leaf_eval == "auto"              # the kernel on a CUDA index
+    kernels = (block_bounds, block_bounds_select, pruned_topk)
+    for kern in kernels:
+        kern.launches = 0
+    s_g, i_g, st_g = gpu.search(q, 10)
+    torch.cuda.synchronize(cuda)
+    levels = st_g.extras["tree_levels"]
+    order = 1 if gpu.best_first else 0
+    assert [kern.launches for kern in kernels] == [levels + order, 0, 1] and levels == 9
+    assert_topk_sets_close(s_g.cpu().numpy(), i_g.cpu().numpy(), s_c.numpy(),
+                           i_c.numpy(), tol=1e-6)
+    s_b, i_b = cref.brute_force_knn(q, db, 10)
+    assert_topk_sets_close(s_g.cpu().numpy(), i_g.cpu().numpy(), s_b.astype(np.float32),
+                           i_b.astype(np.int32), tol=1e-5)
+    fracs = [(float(st.tree_prune_frac), float(st.tree_node_eval_frac))
+             for st in (st_g, st_c)]
+    assert fracs[0] == fracs[1] or descent_near_decisions(cpu, qn, qp, 10) > 0, fracs
+    assert 0 < st_g.extras["n_keep"] <= idx.n_blocks

@@ -198,7 +198,8 @@ def test_engine_build_matches_reference_build():
     t_eng = SearchEngine.build(db, n_pivots=16, block_size=128, device="cpu")
     j_idx = j_build_index(jnp.asarray(db), n_pivots=16, block_size=128)
     assert_same_build(fields(j_idx), fields(t_eng.index))
-    assert t_eng.backend_name == "kernel" and t_eng.device.type == "cpu"
+    # 16 blocks on a CPU index: the reference's choice off the TPU
+    assert t_eng.backend_name == "scan" and t_eng.device.type == "cpu"
     s, i, _ = t_eng.search(q, 10)
     sref, iref = ref.brute_force_knn(q, db, 10)
     np.testing.assert_array_equal(np.sort(i.numpy(), 1), np.sort(iref, 1))
@@ -223,7 +224,12 @@ def test_auto_backend_and_defaults():
     rng = np.random.default_rng(5)
     small = build_index(rng.normal(size=(200, 8)), n_pivots=4, device="cpu")
     big = build_index(rng.normal(size=(600, 8)), n_pivots=4, device="cpu")
-    assert auto_backend(small) == "brute" and auto_backend(big) == "kernel"
+    # a CPU index follows the reference's rule off the TPU: scan below 256
+    # blocks (600 rows make 5 of 128); a CUDA index keeps kernel
+    assert auto_backend(small) == "brute" and auto_backend(big) == "scan"
+    with pytest.raises(ValueError, match="leaf_eval"):
+        SearchEngine(big, backend="tree", leaf_eval="pallas", device="cpu")
+    assert SearchEngine(big, backend="tree", device="cpu").leaf_eval == "auto"
     stacked = small._replace(db=small.db[None])
     with pytest.raises(ValueError, match="sharded"):
         auto_backend(stacked)

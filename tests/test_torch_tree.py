@@ -2,10 +2,14 @@
 tree and scan backends against the fp64 brute force.
 
 Both packages search the identical index (the reference's, carried over
-with ``index_from_reference``).  The node intervals and the Eq. 13 bounds
-over them are equal bit for bit; scores (XLA's and torch's fp32 matmuls)
-within 1e-6; prune counts equal, or apart only by decisions within 2·margin
-of τ (tests/test_torch_scan.py states the rule).
+with ``index_from_reference``).  The port's node intervals contain the
+reference's and lie within REF_SLACK of them; its Eq. 13 bounds over them
+are held to the float64 truth and to the reference's within REF_SLACK away
+from +-1 (test_torch_cuda.assert_bounds_against_reference), and its
+descent equals the reference's descent run on the port's bounds.  Scores
+(XLA's and torch's fp32 matmuls) within 1e-6; prune counts equal, or apart
+only by decisions within 2·margin of τ (tests/test_torch_scan.py states
+the rule).
 """
 import numpy as np
 import pytest
@@ -28,7 +32,9 @@ from repro_torch.search import SearchEngine, TreeIndex, auto_backend, build_tree
 from repro_torch.search import backends as t_bk  # noqa: E402
 from repro_torch.search import tree as t_tree  # noqa: E402
 from tests.conftest import clustered  # noqa: E402
-from tests.test_torch_cuda import MARGIN, assert_same_counts, scan_gaps  # noqa: E402
+from tests.test_torch_cuda import (MARGIN, REF_SLACK,  # noqa: E402
+                                   assert_bounds_against_reference,
+                                   assert_same_counts, scan_gaps)
 from tests.test_torch_pivots_index import fields  # noqa: E402
 from tests.test_torch_scan import (assert_same_topk, both_indexes,  # noqa: E402
                                    both_queries, make_corpus)
@@ -79,8 +85,26 @@ def test_build_tree_matches_reference(shape, holes):
         j_idx, t_idx = with_holes(db, t_idx.block_size)
     want, got = j_tree.build_tree(j_idx), build_tree(t_idx)
     assert isinstance(got, TreeIndex)
-    for f in ("node_lo", "node_hi", "node_valid"):
-        assert bits_equal(getattr(got, f).numpy(), getattr(want, f)), f
+    assert bits_equal(got.node_valid.numpy(), want.node_valid)
+    # the port's node intervals contain the reference's (float32) ones and
+    # lie within REF_SLACK of them; the leaves hold every valid row's
+    # float64 pivot cosine
+    full = got.node_valid.numpy()
+    lo_t, hi_t = got.node_lo.numpy()[full], got.node_hi.numpy()[full]
+    lo_j, hi_j = np.asarray(want.node_lo)[full], np.asarray(want.node_hi)[full]
+    assert (lo_t <= lo_j).all() and (hi_t >= hi_j).all()
+    np.testing.assert_allclose(lo_t, lo_j, atol=REF_SLACK, rtol=0)
+    np.testing.assert_allclose(hi_t, hi_j, atol=REF_SLACK, rtol=0)
+    nb, bs, nl = t_idx.n_blocks, t_idx.block_size, got.n_leaf_slots
+    piv = t_idx.pivots.double().numpy()
+    x = t_idx.db.double().numpy()
+    cos = np.clip((x @ piv.T) / np.maximum(np.linalg.norm(x, axis=1)[:, None]
+                                           * np.linalg.norm(piv, axis=1)[None, :],
+                                           1e-300), -1, 1)    # a cosine
+    valid = t_idx.valid.numpy()
+    blk = np.repeat(np.arange(nb), bs)
+    leaf_lo, leaf_hi = got.node_lo.numpy()[nl + blk], got.node_hi.numpy()[nl + blk]
+    assert ((leaf_lo <= cos) & (cos <= leaf_hi))[valid].all()
     assert (got.n_leaf_slots, got.n_levels, got.n_blocks, got.block_size) == (
         want.n_leaf_slots, want.n_levels, want.n_blocks, want.block_size)
     assert got.n_valid_nodes == want.n_valid_nodes
@@ -111,20 +135,34 @@ def test_tree_warm_start_matches_reference(shape, k, width):
 
 
 @pytest.mark.parametrize("seed", ["beam", "none"])
-def test_tree_descend_matches_reference(shape, seed):
+def test_tree_descend_matches_reference(shape, seed, monkeypatch):
     _, q, j_idx, t_idx = shape
     (jqn, jqp), (tqn, tqp) = both_queries(j_idx, q)
     j_t, t_t = j_tree.build_tree(j_idx), build_tree(t_idx)
     tau0 = (j_tree.tree_warm_start(j_t, jqn, jqp, 10, 1) if seed == "beam"
             else jnp.full((q.shape[0],), -jnp.inf, jnp.float32))
-    alive_j, ub_j, evals_j = j_tree.tree_descend(j_t, jqp, tau0, MARGIN)
+    _, ub_j, _ = j_tree.tree_descend(j_t, jqp, tau0, MARGIN)
     alive_t, ub_t, evals_t = t_tree.tree_descend(
         t_t, tqp, torch.from_numpy(np.asarray(tau0)), MARGIN)
-    assert bits_equal(ub_t.numpy(), ub_j)
+    # the leaf bounds against the reference's, by the bound rule
+    leaf = slice(t_t.n_leaf_slots, t_t.n_leaf_slots + t_idx.n_blocks)
+    assert_bounds_against_reference(ub_t.numpy(), ub_j, tqp.numpy(),
+                                    t_t.node_lo[leaf].numpy(), t_t.node_hi[leaf].numpy())
+
+    # the reference's descent on the port's node bounds: the same frontier,
+    # cuts and evaluation count
+    def port_bounds(qp, lo, hi):
+        base = lo.shape[0]
+        return jnp.asarray(block_bounds(tqp, t_t.node_lo[base:2 * base],
+                                        t_t.node_hi[base:2 * base]).numpy())
+
+    monkeypatch.setattr(j_tree.kref, "block_bounds", port_bounds)
+    alive_j, ub_jt, evals_j = j_tree.tree_descend(j_t, jqp, tau0, MARGIN)
+    assert bits_equal(ub_t.numpy(), ub_jt)
     np.testing.assert_array_equal(alive_t.numpy(), np.asarray(alive_j))
     assert evals_t.dtype == torch.int64 and int(evals_t) == int(evals_j)
     # the leaf level is the flat bound matrix the scan would compute
-    assert torch.equal(ub_t, block_bounds(tqp, t_idx.dp_min, t_idx.dp_max)
+    assert torch.equal(ub_t, block_bounds(tqp, t_idx.dp_lo, t_idx.dp_hi)
                        .masked_fill(~t_idx.valid.reshape(t_idx.n_blocks, -1).any(1),
                                     float("-inf")))
     if seed == "beam":
@@ -238,6 +276,89 @@ def test_tree_engine_matches_reference(shape, knobs, k, monkeypatch):
     assert t_eng._tree_index is not None and t_eng._tree_valid_nodes > 0
 
 
+@pytest.mark.parametrize("knobs", [dict(), dict(n_pivots=8), dict(best_first=False),
+                                   dict(sort_queries=False)],
+                         ids=["default", "joint_cap", "natural_order", "unsorted"])
+@pytest.mark.parametrize("k", [1, 10])
+def test_tree_kernel_leaves_match_reference(shape, knobs, k, monkeypatch):
+    """The tree engines with the kernel leaf stage, the reference's
+    _run_kernel_leaves (Pallas in interpret mode) and the port's
+    (pruned_topk's plain version), on the reference's prepared queries:
+    result sets equal each other and the fp64 brute force; the descent's
+    fractions equal; the kernel's tile counts and element counts equal,
+    since no decision of these inputs lies within REF_SLACK of τ (the
+    port's bound over the query interval and the sound node intervals
+    moves by at most that much here)."""
+    db, q, j_idx, t_idx = shape
+    kw = dict(dict(best_first=True, n_pivots=0, warm_start=True), **knobs)
+    es = not kw["n_pivots"]             # the joint cap refines only without
+    j_eng = JEngine(j_idx, backend="tree", leaf_eval="kernel", interpret=True,
+                    bm=8, **kw)
+    s_j, i_j, st_j = j_eng.search(jnp.asarray(q), k, element_stats=es)
+    reference_prep(monkeypatch, j_idx)
+    t_eng = SearchEngine(t_idx, backend="tree", leaf_eval="kernel", bm=8,
+                         device="cpu", **kw)
+    s_t, i_t, st_t = t_eng.search(q, k, element_stats=es)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-6)
+    np.testing.assert_array_equal(np.sort(i_t.numpy(), 1), np.sort(np.asarray(i_j), 1))
+    assert_exact(s_t, i_t, q, db, np.arange(len(db)), k)
+    for f in ("block_prune_frac", "tile_computed_frac", "tree_prune_frac",
+              "tree_node_eval_frac", "elem_prune_frac"):
+        a, b = st_j[f], st_t[f]
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert abs(float(a) - float(b)) < 1e-6, (f, float(a), float(b))
+    assert st_t.extras["tree_levels"] == st_j.extras["tree_levels"]
+    assert 1 <= st_t.extras["n_keep"] <= t_idx.n_blocks
+    assert st_t.backend == "tree" and t_eng.leaf_eval == "kernel"
+
+
+def test_tree_kernel_leaves_run_only_where_the_reference_runs_them(shape):
+    """leaf_eval='kernel' takes the scan leaf stage with pruning off or at
+    k past the block (the kernel's tile), as the reference does; 'auto' is
+    the scan on a CPU index.  An empty union of surviving leaves keeps
+    block 0."""
+    db, q, j_idx, t_idx = shape
+    bs = t_idx.block_size
+    kern = SearchEngine(t_idx, backend="tree", leaf_eval="kernel", device="cpu")
+    scan = SearchEngine(t_idx, backend="tree", leaf_eval="scan", device="cpu")
+    auto = SearchEngine(t_idx, backend="tree", device="cpu")
+    for k, prune in ((bs + 1, True), (10, False)):
+        s_k, i_k, st_k = kern.search(q, k, prune=prune)
+        s_s, i_s, st_s = scan.search(q, k, prune=prune)
+        assert torch.equal(s_k, s_s) and torch.equal(i_k, i_s)
+        assert st_k.tile_computed_frac is None and "n_keep" not in st_k.extras
+    assert "n_keep" in kern.search(q, 10)[2].extras
+    assert "n_keep" not in auto.search(q, 10)[2].extras
+
+
+def test_tree_kernel_leaves_empty_union_keeps_block_0(monkeypatch):
+    """With every leaf cut, the kernel leaf stage still runs, over block 0,
+    in both packages alike."""
+    db, q = make_corpus("clustered", seed=1, n=1024, m=6)
+    j_idx, t_idx = both_indexes(db, 32)
+
+    def cut_all(orig):
+        def run(*a, **kw):
+            tau0, alive, ub, evals = orig(*a, **kw)
+            return tau0, alive & False, ub, evals
+        return run
+
+    monkeypatch.setattr(j_tree, "_seed_and_descend", cut_all(j_tree._seed_and_descend))
+    monkeypatch.setattr(t_tree, "_seed_and_descend", cut_all(t_tree._seed_and_descend))
+    reference_prep(monkeypatch, j_idx)
+    s_j, i_j, st_j = JEngine(j_idx, backend="tree", leaf_eval="kernel", interpret=True,
+                             bm=8).search(jnp.asarray(q), 5)
+    s_t, i_t, st_t = SearchEngine(t_idx, backend="tree", leaf_eval="kernel", bm=8,
+                                  device="cpu").search(q, 5)
+    assert st_t.extras["n_keep"] == 1
+    assert_same_topk(s_j, i_j, s_t, i_t)
+    # block 0's rows, or the τ seeds' -1 where its tile was skipped
+    i_t_np = i_t.numpy()
+    assert (np.isin(i_t_np, t_idx.row_ids.numpy()[:32]) | (i_t_np == -1)).all()
+    assert abs(float(st_t.tile_computed_frac) - float(st_j.tile_computed_frac)) < 1e-6
+
+
 def test_tree_engine_prune_off_leaves_tree_fractions_none(shape):
     db, q, j_idx, t_idx = shape
     j_eng = JEngine(j_idx, backend="tree", leaf_eval="scan", best_first=True)
@@ -273,18 +394,17 @@ def test_tree_prunes_at_least_scan():
                                     (256 * 32, 8, 32), (255 * 32, 8, 32),
                                     (300, 4100, 16), (600, 4100, 128)])
 def test_auto_backend_follows_reference_on_cpu(n, d, bs):
-    """brute where the reference picks brute.  Past 256 padded rows the
-    reference picks scan or tree off the TPU; the port keeps kernel (brute
-    past d = 4096) until the margin fault of ROADMAP.md Queue 3 is fixed,
-    since both can return a wrong set where it shows
-    (test_backends_exact_at_the_d2_bound_counterexample)."""
+    """On a CPU index the port picks what the reference picks off the TPU:
+    brute up to 256 padded rows, then tree from 256 blocks, else scan, at
+    any d (the scan and tree are exact near +-1 since their bound is
+    sound: test_backends_exact_at_the_d2_bound_counterexample)."""
     db = np.random.default_rng(n + d).normal(size=(n, d)).astype(np.float32)
     j_idx = j_build_index(jnp.asarray(db), n_pivots=4, block_size=bs)
     want = j_auto_backend(j_idx)
     got = auto_backend(index_from_reference(fields(j_idx), "cpu"))
     assert want == ("brute" if j_idx.db.shape[0] <= 256 else
                     "tree" if j_idx.dp_min.shape[0] >= 256 else "scan")
-    assert got == ("brute" if want == "brute" or d > 4096 else "kernel")
+    assert got == want
 
 
 def test_build_tree_rejects_sharded_index():
@@ -402,6 +522,79 @@ def test_node_bounds_dominate_descendants_fp64(n, d, seed):
         f"n={n} d={d} seed={seed}: node {np.argwhere(short)[0][1]} (query "
         f"{np.argwhere(short)[0][0]}) bounds below a descendant's fp64 similarity "
         f"by {float((best[short] - ub[short] - MARGIN).max()):.3e}")
+
+
+#: pivot similarities the near-+-1 test plants: 1e-3, 1e-5 and 0 from +-1
+NEAR_PM1 = (1 - 1e-3, 1 - 1e-5, 1.0, -(1 - 1e-3), -(1 - 1e-5), -1.0)
+
+
+def at_cosine(rng, p, c):
+    """A unit vector at cosine ``c`` to the unit vector ``p`` (float64)."""
+    v = rng.normal(size=p.shape)
+    v -= (v @ p) * p
+    v /= np.linalg.norm(v)
+    return c * p + np.sqrt(max(0.0, 1 - c * c)) * v
+
+
+def planted_near_pm1(rng, n, d):
+    """A clustered corpus whose row 0 (the first maxmin pivot; its antipode,
+    planted too, is the second) has rows planted at every cosine of
+    NEAR_PM1 to it, three each."""
+    base = clustered(rng, n, d).astype(np.float64)
+    p = base[0]
+    rows = [at_cosine(rng, p, c) for c in NEAR_PM1 for _ in range(3)]
+    x = np.concatenate([base, np.array(rows)])
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def node_maxima_fp64(idx, tree, qn):
+    """``[m, 2 nl]``: each node's largest float64 similarity of a valid row
+    below it (-inf for empty nodes and node 0)."""
+    nb, bs, nl = idx.n_blocks, idx.block_size, tree.n_leaf_slots
+    sims = qn.double().numpy() @ idx.db.double().numpy().T
+    sims = np.where(idx.valid.numpy()[None, :], sims, -np.inf)
+    best = np.full((sims.shape[0], 2 * nl), -np.inf)
+    best[:, nl:nl + nb] = sims.reshape(-1, nb, bs).max(2)
+    sz = nl // 2
+    while sz >= 1:
+        best[:, sz:2 * sz] = best[:, 2 * sz:4 * sz].reshape(-1, sz, 2).max(2)
+        sz //= 2
+    return best
+
+
+@settings(max_examples=12, deadline=None, derandomize=True)
+@given(st.integers(40, 300), st.integers(2, 24), st.integers(1, 12),
+       st.integers(0, 1000))
+def test_bound_sound_and_backends_exact_near_pm1(n, d, k, seed):
+    """Queries and rows planted at pivot similarities +-(1 - 1e-3),
+    +-(1 - 1e-5) and +-1: every block's and tree node's bound plus the
+    margin is at least the float64 similarity of every valid row below it,
+    and kernel, scan and tree (both leaf stages) return the float64 brute
+    force's result sets."""
+    rng = np.random.default_rng(seed)
+    db = planted_near_pm1(rng, n, d)
+    idx = build_index(db, n_pivots=min(4, len(db)), block_size=16, device="cpu")
+    piv = idx.pivots.double().numpy()
+    piv /= np.linalg.norm(piv, axis=1, keepdims=True)
+    q = np.array([at_cosine(rng, piv[j], c) for j in range(len(piv))
+                  for c in NEAR_PM1]).astype(np.float32)
+    qn, qp = t_bk.prep_queries(idx, q)
+    planted = qp.numpy()[np.arange(len(q)), np.repeat(np.arange(len(piv)), len(NEAR_PM1))]
+    np.testing.assert_allclose(planted, np.tile(NEAR_PM1, len(piv)), atol=1e-6)
+    tree = build_tree(idx)
+    ub = block_bounds(qp, tree.node_lo, tree.node_hi).double().numpy()
+    short = tree.node_valid.numpy()[None, :] & (ub + MARGIN < node_maxima_fp64(idx, tree, qn))
+    short[:, 0] = False
+    assert not short.any(), f"a node bound + margin below a row's similarity at {np.argwhere(short)[0]}"
+    leaf = block_bounds(qp, idx.dp_lo, idx.dp_hi).double().numpy()
+    nl = tree.n_leaf_slots
+    assert (leaf + MARGIN >= node_maxima_fp64(idx, tree, qn)[:, nl:nl + idx.n_blocks]).all()
+    for backend, knobs in (("kernel", dict(bm=8)), ("scan", {}),
+                           ("tree", dict(leaf_eval="scan")),
+                           ("tree", dict(leaf_eval="kernel", bm=8))):
+        eng = SearchEngine(idx, backend=backend, device="cpu", **knobs)
+        s, i, _ = eng.search(q, k)
+        assert_exact(s, i, q, db, np.arange(len(db)), k)
 
 
 @pytest.mark.parametrize("backend", ["scan", "tree"])
