@@ -71,7 +71,38 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    index; on the card, block_bounds over every block and every tree node
    plus the margin at least the float64 maximum similarity of the valid
    rows below it (and bit for bit with the plain version), and the kernel,
-   scan and tree (both leaf stages) backends exact on those queries.
+   scan and tree (both leaf stages) backends exact on those queries;
+10. online mutation at full size: a kernel engine and a tree engine (kernel
+   leaf stage) made on phase 3's index, each with its own engine.online()
+   handle (which copies the index it mutates; phase 3's index must come
+   out untouched), through the same operations: a. the reference's serve
+   loop (12 steps of: insert 16 rows, delete 4 live ids, search 32
+   queries; the tail fills and a block is appended), with the widened tree
+   equal to build_tree bit for bit after the first insert; b. the top-1 rows
+   of 1,000 phase-3 queries deleted, those queries searched; b2. 64 rows
+   planted at float64 pivot cosines +-(1 - 1e-5) and +-1 inserted into the
+   tombstones under the live tree, then phase 9's soundness check on the
+   widened tree and phase 9's planted queries; c. 10,000 rows inserted (100
+   planted as in b2, first), then phase 9's check on the grown index and
+   its rebuilt tree and phase 9's planted queries; d. reoptimize, beside a
+   fresh build over the same live rows without the planted ones.  After
+   every step both engines equal a brute force on the card over exactly
+   the live rows (the reference's online_matches_brute rule); 10,000-query
+   searches after a, b, c and d print block_prune_frac beside the fresh
+   build's;
+11. single-device serving at full size, every search call counted and
+   held to one pruned_topk and one block_bounds_select launch: zero-padded
+   batch rows; kNN-LM decoding through the ContinuousBatcher over phase
+   10's reoptimized kernel engine (1, 8 and 64 sequences as closed-loop
+   clients, 64 tokens each, an insert and a delete made through run()
+   half-way, each answer held to the brute force over the rows live when
+   its batch ran; latency p50/p99, occupancy, QPS), each with its
+   microbatches as they coalesced and zero-padded to 128 rows, beside the
+   search alone at that many rows; the KNNDatastore over phase 3's engine
+   (knn_probs against a plain computation, add_pairs, delete);
+   find_near_duplicates on 100,000 embed_tokens documents against a brute
+   force on the card; and the fused merge of pruned_topk timed at one
+   query tile of 128 and of 32.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -84,6 +115,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -165,14 +197,22 @@ def synth(spec, seed):
                 rng.standard_normal((m, d), dtype=np.float32))
     c = rng.standard_normal((spec["centers"], d), dtype=np.float32)
     c /= np.linalg.norm(c, axis=1, keepdims=True)
+    return mixture_draw(rng, c, n, spec["noise"]), mixture_draw(rng, c, m, spec["noise"])
 
-    def draw(count):
-        x = rng.standard_normal((count, d), dtype=np.float32)
-        x *= spec["noise"]
-        x += c[rng.integers(0, len(c), count)]
-        return x
 
-    return draw(n), draw(m)
+def mixture_centres(spec, seed):
+    """The unit centres synth(spec, seed) draws its mixture around."""
+    c = np.random.default_rng(seed).standard_normal((spec["centers"], spec["d"]),
+                                                    dtype=np.float32)
+    return c / np.linalg.norm(c, axis=1, keepdims=True)
+
+
+def mixture_draw(rng, c, count, noise):
+    """``count`` rows of the mixture around the centres ``c``."""
+    x = rng.standard_normal((count, c.shape[1]), dtype=np.float32)
+    x *= noise
+    x += c[rng.integers(0, len(c), count)]
+    return x
 
 
 def cuda_ms(fn, reps):
@@ -670,36 +710,35 @@ def planted_queries(index, seed):
     """NEAR_PM1_REPEATS queries per (pivot, similarity of NEAR_PM1), each at
     that float64 cosine to the pivot, float32 (numpy)."""
     rng = np.random.default_rng(seed)
+    return np.array([at_cosine(rng, p, c) for p in unit_pivots(index) for c in NEAR_PM1
+                     for _ in range(NEAR_PM1_REPEATS)], dtype=np.float32)
+
+
+def unit_pivots(index):
+    """The index's pivots, normalized again in float64 (numpy)."""
     piv = index.pivots.double().cpu().numpy()
-    piv /= np.linalg.norm(piv, axis=1, keepdims=True)
-    out = []
-    for p in piv:
-        for c in NEAR_PM1:
-            for _ in range(NEAR_PM1_REPEATS):
-                v = rng.standard_normal(p.shape)
-                v -= (v @ p) * p
-                v /= np.linalg.norm(v)
-                out.append(c * p + np.sqrt(max(0.0, 1 - c * c)) * v)
-    return np.array(out, dtype=np.float32)
+    return piv / np.linalg.norm(piv, axis=1, keepdims=True)
 
 
-def phase_near_pm1(eng, seed, kernels):
-    """Phase 9 on ``eng``'s index: planted_queries; block_bounds over the
-    blocks' and the tree nodes' sound intervals on the card, bit for bit
-    with the plain version, plus the margin at least the float64 maximum
-    similarity of the valid rows below each; then the kernel, scan and
-    tree engines (both leaf stages) against the brute force at k = 10."""
-    from repro_torch.core.index import search_brute
+def at_cosine(rng, p, c):
+    """A unit vector (float64) at cosine ``c`` to the unit vector ``p``."""
+    v = rng.standard_normal(p.shape)
+    v -= (v @ p) * p
+    v /= np.linalg.norm(v)
+    return c * p + np.sqrt(max(0.0, 1 - c * c)) * v
+
+
+def bound_soundness(idx, tree, q, label):
+    """block_bounds over every block's and every tree node's sound interval
+    for the queries ``q`` on the card, bit for bit with the plain version,
+    plus the margin at least the float64 maximum similarity of the valid
+    rows below each (fails otherwise); returns {"blocks": ..., "tree_nodes":
+    ...} with the pairs, those short and the least slack."""
     from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
-    from repro_torch.search import SearchEngine
     from repro_torch.search import backends as bk
-    from repro_torch.search.tree import build_tree
 
-    idx = eng.index
-    q = torch.from_numpy(planted_queries(idx, seed)).cuda()
     qn, qp = bk.prep_queries(idx, q)
     nb, bs = idx.n_blocks, idx.block_size
-    tree = build_tree(idx)
     nl = tree.n_leaf_slots
     # float64 maxima per block, then up the tree
     best = []
@@ -717,7 +756,7 @@ def phase_near_pm1(eng, seed, kernels):
     while sz >= 1:
         nodes[:, sz:2 * sz] = nodes[:, 2 * sz:4 * sz].view(-1, sz, 2).amax(2)
         sz //= 2
-    out = {"queries": int(q.shape[0]), "similarities": list(NEAR_PM1)}
+    out = {}
     for what, lo, hi, want in (("blocks", idx.dp_lo, idx.dp_hi, best),
                                ("tree_nodes", tree.node_lo, tree.node_hi, nodes)):
         ub = block_bounds(qp, lo, hi)
@@ -729,13 +768,28 @@ def phase_near_pm1(eng, seed, kernels):
         short = int((slack[fin] < 0).sum())
         out[what] = {"pairs": int(fin.sum()), "short": short, "equal_to_plain": equal,
                      "least_slack": float(slack[fin].min())}
-        log(f"[near +-1] {what}: {out[what]['pairs']} (query, {what}) pairs, bound + "
+        log(f"[{label}] {what}: {out[what]['pairs']} (query, {what}) pairs, bound + "
             f"margin below the float64 maximum in {short}, least slack "
             f"{out[what]['least_slack']:.3e}; block_bounds equal to its plain "
             f"version bit for bit: {equal}")
-        check(short == 0 and equal, f"near +-1: the bound over the {what} is short "
+        check(short == 0 and equal, f"{label}: the bound over the {what} is short "
                                     f"or differs from its plain version")
         del ub, slack
+    return out
+
+
+def phase_near_pm1(eng, seed, kernels):
+    """Phase 9 on ``eng``'s index: planted_queries; bound_soundness over the
+    blocks and the tree nodes; then the kernel, scan and tree engines (both
+    leaf stages) against the brute force at k = 10."""
+    from repro_torch.core.index import search_brute
+    from repro_torch.search import SearchEngine
+    from repro_torch.search.tree import build_tree
+
+    idx = eng.index
+    q = torch.from_numpy(planted_queries(idx, seed)).cuda()
+    out = {"queries": int(q.shape[0]), "similarities": list(NEAR_PM1),
+           **bound_soundness(idx, build_tree(idx), q, "near +-1")}
     k = 10
     s_b, i_b = search_brute(idx, q, k)
     brute = {k: (s_b.cpu().numpy(), i_b.cpu().numpy())}
@@ -749,6 +803,678 @@ def phase_near_pm1(eng, seed, kernels):
         err, _ = exactness(spec, name, k, sims, ids, brute)
         out[name] = {"max_abs_err_vs_brute": err,
                      "block_prune_frac": float(st.block_prune_frac)}
+    return out
+
+
+class LiveRows:
+    """The brute force's own copy of the corpus during phase 10 and 11: every
+    row by external id (the stored rows of phase 3's index, then each
+    insert normalized as the handle stores it) and which ids are live."""
+
+    def __init__(self, index, capacity):
+        valid = index.valid
+        n = int(valid.sum())
+        self.rows = index.db.new_zeros((capacity, index.db.shape[1]))
+        self.rows[index.row_ids[valid].long()] = index.db[valid]
+        self.alive = torch.zeros(capacity, dtype=torch.bool, device=index.device)
+        self.alive[:n] = True
+        self.next_id = n
+
+    def insert(self, ids, rows):
+        r64 = np.asarray(rows, np.float64)
+        r64 /= np.linalg.norm(r64, axis=1, keepdims=True)
+        ids_t = torch.tensor(ids, device=self.rows.device)
+        self.rows[ids_t] = torch.from_numpy(r64.astype(np.float32)).to(self.rows.device)
+        self.alive[ids_t] = True
+        self.next_id = max(self.next_id, max(ids) + 1)
+
+    def delete(self, ids):
+        self.alive[torch.tensor(ids, device=self.rows.device)] = False
+
+    def live_ids(self):
+        return torch.nonzero(self.alive)[:, 0].cpu().numpy()
+
+    def matches(self, q, sims, ids, k, tol=1e-5):
+        """The reference's online_matches_brute rule (benchmarks/latency.py)
+        on the card: finite sims of shape [m, k], each within ``tol`` of the
+        brute force's sorted k best over exactly the live rows, and every
+        returned id live with its true similarity within ``tol``.  Returns
+        (ok, max |sim - brute|, max |sim - true sim of its id|)."""
+        dev = self.rows.device
+        qn = torch.nn.functional.normalize(torch.as_tensor(q, device=dev).float(), dim=1)
+        rows = self.rows[: self.next_id]
+        alive = self.alive[: self.next_id]
+        want = []
+        for s0 in range(0, qn.shape[0], 1000):
+            sc = (qn[s0:s0 + 1000] @ rows.T).masked_fill_(~alive[None, :], float("-inf"))
+            want.append(torch.topk(sc, k, dim=1).values)
+            del sc
+        want = torch.cat(want)
+        sims, ids = torch.as_tensor(sims, device=dev), torch.as_tensor(ids, device=dev)
+        idl = ids.long()
+        live = (idl >= 0) & (idl < self.next_id) & alive[idl.clamp(0, self.next_id - 1)]
+        true = (qn[:, None, :] * rows[idl.clamp(0, self.next_id - 1)]).sum(-1)
+        err_b = float((sims - want).abs().max())
+        err_t = float((sims - true).abs().max())
+        ok = (tuple(sims.shape) == (qn.shape[0], k) and bool(torch.isfinite(sims).all())
+              and bool(live.all()) and err_b <= tol and err_t <= tol)
+        return ok, err_b, err_t
+
+
+#: mutation steps of phase 10a (the reference's serve loop,
+#: benchmarks/latency.py): rows inserted, ids deleted, queries searched
+ONLINE_STEPS, ONLINE_INSERT, ONLINE_DELETE, ONLINE_QUERIES = 12, 16, 4, 32
+#: phase 10b's tombstones: the top-1 id of each of this many phase-3 queries
+ONLINE_TOMBSTONE_QUERIES = 1000
+#: phase 10b2's shape-stable insert of rows planted near +-1 under the live
+#: tree, and phase 10c's insert with how many of its rows are planted there
+ONLINE_PLANTED_WIDE = 64
+ONLINE_GROW, ONLINE_PLANTED = 10_000, 100
+ONLINE_PLANTED_AT = (1 - 1e-5, 1.0, -(1 - 1e-5), -1.0)
+
+
+def phase_online(eng64, q64, brute64, seed, planted_seed, kernels, fresh_prune):
+    """Phase 10: online mutation at full size over phase 3's index, through
+    a ``kernel`` engine and a ``tree`` engine (kernel leaf stage) made on
+    it, each with its own handle (which copies the index it mutates; phase
+    3's index must come out untouched), through the same operations:
+
+    a. ONLINE_STEPS steps of {insert ONLINE_INSERT mixture rows, delete
+       ONLINE_DELETE live ids, search ONLINE_QUERIES fresh queries}; after
+       the first insert the widened tree equals build_tree bit for bit, and
+       block_bounds on it equals its plain version;
+    b. tombstones: delete the top-1 id of each of the first
+       ONLINE_TOMBSTONE_QUERIES phase-3 queries, search those queries;
+       b2. insert ONLINE_PLANTED_WIDE rows at float64 cosines
+       ONLINE_PLANTED_AT to the pivots into the tombstones, under the live
+       tree: phase 9's soundness check on the widened (not rebuilt) tree,
+       then phase 9's planted queries;
+    c. a shape-changing insert of ONLINE_GROW rows, the first ONLINE_PLANTED
+       at float64 cosines ONLINE_PLANTED_AT to the pivots; then phase 9's
+       soundness check on the grown index and the rebuilt tree, and phase
+       9's planted queries;
+    d. reoptimize, and as its control a fresh build over the same live
+       rows without b2's and c's planted ones (same queries).
+
+    ``seed`` is phase 3's (the mixture's centres), ``planted_seed`` phase 9's.
+
+    Every search is held to LiveRows.matches; after a, b, c and d both
+    engines also search the 10,000 phase-3 queries (block_prune_frac beside
+    the fresh build's ``fresh_prune``).  Each checked call's launches are
+    counted per engine.  Returns (report, the kernel engine, LiveRows)."""
+    from repro_torch.search import SearchEngine, build_tree
+    from repro_torch.search.backends import _resolve_bn, prep_queries
+
+    block_bounds, select, topk = kernels
+    t_start = time.perf_counter()
+    base = eng64.index
+    base_before = {f: getattr(base, f).clone()
+                   for f in ("valid", "row_ids", "dp_min", "dp_max", "dp_lo", "dp_hi")}
+    engines = {"kernel": SearchEngine(base, backend="kernel"),
+               "tree": SearchEngine(base, backend="tree")}
+    live = LiveRows(base, base.db.shape[0] + 20_000)
+    rng = np.random.default_rng(seed + 6)
+    centres = mixture_centres(CLUSTERED64, seed)
+    out = {"steps": [], "mutation_s": {name: {"insert": [], "delete": [], "reoptimize": []}
+                                       for name in engines},
+           "launches": {name: {kern.__name__: 0 for kern in kernels} for name in engines}}
+    handles = {}
+    for name, eng in engines.items():
+        eng.search(q64[:ONLINE_QUERIES], 10)             # the tree builds here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles[name] = eng.online(auto_reoptimize=False)
+        out.setdefault("handle_s", {})[name] = time.perf_counter() - t0
+        check(eng.index is not base, f"the {name} engine's handle did not copy the index")
+    log(f"[online] two engines over phase 3's index, each handle on its own copy "
+        f"({base.n_blocks} blocks, "
+        f"{len(handles['kernel']._free)} free slots); handles made in "
+        f"{out['handle_s']['kernel']:.3f} / {out['handle_s']['tree']:.3f} s")
+
+    def mutate(op, *arg):
+        got = {}
+        for name, h in handles.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = getattr(h, op)(*arg)
+            torch.cuda.synchronize()
+            out["mutation_s"][name][op].append(time.perf_counter() - t0)
+        check(got["kernel"] == got["tree"], "the two handles minted different ids")
+        if op == "reoptimize":
+            return None
+        if op == "insert":
+            live.insert(got["kernel"], arg[0])
+        else:
+            live.delete(arg[0])
+        same = all(torch.equal(a, b) for a, b in zip(engines["kernel"].index,
+                                                      engines["tree"].index)
+                   if a is not None)
+        check(same, f"the two engines' indexes differ after {op}")
+        return got["kernel"]
+
+    def search(label, q, reps=3):
+        rows = {}
+        for name, eng in engines.items():
+            for kern in kernels:
+                kern.launches = 0
+            sims, ids, st = eng.search(q, 10)
+            torch.cuda.synchronize()
+            seen = {kern.__name__: kern.launches for kern in kernels}
+            for key, v in seen.items():
+                out["launches"][name][key] += v
+            if name == "kernel":
+                want = {block_bounds.__name__: 0, select.__name__: 1, topk.__name__: 1}
+                bn = _resolve_bn(eng.index, eng.bn)
+            else:
+                levels = st.extras["tree_levels"]
+                want = {block_bounds.__name__: levels + 1, select.__name__: 0,
+                        topk.__name__: 1}
+                bn = eng.index.block_size
+            check(seen == want, f"[online {label}] {name}: launches {seen}, want {want}")
+            ok, err_b, err_t = live.matches(q, sims, ids, 10)
+            check(ok, f"[online {label}] {name}: not the brute force over the live rows "
+                      f"(max |sim - brute| {err_b:.3e}, |sim - true| {err_t:.3e})")
+            del sims, ids
+            ms = cuda_ms(lambda: eng.search(q, 10), reps)
+            for kern in kernels:
+                out["launches"][name][kern.__name__] += kern.launches - seen[kern.__name__]
+            rows[name] = {"p50_ms": float(np.median(ms)), "ms": ms, "bn": bn,
+                          "block_prune_frac": float(st.block_prune_frac),
+                          "tile_computed_frac": float(st.tile_computed_frac),
+                          "generation": st.generation, "decay_estimate": st.decay_estimate,
+                          "n_blocks": eng.n_blocks, "index_epoch": eng.index_epoch,
+                          "max_err_vs_brute": err_b, "launches": seen}
+        fresh = (f" (fresh build, same queries: {fresh_prune:.4f})"
+                 if q.shape[0] == q64.shape[0] else "")
+        for name, r in rows.items():
+            log(f"[online {label}] {name}: {q.shape[0]} queries, brute force over the live "
+                f"rows matched (max |diff| {r['max_err_vs_brute']:.2e}); p50 "
+                f"{r['p50_ms']:.3f} ms of {len(r['ms'])}, bn {r['bn']}, block_prune_frac "
+                f"{r['block_prune_frac']:.4f}{fresh}, tile_computed_frac "
+                f"{r['tile_computed_frac']:.4f}, generation {r['generation']}, "
+                f"decay_estimate {r['decay_estimate']:.3e}, {r['n_blocks']} blocks, epoch "
+                f"{r['index_epoch']}")
+        out["steps"].append({"step": label, **rows})
+        return rows
+
+    # a. the reference's serve loop
+    t_a = time.perf_counter()
+    for step in range(1, ONLINE_STEPS + 1):
+        new = mixture_draw(rng, centres, ONLINE_INSERT, CLUSTERED64["noise"])
+        mutate("insert", new)
+        if step == 1:
+            tree = engines["tree"]._tree_index
+            rebuilt = build_tree(engines["tree"].index)
+            equal = all(torch.equal(a, b) for a, b in zip(tree[1:], rebuilt[1:]))
+            qp = prep_queries(engines["tree"].index, q64[:ONLINE_QUERIES])[1]
+            from repro_torch.kernels.bound_prune import block_bounds_plain
+            nodes_equal = bounds_equal(block_bounds(qp, tree.node_lo, tree.node_hi),
+                                       block_bounds_plain(qp, tree.node_lo, tree.node_hi))
+            out["widened_tree"] = {"equal_to_build_tree": equal,
+                                   "block_bounds_equal_to_plain": nodes_equal,
+                                   "nodes": int(tree.node_valid.shape[0])}
+            log(f"[online a1] the widened tree equals build_tree of the new index bit for "
+                f"bit (node_lo, node_hi, node_valid): {equal}; block_bounds on its "
+                f"{tree.node_valid.shape[0]} nodes equal to its plain version: {nodes_equal}")
+            check(equal and nodes_equal, "the widened tree differs from build_tree")
+            del tree, rebuilt
+        ids = live.live_ids()
+        mutate("delete", [int(x) for x in rng.choice(ids, ONLINE_DELETE, replace=False)])
+        q = torch.from_numpy(mixture_draw(rng, centres, ONLINE_QUERIES,
+                                          CLUSTERED64["noise"])).to(q64.device)
+        search(f"a{step}", q)
+    out["serve_loop_s"] = time.perf_counter() - t_a
+    search("a_end_10000", q64, reps=1)
+
+    # b. tombstones in old blocks
+    alive = live.alive.cpu().numpy()
+    top1 = [int(i) for i in np.unique(brute64[10][1][:ONLINE_TOMBSTONE_QUERIES, 0])
+            if alive[i]]
+    mutate("delete", top1)
+    out["tombstones"] = len(top1)
+    search("b", q64[:ONLINE_TOMBSTONE_QUERIES])
+    search("b_10000", q64, reps=1)
+
+    # b2. rows planted near +-1 into the tombstones, under the live tree
+    tree_eng = engines["tree"]
+    epoch = tree_eng.index_epoch
+    check(tree_eng._tree_index is not None, "no live tree before step b2's insert")
+    piv = unit_pivots(engines["kernel"].index)
+    planted = np.array([at_cosine(rng, piv[i % len(piv)],
+                                  ONLINE_PLANTED_AT[(i // len(piv)) % len(ONLINE_PLANTED_AT)])
+                        for i in range(ONLINE_PLANTED_WIDE)], np.float32)
+    planted_ids = mutate("insert", planted)
+    check(tree_eng.index_epoch == epoch and tree_eng._tree_index is not None,
+          "step b2's insert changed the shape or dropped the tree")
+    qpl = torch.from_numpy(planted_queries(tree_eng.index, planted_seed)).to(q64.device)
+    log(f"[online b2] {ONLINE_PLANTED_WIDE} rows at float64 cosines {ONLINE_PLANTED_AT} "
+        f"to the pivots inserted into free slots under the live tree (no shape change); "
+        f"phase 9's check on the widened node tables:")
+    out["soundness_widened_tree"] = bound_soundness(tree_eng.index, tree_eng._tree_index,
+                                                    qpl, "online b2")
+    search("b2_planted", qpl)
+
+    # c. a shape-changing insert, planted rows first (into the tombstones)
+    planted = np.array([at_cosine(rng, piv[i % len(piv)],
+                                  ONLINE_PLANTED_AT[(i // len(piv)) % len(ONLINE_PLANTED_AT)])
+                        for i in range(ONLINE_PLANTED)], np.float32)
+    grow = np.concatenate([planted, mixture_draw(rng, centres, ONLINE_GROW - ONLINE_PLANTED,
+                                                 CLUSTERED64["noise"])])
+    free = len(handles["kernel"]._free)
+    blocks0 = engines["kernel"].n_blocks
+    planted_ids += mutate("insert", grow)[:ONLINE_PLANTED]
+    out["grow"] = {"rows": ONLINE_GROW, "into_free_slots": free,
+                   "appended_blocks": engines["kernel"].n_blocks - blocks0}
+    log(f"[online c] {ONLINE_GROW} rows inserted: {free} into free slots, "
+        f"{out['grow']['appended_blocks']} blocks appended ({engines['kernel'].n_blocks} now)")
+    search("c_10000", q64, reps=1)                      # the tree rebuilds here
+    out["soundness"] = bound_soundness(engines["kernel"].index, engines["tree"]._tree_index,
+                                       qpl, "online c")
+    search("c_planted", qpl)
+
+    # d. reoptimize; its maxmin pivots may land on b2's and c's planted rows, which
+    # lie at +-1 and next to it from the old pivots
+    mutate("reoptimize")
+    out["reoptimize_s"] = {name: v["reoptimize"][0] for name, v in out["mutation_s"].items()}
+    near = np.abs(unit_pivots(engines["kernel"].index) @ piv.T).max(1)
+    out["reoptimize_pivots_within_1e-4_of_an_old_pivot_or_its_antipode"] = int(
+        (near > 1 - 1e-4).sum())
+    log(f"[online d] reoptimize: {out['reoptimize_s']['kernel']:.3f} s (kernel engine), "
+        f"{out['reoptimize_s']['tree']:.3f} s (tree engine); of its {len(near)} new pivots "
+        f"{int((near > 1 - 1e-4).sum())} lie within 1e-4 of an old pivot or its antipode")
+    search("d_10000", q64, reps=3)
+    # the control: a fresh build over the same live rows without b2's and
+    # c's planted ones, searched with the same queries
+    ids = np.setdiff1d(live.live_ids(), planted_ids)
+    ctrl = SearchEngine.build(live.rows[torch.from_numpy(ids).to(live.rows.device)],
+                              n_pivots=16, block_size=128)
+    ctrl_prune = float(ctrl.search(q64, 10)[2].block_prune_frac)
+    out["reoptimize_control"] = {"rows": int(len(ids)), "block_prune_frac": ctrl_prune}
+    log(f"[online d] the control, a fresh build over the {len(ids)} live rows without the "
+        f"{len(planted_ids)} planted ones: block_prune_frac {ctrl_prune:.4f} on the same "
+        f"{q64.shape[0]} queries")
+    del ctrl
+
+    a_steps = [r for r in out["steps"] if r["step"] in {f"a{i}" for i in range(1, 13)}]
+    med, qps = {}, {}
+    for name, ops in out["mutation_s"].items():
+        ins, dl = ops["insert"][:ONLINE_STEPS], ops["delete"][:ONLINE_STEPS]
+        med[name] = {"insert": float(np.median(ins)) * 1e6,
+                     "delete": float(np.median(dl)) * 1e6,
+                     "tombstone_delete": ops["delete"][ONLINE_STEPS] * 1e6,
+                     "planted_insert": ops["insert"][ONLINE_STEPS] * 1e6,
+                     "grow_insert": ops["insert"][ONLINE_STEPS + 1] * 1e6}
+        qps[name] = float(np.median([ONLINE_QUERIES / (i + d + r[name]["p50_ms"] / 1e3)
+                                     for i, d, r in zip(ins, dl, a_steps)]))
+    out.update(mutation_us=med, sustained_qps=qps, online_matches_brute=1.0,
+               seconds=time.perf_counter() - t_start)
+    for name in med:
+        log(f"[online] {name} engine: step a's insert of {ONLINE_INSERT} rows "
+            f"{med[name]['insert']:.0f} us, delete of {ONLINE_DELETE} ids "
+            f"{med[name]['delete']:.0f} us per call (median of {ONLINE_STEPS}, "
+            f"CUDA-synchronised); b's delete of {len(top1)} ids "
+            f"{med[name]['tombstone_delete']:.0f} us; b2's insert of {ONLINE_PLANTED_WIDE} "
+            f"rows {med[name]['planted_insert']:.0f} us; c's insert of {ONLINE_GROW} rows "
+            f"{med[name]['grow_insert']:.0f} us; serve loop sustained {qps[name]:.1f} QPS "
+            f"({ONLINE_QUERIES} queries / (insert + delete + search p50), median over "
+            f"the steps); launches {out['launches'][name]}")
+    log(f"[online] online_matches_brute 1.0: both engines matched the brute force over "
+        f"the live rows after every step; phase 10 took {out['seconds']:.1f} s")
+    untouched = all(torch.equal(getattr(base, f), v) for f, v in base_before.items())
+    out["shared_index_untouched"] = untouched
+    log(f"[online] phase 3's index, which both engines were made on, is untouched "
+        f"({', '.join(base_before)} equal to before): {untouched}")
+    check(untouched, "mutating phase 10's engines changed phase 3's index")
+    kernel_eng = engines.pop("kernel")
+    del engines
+    return out, kernel_eng, live
+
+
+#: phase 11's serving traffic, kNN-LM decoding (Khandelwal et al., ICLR
+#: 2020): each generated token of a sequence queries the datastore once.
+#: DECODE_SEQUENCES sequences decode at once as closed-loop clients of one
+#: ContinuousBatcher (each sends its next query when its answer returns),
+#: DECODE_TOKENS tokens each; half-way the store takes an insert of
+#: SERVE_INSERT rows and a delete of SERVE_DELETE ids through batcher.run
+DECODE_SEQUENCES, DECODE_TOKENS = (1, 8, 64), 64
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS, SERVE_INSERT, SERVE_DELETE = 128, 2.0, 64, 16
+#: pruned_topk's fused merge is timed at one query tile of each of these
+MERGE_TILE_ROWS = (128, 32)
+#: phase 11's kNN-LM datastore: GPT-2's vocabulary, the queries of one
+#: knn_probs batch, the pairs added and the ids deleted
+KNN_VOCAB, KNN_QUERIES, KNN_ADD, KNN_DELETE = 50_257, 128, 64, 16
+#: phase 11's dedup corpus: documents, tokens each, planted near-duplicate
+#: pairs (one token changed), embedding width
+DEDUP_DOCS, DEDUP_TOKENS, DEDUP_PAIRS, DEDUP_DIM = 100_000, 64, 2_000, 256
+
+
+class Dispatched:
+    """The engine as a phase-11 ContinuousBatcher sees it: records each
+    microbatch's rows and tile_computed_frac; with ``pad_to`` it zero-pads
+    each microbatch to that many rows before the search and slices the
+    padding off after, as the reference's batcher pads."""
+
+    def __init__(self, eng, pad_to=None):
+        self.eng, self.pad_to = eng, pad_to
+        self.rows, self.tile_computed = [], []
+
+    def search(self, q, k):
+        m = q.shape[0]
+        if self.pad_to:
+            q = np.concatenate([q, np.zeros((self.pad_to - m, q.shape[1]), q.dtype)])
+        sims, ids, st = self.eng.search(q, k)
+        self.rows.append(m)
+        self.tile_computed.append(float(st.tile_computed_frac))
+        return sims[:m], ids[:m], st
+
+
+def search_alone(eng, q):
+    """``eng.search`` of the ``[m, d]`` queries ``q`` as they are and
+    zero-padded to SERVE_MAX_BATCH rows: p50 of REPS (CUDA events) and
+    tile_computed_frac of each, and the card's busy time in one unpadded
+    call under the profiler."""
+    m = q.shape[0]
+    qt = torch.from_numpy(q).to(eng.device)
+    r = {"rows": m}
+    for name, x in (("unpadded", qt),
+                    ("padded", torch.cat([qt, qt.new_zeros(SERVE_MAX_BATCH - m, q.shape[1])]))):
+        st = eng.search(x, 10)[2]
+        ms = cuda_ms(lambda: eng.search(x, 10), REPS)
+        r[name] = {"p50_ms": float(np.median(ms)), "ms": ms,
+                   "tile_computed_frac": float(st.tile_computed_frac)}
+    r["unpadded"]["device"] = device_busy(lambda: eng.search(qt, 10),
+                                          r["unpadded"]["p50_ms"], top=6)
+    busy = r["unpadded"]["device"]
+    log(f"[serve] the search alone at {m} rows: p50 {r['unpadded']['p50_ms']:.3f} ms, "
+        f"tile_computed_frac {r['unpadded']['tile_computed_frac']:.4f}; zero-padded to "
+        f"{SERVE_MAX_BATCH} rows {r['padded']['p50_ms']:.3f} ms, tile_computed_frac "
+        f"{r['padded']['tile_computed_frac']:.4f} (p50 of {REPS}, CUDA events); one "
+        f"unpadded call kept the card busy {busy['busy_ms']:.3f} ms in {busy['kernels']} "
+        f"device events, {busy['busy_share']:.3f} of its p50; top: "
+        + "; ".join(f"{n[:40]} {ms_:.3f} ms" for n, ms_ in busy["top"]))
+    return r
+
+
+def decode_loop(eng, live, queries, new_rows, pad, rng):
+    """kNN-LM decoding through one ContinuousBatcher over ``eng`` (k = 10,
+    SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS): ``queries`` is ``[B, T, d]``, and
+    sequence s, a closed-loop client, submits queries[s, t] once its answer
+    to queries[s, t - 1] has come back.  After T // 2 tokens of every
+    sequence, an insert of ``new_rows`` and a delete of SERVE_DELETE live
+    ids go through ``batcher.run``.  Each half's answers are held to
+    LiveRows.matches over the rows live then.  ``pad``: each microbatch is
+    zero-padded to SERVE_MAX_BATCH rows (Dispatched).  Returns the report
+    (latency per request on the host clock, occupancy, batches, QPS)."""
+    import asyncio
+
+    from repro_torch.serve import ContinuousBatcher
+
+    b, t_all, d = queries.shape
+    half = t_all // 2
+    h = eng.online()
+    dead = [int(x) for x in rng.choice(live.live_ids(), SERVE_DELETE, replace=False)]
+    disp = Dispatched(eng, SERVE_MAX_BATCH if pad else None)
+    batcher = ContinuousBatcher(disp, 10, max_batch=SERVE_MAX_BATCH,
+                                max_wait_ms=SERVE_MAX_WAIT_MS)
+    sims = np.zeros((b, t_all, 10), np.float32)
+    ids = np.zeros((b, t_all, 10), np.int32)
+    latency = []
+
+    async def sequence(s, t0, t1):
+        for t in range(t0, t1):
+            start = time.perf_counter()
+            sims[s, t], ids[s, t] = await batcher.submit(queries[s, t])
+            latency.append(time.perf_counter() - start)
+
+    async def tokens(t0, t1):
+        start = time.perf_counter()
+        await asyncio.gather(*(sequence(s, t0, t1) for s in range(b)))
+        return time.perf_counter() - start
+
+    async def main():
+        try:
+            w1 = await tokens(0, half)
+            new_ids = await batcher.run(h.insert, new_rows)
+            await batcher.run(h.delete, dead)
+            return w1, new_ids, await tokens(half, t_all)
+        finally:
+            await batcher.close()
+
+    w1, new_ids, w2 = asyncio.run(asyncio.wait_for(main(), timeout=600))
+    what = f"{b} sequences x {t_all} tokens, {'padded' if pad else 'unpadded'}"
+    errs = []
+    for t0, t1 in ((0, half), (half, t_all)):
+        if t0:
+            live.insert(new_ids, new_rows)
+            live.delete(dead)
+        ok, err_b, err_t = live.matches(
+            queries[:, t0:t1].reshape(-1, d), torch.from_numpy(sims[:, t0:t1].reshape(-1, 10)),
+            torch.from_numpy(ids[:, t0:t1].reshape(-1, 10)), 10)
+        check(ok, f"[serve {what}] an answer is not the brute force over the rows live "
+                  f"when its batch ran ({err_b:.3e}, {err_t:.3e})")
+        errs.append(err_b)
+    lat = np.array(latency) * 1e3
+    rows = np.array(disp.rows)
+    n = b * t_all
+    r = {"sequences": b, "tokens": t_all, "padded": pad, "requests": n,
+         "latency_p50_ms": float(np.median(lat)),
+         "latency_p99_ms": float(np.percentile(lat, 99)), "occupancy": batcher.occupancy,
+         "batches": batcher.n_batches, "rows_per_batch_mean": float(rows.mean()),
+         "rows_per_batch_max": int(rows.max()),
+         "tile_computed_frac_mean": float(np.mean(disp.tile_computed)),
+         "qps": n / (w1 + w2), "halves_s": [w1, w2], "max_err_vs_brute": max(errs)}
+    log(f"[serve] kNN-LM decoding, {what} (closed loop, max_batch {SERVE_MAX_BATCH}, "
+        f"max_wait {SERVE_MAX_WAIT_MS} ms; an insert of {len(new_rows)} rows and a delete of "
+        f"{SERVE_DELETE} ids through run() half-way): {n} requests, every answer the brute "
+        f"force over the rows live then (max |diff| {max(errs):.2e}); per request p50 "
+        f"{r['latency_p50_ms']:.3f} ms, p99 {r['latency_p99_ms']:.3f} ms (host clock); "
+        f"{r['batches']} batches of {r['rows_per_batch_mean']:.2f} rows on average (max "
+        f"{r['rows_per_batch_max']}), occupancy {r['occupancy']:.4f}, tile_computed_frac "
+        f"{r['tile_computed_frac_mean']:.4f} on average; {r['qps']:.1f} QPS")
+    return r
+
+
+def count_searches():
+    """Counts every SearchEngine.search call by backend until the returned
+    ``restore`` is called: (counter, restore)."""
+    from repro_torch.search import SearchEngine
+
+    calls = collections.Counter()
+    search = SearchEngine.search
+
+    def counted(self, *a, **kw):
+        calls[self.backend_name] += 1
+        return search(self, *a, **kw)
+
+    SearchEngine.search = counted
+    return calls, lambda: setattr(SearchEngine, "search", search)
+
+
+def phase_serving(eng, live, eng64, q64, seed, mixture_seed, kernels):
+    """Phase 11: single-device serving at full size, with every search call
+    counted: each is a ``kernel`` engine's and launches ``pruned_topk`` and
+    ``block_bounds_select`` (``kernels[0]``, ``kernels[1]``) once each and
+    nothing else of ``kernels``.
+
+    a. zero-padded rows: a padded batch's real rows equal an unpadded
+       search, its padding rows finite;
+    b. kNN-LM decoding (decode_loop) over ``eng`` (phase 10's reoptimized
+       kernel engine) at each of DECODE_SEQUENCES sequences, unpadded and
+       padded, beside search_alone at that many rows;
+    c. KNNDatastore over ``eng64`` (phase 3's engine) with next tokens drawn
+       from ``seed``: knn_probs of KNN_QUERIES queries against a plain torch
+       computation over the brute force's neighbours, add_pairs, delete;
+    d. find_near_duplicates on DEDUP_DOCS embed_tokens documents against a
+       brute force on the card.
+
+    ``mixture_seed`` is phase 3's (the mixture's centres)."""
+    for kern in kernels:
+        kern.launches = 0
+    calls, restore = count_searches()
+    try:
+        out = serving_parts(eng, live, eng64, q64, seed, mixture_seed)
+    finally:
+        restore()
+    out["search_calls"] = dict(calls)
+    out["launches"] = {kern.__name__: kern.launches for kern in kernels}
+    n = sum(calls.values())
+    want = {kern.__name__: n if i < 2 else 0 for i, kern in enumerate(kernels)}
+    log(f"[serve] phase 11: {n} search calls {dict(calls)}, launches {out['launches']} "
+        f"(one pruned_topk and one block_bounds_select per call: "
+        f"{out['launches'] == want})")
+    check(set(calls) == {"kernel"} and out["launches"] == want,
+          f"phase 11's launches {out['launches']} are not one pruned_topk and one "
+          f"block_bounds_select per kernel-engine search call {dict(calls)}")
+    return out
+
+
+def serving_parts(eng, live, eng64, q64, seed, mixture_seed):
+    """Parts a-d of phase_serving; returns their report."""
+    from repro_torch.core.index import search_brute
+    from repro_torch.data.dedup import embed_tokens, find_near_duplicates
+    from repro_torch.serve import KNNDatastore
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    centres = mixture_centres(CLUSTERED64, mixture_seed)
+    out = {}
+
+    # a. padding rows
+    q_np = q64.cpu().numpy()
+    real = q64[:100]
+    s_r, i_r, _ = eng.search(real, 10)
+    s_p, i_p, _ = eng.search(torch.cat([real, real.new_zeros(28, real.shape[1])]), 10)
+    pad_ok = (bool(torch.isfinite(s_p).all())
+              and bool(torch.allclose(s_p[:100], s_r, atol=1e-6, rtol=0))
+              and torch.equal(torch.sort(i_p[:100], 1).values, torch.sort(i_r, 1).values))
+    log(f"[serve] a batch of 100 queries zero-padded to 128: real rows equal to the "
+        f"unpadded search and every padding row finite (no NaN): {pad_ok}")
+    check(pad_ok, "padding rows changed real rows' results or produced NaN")
+    out["padding_rows_ok"] = pad_ok
+
+    # b. kNN-LM decoding through the continuous batcher
+    out["decode"] = []
+    start = 0
+    for b in DECODE_SEQUENCES:
+        qs = q_np[start:start + b * DECODE_TOKENS].reshape(b, DECODE_TOKENS, -1)
+        start += b * DECODE_TOKENS
+        alone = search_alone(eng, qs[:, 0])
+        for pad in (False, True):
+            r = decode_loop(eng, live, qs, mixture_draw(rng, centres, SERVE_INSERT,
+                                                        CLUSTERED64["noise"]), pad, rng)
+            out["decode"].append(dict(r, search_alone=alone))
+
+    # c. the kNN-LM datastore
+    n0 = eng64.n_valid
+    values = np.random.default_rng(seed + 1).integers(0, KNN_VOCAB, n0)
+    ds = KNNDatastore(eng64, values, KNN_VOCAB, k=16)
+    hq = q64[:KNN_QUERIES]
+    probs = ds.knn_probs(hq)
+    s_g, _, got_i = ds.lookup(hq)
+    s_b, i_b = search_brute(eng64.index, hq, ds.k)
+    w = torch.softmax(ds.temp * s_b, dim=-1)
+    plain = torch.zeros_like(probs).scatter_add_(1, ds.values[i_b.long()].long(), w)
+    same = (torch.sort(got_i, 1).values == torch.sort(i_b, 1).values).all(1)
+    near_ties = tie_aware_mismatches(s_g.cpu().numpy(), got_i.cpu().numpy(),
+                                     s_b.cpu().numpy(), i_b.cpu().numpy(), 1e-5)
+    err = float((probs - plain)[same].abs().max())
+    knn = {"queries": KNN_QUERIES, "k": ds.k, "vocab": KNN_VOCAB, "max_abs_err": err,
+           "rows_with_other_neighbours": int((~same).sum())}
+    log(f"[serve] KNNDatastore knn_probs of {KNN_QUERIES} queries (k = {ds.k}, vocab "
+        f"{KNN_VOCAB}) against softmax + scatter_add over the brute force's neighbours: "
+        f"max |diff| {err:.3e} over the {int(same.sum())} rows whose neighbour sets equal "
+        f"(the rest differ by near-ties only: {near_ties == 0})")
+    check(err <= 1e-6 and near_ties == 0, "knn_probs differs from its plain computation")
+    emb = mixture_draw(rng, centres, KNN_ADD, CLUSTERED64["noise"])
+    toks = rng.integers(0, KNN_VOCAB, KNN_ADD)
+    ids = ds.add_pairs(emb, toks)
+    _, t_add, i_add = ds.lookup(emb)
+    own = (bool((i_add[:, 0].cpu() == torch.tensor(ids)).all())
+           and bool((t_add[:, 0].cpu() == torch.from_numpy(toks)).all()))
+    dead = ids[:KNN_DELETE // 2] + [int(x) for x in
+                                     np.unique(i_b[:, 0].cpu().numpy())[:KNN_DELETE // 2]]
+    ds.delete(dead)
+    _, _, i_after = ds.lookup(torch.cat([hq, torch.from_numpy(emb).to(hq.device)]))
+    gone = not bool(torch.isin(i_after, torch.tensor(dead, device=hq.device)).any())
+    knn.update(add_pairs_top1_own=own, deleted_never_return=gone)
+    log(f"[serve] KNNDatastore add_pairs of {KNN_ADD}: each lookup's top-1 is its own id "
+        f"and token: {own}; delete of {len(dead)} ids: none returned after: {gone}")
+    check(own and gone, "add_pairs or delete of the datastore misbehaved")
+    out["knn"] = knn
+
+    # d. dedup
+    drng = np.random.default_rng(seed + 2)
+    tokens = drng.integers(0, KNN_VOCAB, (DEDUP_DOCS, DEDUP_TOKENS))
+    src = drng.choice(DEDUP_DOCS - DEDUP_PAIRS, DEDUP_PAIRS, replace=False)
+    tokens[-DEDUP_PAIRS:] = tokens[src]
+    tokens[-DEDUP_PAIRS:, 0] = drng.integers(0, KNN_VOCAB, DEDUP_PAIRS)
+    t0 = time.perf_counter()
+    embd = embed_tokens(tokens, dim=DEDUP_DIM)
+    embed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs, stats = find_near_duplicates(embd, threshold=0.95, k=8)
+    dedup_s = time.perf_counter() - t0
+    e = torch.nn.functional.normalize(torch.from_numpy(embd).to(q64.device), dim=1)
+    want, edge = set(), []
+    for s0 in range(0, DEDUP_DOCS, 2000):
+        v, j = torch.topk(e[s0:s0 + 2000] @ e.T, 9, dim=1)
+        v, j = v.cpu().numpy(), j.cpu().numpy()
+        r = np.arange(s0, s0 + len(j))[:, None].repeat(9, 1)
+        hit = (j != r) & (v >= 0.95)
+        want |= {(min(a, b), max(a, b)) for a, b in zip(r[hit].tolist(), j[hit].tolist())}
+        near = (j != r) & (np.abs(v - 0.95) <= 1e-5)
+        edge += [(min(a, b), max(a, b)) for a, b in zip(r[near].tolist(), j[near].tolist())]
+    diff = set(pairs) ^ want
+    planted = {(min(a, b), max(a, b)) for a, b in
+               zip(src.tolist(), range(DEDUP_DOCS - DEDUP_PAIRS, DEDUP_DOCS))}
+    out["dedup"] = {"docs": DEDUP_DOCS, "dim": DEDUP_DIM, "pairs": len(pairs),
+                    "brute_pairs": len(want), "differ": len(diff),
+                    "differ_beyond_threshold_ties": len(diff - set(edge)),
+                    "planted_found": len(planted & set(pairs)), "planted": DEDUP_PAIRS,
+                    "block_prune_frac": float(stats.block_prune_frac),
+                    "backend": stats.backend, "seconds": dedup_s, "embed_s": embed_s}
+    log(f"[serve] find_near_duplicates on {DEDUP_DOCS} documents (dim {DEDUP_DIM}, "
+        f"threshold 0.95, k = 8, backend {stats.backend}): {len(pairs)} pairs, the brute "
+        f"force on the card {len(want)}, differing {len(diff)} (beyond scores within 1e-5 "
+        f"of the threshold: {out['dedup']['differ_beyond_threshold_ties']}); "
+        f"{out['dedup']['planted_found']} of {DEDUP_PAIRS} planted pairs found; "
+        f"block_prune_frac {out['dedup']['block_prune_frac']:.4f}; {dedup_s:.3f} s "
+        f"(build + search), embed_tokens {embed_s:.1f} s on the host")
+    check(out["dedup"]["differ_beyond_threshold_ties"] == 0,
+          "find_near_duplicates differs from the brute force")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[serve] phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+def small_batch_merge(eng, q64, _launch, _operands, merge_splits):
+    """pruned_topk's fused merge at one query tile (each of MERGE_TILE_ROWS
+    queries, k = 10) on ``eng``'s index, at the splits the engine chooses
+    there: merge_routes' clock of the epilogue and its tail, and the three
+    routes in turns."""
+    from repro_torch.search.backends import kernel_inputs, prep_queries
+
+    out = {}
+    for m in MERGE_TILE_ROWS:
+        qn, qp = prep_queries(eng.index, q64[:m])
+        a_k, kw_k, perm = kernel_inputs(
+            eng.index, qn, qp, 10, bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
+            best_first=eng.best_first, margin=eng.margin,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        ops_m, kw_m = _operands(*a_k, **dict(kw_k, row_out=perm))
+        old, times = merge_routes(_launch, merge_splits, ops_m, kw_m, perm)
+        new = _launch(*ops_m, **kw_m)
+        equal = torch.equal(old[0], new.sims) and torch.equal(old[1], new.idx)
+        out[m] = {"splits": kw_k["splits"], "equal_to_old_route": equal, **times}
+        log(f"[serve] pruned_topk at one query tile of {m} (k = 10, {kw_k['splits']} "
+            f"splits): the epilogue's merge {times['epilogue_us_median']:.1f} us, its tail "
+            f"past the last arrival {times['epilogue_tail_us']:.1f} us; in turns: fused "
+            f"{times['fused_ms']:.3f} ms, unfused {times['unfused_ms']:.3f} ms, unfused + "
+            f"merge_splits + gathers {times['old_route_ms']:.3f} ms; equal to the old "
+            f"route: {equal}")
+        check(equal, f"pruned_topk's merge at m = {m} differs from the old route")
+        del ops_m, kw_m, old, new
     return out
 
 
@@ -1423,7 +2149,24 @@ def main(argv=None) -> int:
     report["near_pm1"] = phase_near_pm1(eng64, args.seed + 5, st_kernels)
     report["near_pm1"]["seconds"] = time.perf_counter() - t9
     log(f"[near +-1] phase 9: {report['near_pm1']['seconds']:.1f} s")
-    del eng64, q64, eng256, q256, brute64, brute256
+    del eng256, q256, brute256
+    torch.cuda.empty_cache()
+
+    # 10. online mutation at full size on copies of phase 3's index
+    report["online"], online_eng, live = phase_online(
+        eng64, q64, brute64, args.seed, args.seed + 5, st_kernels,
+        report["clustered64"]["k10"]["block_prune_frac"])
+    del brute64
+    torch.cuda.empty_cache()
+
+    # 11. single-device serving: the batcher over phase 10's engine, the
+    # kNN-LM datastore over phase 3's, dedup; then the merge at its batches
+    report["serving"] = phase_serving(online_eng, live, eng64, q64, args.seed + 7, args.seed,
+                                      (pruned_topk, block_bounds_select, block_bounds,
+                                       merge_splits))
+    report["serving"]["merge_small_batches"] = small_batch_merge(
+        online_eng, q64, _launch, _operands, merge_splits)
+    del eng64, q64, online_eng, live
 
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
@@ -1446,11 +2189,29 @@ def main(argv=None) -> int:
     bb_entry["launches_by_path"] = {"wide_prescan": bb_entry["launches"],
                                     "tree": tree_launches, "scan": scan_launches,
                                     "tree_kernel_leaves": tk_bb}
-    bb_entry["launches"] += tree_launches + scan_launches + tk_bb
     bb_entry["tree_node_tables"] = phase7["node_tables"]
+    online, serving = report["online"]["launches"], report["serving"]["launches"]
     topk_entry["launches_by_path"] = {"main": topk_entry["launches"],
-                                      "tree_kernel_leaves": gather_entry["launches"]}
-    topk_entry["launches"] += gather_entry["launches"]
+                                      "tree_kernel_leaves": gather_entry["launches"],
+                                      "online_kernel": online["kernel"]["pruned_topk"],
+                                      "online_tree": online["tree"]["pruned_topk"],
+                                      "serving": serving["pruned_topk"]}
+    topk_entry["launches"] = sum(topk_entry["launches_by_path"].values())
+    # the epilogue runs in every pruned_topk launch
+    merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
+    merge_entry["launches"] = topk_entry["launches"]
+    gather_entry["launches_by_path"] = {"tree_kernel_leaves": gather_entry["launches"],
+                                        "online_tree": online["tree"]["pruned_topk"]}
+    gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
+    bb_entry["launches_by_path"].update(
+        online_tree=online["tree"]["block_bounds"],
+        online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"])
+    bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
+    sel_entry["launches_by_path"] = {
+        "main": sel_entry["launches"], "online_kernel": online["kernel"]["block_bounds_select"],
+        "online_tree": online["tree"]["block_bounds_select"],
+        "serving": serving["block_bounds_select"]}
+    sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]
     report["seconds"] = time.perf_counter() - t_start

@@ -29,7 +29,8 @@ from repro_torch.kernels import ref as kref
 
 __all__ = ["BlockIndex", "build_index", "search_brute", "interval_upper_bound",
            "block_upper_bound", "reorder_perm", "multipivot_block_cap",
-           "index_from_reference", "pivot_cosines64", "sound_intervals"]
+           "index_from_reference", "pivot_cosines64", "row_intervals",
+           "sound_intervals"]
 
 
 class BlockIndex(NamedTuple):
@@ -148,24 +149,29 @@ def pivot_cosines64(x: Tensor, pivots: Tensor) -> Tensor:
     return (x64 @ p64.T) / torch.where(norms > 0, norms, 1.0)
 
 
+def row_intervals(x: Tensor, pivots: Tensor) -> tuple[Tensor, Tensor]:
+    """``(lo, hi) [n, P]``: each stored row's float64 pivot cosine
+    (:func:`pivot_cosines64`) rounded outward to float32: the neighbours of
+    the nearest float32 (:func:`~repro_torch.kernels.ref.query_interval`),
+    clamped to ``[-1, 1]``.  The one rounding every sound interval is made
+    of: :func:`sound_intervals` at the build, and the online insert
+    (``core/online.py``), which widens the blocks and the tree's nodes
+    with it."""
+    return kref.query_interval(pivot_cosines64(x, pivots).float())
+
+
 def sound_intervals(db: Tensor, pivots: Tensor, valid: Tensor, dp_min: Tensor,
                     dp_max: Tensor) -> tuple[Tensor, Tensor]:
-    """``(dp_lo, dp_hi) [n_blocks, P]``: each block's interval of its valid
-    rows' float64 pivot cosines (:func:`pivot_cosines64`), rounded outward
-    to float32 (the neighbours of the nearest float32, as
-    :func:`~repro_torch.kernels.ref.query_interval`), clamped to ``[-1,
-    1]`` and joined with ``[dp_min, dp_max]``, so no interval shrinks.
-    Blocks with no valid row keep ``[dp_min, dp_max]`` (the inverted
-    sentinel where the build found the block empty)."""
-    nb = dp_min.shape[0]
-    cos = pivot_cosines64(db, pivots).reshape(nb, -1, pivots.shape[0])
+    """``(dp_lo, dp_hi) [n_blocks, P]``: each block's union of its valid
+    rows' :func:`row_intervals`, joined with ``[dp_min, dp_max]``, so no
+    interval shrinks.  Blocks with no valid row keep ``[dp_min, dp_max]``
+    (the inverted sentinel where the build found the block empty)."""
+    nb, p = dp_min.shape
+    lo_r, hi_r = (x.reshape(nb, -1, p) for x in row_intervals(db, pivots))
     rows = valid.reshape(nb, -1, 1)
-    lo64 = torch.where(rows, cos, float("inf")).amin(1)
-    hi64 = torch.where(rows, cos, float("-inf")).amax(1)
-    lo, hi = dp_min.float(), dp_max.float()
-    filled = rows.any(1)
-    return (torch.where(filled, torch.minimum(kref.query_interval(lo64.float())[0], lo), lo),
-            torch.where(filled, torch.maximum(kref.query_interval(hi64.float())[1], hi), hi))
+    lo = torch.where(rows, lo_r, float("inf")).amin(1)
+    hi = torch.where(rows, hi_r, float("-inf")).amax(1)
+    return torch.minimum(lo, dp_min.float()), torch.maximum(hi, dp_max.float())
 
 
 def reorder_perm(dp: Tensor, valid: Tensor, n_pivots: int) -> Tensor:

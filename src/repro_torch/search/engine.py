@@ -8,7 +8,9 @@ Counterpart of :mod:`repro.search.engine`::
 τ warm-start and best-first tile ordering are engine policy (on by
 default); they change how fast τ rises, never the result set, which stays
 the brute-force one.  Ported backends: ``kernel``, ``scan``, ``tree`` (with
-its scan and kernel leaf stages) and ``brute``.
+its scan and kernel leaf stages) and ``brute``; ``engine.online()`` hands
+out the :class:`~repro_torch.core.online.MutableIndex` that inserts,
+deletes and rebuilds under a live engine.
 """
 from __future__ import annotations
 
@@ -125,6 +127,10 @@ class SearchEngine:
         self.leaf_eval = leaf_eval
         self._tree_index = None             # built by the tree backend
         self._tree_valid_nodes = 0          # its node count, read once
+        #: bumped on every shape-changing online mutation (appended blocks,
+        #: reoptimize), as in the reference
+        self.index_epoch = 0
+        self._online = None                 # the MutableIndex handle, if any
         self.bm = bm
         self.bn = bn
         self.sort_queries = sort_queries
@@ -159,6 +165,48 @@ class SearchEngine:
                           seed=seed, device=device)
         return cls(idx, device=device, **engine_kw)
 
+    def online(self, **kw):
+        """The engine's :class:`~repro_torch.core.online.MutableIndex`
+        handle (created on first use; one per engine).  Insert, delete and
+        reoptimize through it; the engine's index and tree stay consistent.
+        Keyword args (``reoptimize_threshold``, ``auto_reoptimize``) are
+        taken on the first call only.  The handle installs its own copy of
+        the index, which it then writes in place, so an index this engine
+        shares with others is never changed under them."""
+        if self._online is None:
+            from repro_torch.core.online import MutableIndex
+            self._online = MutableIndex(self, **kw)
+        elif kw:
+            raise ValueError("engine.online() already created its MutableIndex; "
+                             "per-handle options can only be set on the first call")
+        return self._online
+
+    def _apply_mutation(self, new_index: BlockIndex, *, n_valid: int,
+                        shape_changed: bool, tree=None) -> None:
+        """Install a mutated index (called by the online handle only).
+
+        A shape change (appended blocks, reoptimize) bumps ``index_epoch``,
+        drops the tree (the next tree search rebuilds it) and recomputes
+        ``n_blocks`` and ``n_slots``.  Otherwise ``tree`` is the widened
+        tree of a shape-stable insert, or, after a delete under a live
+        tree, the tree keeps its (wide) node tables and serves the new
+        index.
+        """
+        self.index = new_index
+        self.n_valid = int(n_valid)
+        if shape_changed:
+            self.index_epoch += 1
+            self._tree_index = None
+            self._tree_valid_nodes = 0
+            self.n_blocks = new_index.n_blocks
+            self.n_slots = int(new_index.db.shape[0])
+            return
+        if tree is not None:
+            self._tree_index = tree
+            self._tree_valid_nodes = tree.n_valid_nodes
+        elif self._tree_index is not None:
+            self._tree_index = self._tree_index._replace(index=new_index)
+
     def search(self, queries, k: int, *, prune: bool = True,
                element_stats: bool | None = None):
         """Exact top-k: ``(sims [m,k] f32, ids [m,k] i32, SearchStats)``.
@@ -190,6 +238,9 @@ class SearchEngine:
             warm_start=self.warm_start,
             best_first=self.best_first,
             n_pivots=None if self.backend_name == "brute" else self.n_pivots,
+            generation=None if self._online is None else self._online.generation,
+            decay_estimate=(None if self._online is None
+                            else self._online.decay_estimate),
             extras={key: v for key, v in raw.items()
                     if key not in ("block_prune_frac", "tile_computed_frac",
                                    "elem_prune_frac", "tree_prune_frac",

@@ -31,8 +31,10 @@ class SearchStats:
     **Absent-stage fields are ``None``, never 0.**  ``tree_*`` are ``None``
     on every backend but ``tree``, and there with ``prune=False`` (the
     descent did not run).  ``retraces`` is always ``None``: the port has no
-    trace cache.  ``generation`` and ``decay_estimate`` stay ``None`` until
-    online mutation is ported.
+    trace cache.  ``generation`` (mutation calls applied) and
+    ``decay_estimate`` (mutated rows over the corpus at the last build) are
+    the online handle's, ``None`` while the engine has none
+    (:meth:`SearchEngine.online`).
     """
 
     backend: str

@@ -40,7 +40,7 @@ from repro_torch.kernels.leaf_gather import gathered_topk
 from repro_torch.search import backends as _bk
 
 __all__ = ["TreeIndex", "build_tree", "tree_warm_start",
-           "tree_warm_start_topk", "tree_descend", "tree_search"]
+           "tree_warm_start_topk", "tree_descend", "tree_search", "widen_tree"]
 
 
 class TreeIndex(NamedTuple):
@@ -122,6 +122,47 @@ def build_tree(index: BlockIndex) -> TreeIndex:
     block_valid = index.valid.reshape(nb, bs).any(1)
     lo, hi, valid = _tree_arrays(index.dp_lo, index.dp_hi, block_valid,
                                  nl=_next_pow2(nb))
+    return TreeIndex(index, lo, hi, valid)
+
+
+def widen_tree(tree: TreeIndex, index: BlockIndex, blocks: Tensor,
+               lo_rows: Tensor, hi_rows: Tensor) -> TreeIndex:
+    """Widen the node tables along the root-to-leaf paths of freshly
+    inserted rows, in place (the online insert, ``core/online.py``).
+
+    Args:
+      tree: the engine's tree (its heap shape must match ``index``: a
+        shape-changing mutation drops the tree, which the next search
+        rebuilds).
+      index: the post-insert index the widened tree serves.
+      blocks: ``[r]`` block of each inserted row.
+      lo_rows / hi_rows: ``[r, P]`` each row's sound interval: its float64
+        pivot cosines rounded outward (``core/index.py:row_intervals``)
+        joined with its float32 ``dp``, exactly what the insert folds into
+        the blocks' ``dp_lo/dp_hi``.
+
+    The reference's ``widen_tree(tree, index, blocks, dp_rows)`` takes the
+    float32 ``dp`` rows, the one value its intervals hold.  The port's
+    nodes are built from the sound block intervals (:func:`build_tree`), so
+    widening them with the float32 point alone could leave an inserted
+    row's float64 cosine outside every node above it; hence the interval's
+    two ends.  Every node on an affected path is scatter-min'd with
+    ``lo_rows`` and scatter-max'd with ``hi_rows`` and marked valid: nodes
+    only loosen, so each node bound stays an upper bound over its grown
+    subtree.  While no block has lost its last row to a delete since the
+    tree was built, the result equals :func:`build_tree` of ``index`` bit
+    for bit.
+    """
+    nl = tree.n_leaf_slots
+    lo, hi, valid = tree.node_lo, tree.node_hi, tree.node_valid
+    node = blocks.long() + nl
+    idx = node[:, None].expand_as(lo_rows)
+    for _ in range(tree.n_levels + 1):                 # leaf ... root
+        lo.scatter_reduce_(0, idx, lo_rows, "amin", include_self=True)
+        hi.scatter_reduce_(0, idx, hi_rows, "amax", include_self=True)
+        valid[node] = True
+        node = node // 2
+        idx = node[:, None].expand_as(lo_rows)
     return TreeIndex(index, lo, hi, valid)
 
 

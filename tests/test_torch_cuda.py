@@ -935,3 +935,98 @@ def test_tree_kernel_leaves_on_cuda_match_cpu(cuda, deep_corpus, knobs, monkeypa
              for st in (st_g, st_c)]
     assert fracs[0] == fracs[1] or descent_near_decisions(cpu, qn, qp, 10) > 0, fracs
     assert 0 < st_g.extras["n_keep"] <= idx.n_blocks
+
+
+# ---------------------------------------------------------------------------
+# online mutation and serving on the card
+# ---------------------------------------------------------------------------
+
+def live_brute_check(sims, ids, live, q, k, tol=1e-5):
+    """Result sets of the float64 brute force over exactly the live rows
+    (``live``: id -> row), tie-aware; every returned id live."""
+    live_ids = np.array(sorted(live))
+    rows = np.stack([live[i] for i in live_ids])
+    s_b, i_b = cref.brute_force_knn(q, rows, k)
+    s, i = sims.cpu().numpy(), ids.cpu().numpy()
+    assert np.isin(i, live_ids).all(), "a returned id is not live"
+    np.testing.assert_allclose(s, s_b, atol=tol)
+    assert_topk_sets_close(s, i, s_b.astype(np.float32), live_ids[i_b].astype(np.int32),
+                           tol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["kernel", "tree"])
+def test_online_mutations_on_cuda_match_cpu(cuda, deep_corpus, backend):
+    """The same inserts (into free slots under a live tree, then appending
+    blocks), deletes and a reoptimize on a CPU engine and a CUDA engine
+    over copies of one index: ids, row_ids, valid and db equal; dp, dp_min,
+    dp_max, dp_lo and dp_hi within 2 ulp of 1 (float32 and float64
+    products on two devices); the widened tree equals build_tree bit for
+    bit on the card; results equal the float64 brute force over the live
+    rows."""
+    from repro_torch.search import SearchEngine, build_tree
+
+    db, q = deep_corpus
+    rng = np.random.default_rng(31)
+    idx = build_index(db[:19_950], n_pivots=16, block_size=64, device="cpu")
+    engines = [SearchEngine(idx.to(dev), backend=backend, device=dev)
+               for dev in ("cpu", cuda)]
+    for eng in engines:
+        eng.search(q[:8], 10)                               # the tree builds
+    handles = [eng.online(auto_reoptimize=False) for eng in engines]
+    live = {i: db[i] for i in range(19_950)}
+    steps = [("insert", db[19_950:19_990]), ("delete", list(range(0, 640, 4))),
+             ("insert", clustered(rng, 300, 32)), ("insert", clustered(rng, 500, 32)),
+             ("reoptimize", None)]
+    for op, arg in steps:
+        out = [getattr(h, op)(*(() if arg is None else (arg,))) for h in handles]
+        if op == "insert":
+            assert out[0] == out[1]
+            live.update(zip(out[0], arg))
+        elif op == "delete":
+            for i in arg:
+                del live[i]
+        cpu, gpu = (eng.index for eng in engines)
+        if op != "reoptimize":
+            for f in ("row_ids", "valid", "db"):
+                assert torch.equal(getattr(cpu, f), getattr(gpu, f).cpu()), (op, f)
+            for f in ("dp", "dp_min", "dp_max", "dp_lo", "dp_hi"):
+                torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
+                                           atol=2 * 1.2e-7, rtol=0)
+        if engines[1]._tree_index is not None:
+            rebuilt = build_tree(gpu)
+            assert all(torch.equal(a, b) for a, b in zip(engines[1]._tree_index[1:],
+                                                          rebuilt[1:]))
+        sims, ids, st = engines[1].search(q, 10)
+        live_brute_check(sims, ids, live, q, 10)
+        assert st.generation == handles[1].generation
+
+
+@pytest.mark.cuda
+def test_batcher_on_cuda_answers_equal_engine_search(cuda, deep_corpus):
+    """ContinuousBatcher over a kernel engine on the card: microbatches of
+    up to 32; every answer finite and equal to the engine's own search of
+    the same queries."""
+    import asyncio
+
+    from repro_torch.search import SearchEngine
+    from repro_torch.serve import ContinuousBatcher
+
+    db, q = deep_corpus
+    eng = SearchEngine.build(db, n_pivots=16, block_size=128, device=cuda)
+    batcher = ContinuousBatcher(eng, k=10, max_batch=32, max_wait_ms=1.0)
+
+    async def main():
+        try:
+            return await asyncio.gather(*(batcher.submit(x) for x in q[:100]))
+        finally:
+            await batcher.close()
+
+    answers = asyncio.run(asyncio.wait_for(main(), timeout=60))
+    want_s, want_i, _ = eng.search(q[:100], 10)
+    s = np.stack([a[0] for a in answers])
+    i = np.stack([a[1] for a in answers])
+    assert np.isfinite(s).all()
+    np.testing.assert_allclose(s, want_s.cpu().numpy(), atol=1e-6)
+    assert_topk_sets_close(s, i, want_s.cpu().numpy(), want_i.cpu().numpy(), tol=1e-6)
+    assert batcher.n_queries == 100 and batcher.n_batches >= 4
