@@ -102,7 +102,23 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (knn_probs against a plain computation, add_pairs, delete);
    find_near_duplicates on 100,000 embed_tokens documents against a brute
    force on the card; and the fused merge of pruned_topk timed at one
-   query tile of 128 and of 32.
+   query tile of 128 and of 32;
+12. kNN-LM serving through the port's model at full width: the launcher
+   (repro_torch.launch.serve) at tinyllama-1.1b with its defaults; then
+   tinyllama-1.1b at full depth (22 layers, d_model 2048, bf16
+   activations) with random weights from the seed, a datastore from
+   KNNDatastore.from_corpus over 512 synthetic sequences of 2,048 tokens
+   (1,048,064 keys of width 2048, the engine's defaults), and 8 and 64
+   prompts of 256 tokens decoded 32 greedy tokens through Engine with kNN
+   off and on (k = 8, lambda = 0.25).  Checks: every kNN-on step's lookup
+   against a brute force over the keys on the card, with one pruned_topk
+   and one block_bounds_select launch per step (counts zeroed before each);
+   cache decode against teacher forcing in bf16; phase 9's soundness
+   check over every block at d = 2048; and the model's CUDA tensors
+   straight into from_corpus, add_pairs, ContinuousBatcher.submit and
+   find_near_duplicates.  It prints harvest and build s, prefill and
+   decode tok/s, the search's and the model's ms per step, and the peak
+   memory, each beside the card's name and power limit.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -733,13 +749,13 @@ def bound_soundness(idx, tree, q, label):
     for the queries ``q`` on the card, bit for bit with the plain version,
     plus the margin at least the float64 maximum similarity of the valid
     rows below each (fails otherwise); returns {"blocks": ..., "tree_nodes":
-    ...} with the pairs, those short and the least slack."""
+    ...} with the pairs, those short and the least slack.  ``tree=None``:
+    the blocks only."""
     from repro_torch.kernels.bound_prune import block_bounds, block_bounds_plain
     from repro_torch.search import backends as bk
 
     qn, qp = bk.prep_queries(idx, q)
     nb, bs = idx.n_blocks, idx.block_size
-    nl = tree.n_leaf_slots
     # float64 maxima per block, then up the tree
     best = []
     db64 = idx.db.double()
@@ -749,16 +765,19 @@ def bound_soundness(idx, tree, q, label):
         best.append(sims.view(-1, nb, bs).amax(2))
     del db64, sims
     best = torch.cat(best)
-    nodes = torch.full((q.shape[0], 2 * nl), float("-inf"), dtype=torch.float64,
-                       device=q.device)
-    nodes[:, nl:nl + nb] = best
-    sz = nl // 2
-    while sz >= 1:
-        nodes[:, sz:2 * sz] = nodes[:, 2 * sz:4 * sz].view(-1, sz, 2).amax(2)
-        sz //= 2
+    parts = [("blocks", idx.dp_lo, idx.dp_hi, best)]
+    if tree is not None:
+        nl = tree.n_leaf_slots
+        nodes = torch.full((q.shape[0], 2 * nl), float("-inf"), dtype=torch.float64,
+                           device=q.device)
+        nodes[:, nl:nl + nb] = best
+        sz = nl // 2
+        while sz >= 1:
+            nodes[:, sz:2 * sz] = nodes[:, 2 * sz:4 * sz].view(-1, sz, 2).amax(2)
+            sz //= 2
+        parts.append(("tree_nodes", tree.node_lo, tree.node_hi, nodes))
     out = {}
-    for what, lo, hi, want in (("blocks", idx.dp_lo, idx.dp_hi, best),
-                               ("tree_nodes", tree.node_lo, tree.node_hi, nodes)):
+    for what, lo, hi, want in parts:
         ub = block_bounds(qp, lo, hi)
         equal = bounds_equal(ub, block_bounds_plain(qp, lo, hi))
         slack = (ub.double() + 4e-7 - want)
@@ -1415,22 +1434,13 @@ def serving_parts(eng, live, eng64, q64, seed, mixture_seed):
     t0 = time.perf_counter()
     pairs, stats = find_near_duplicates(embd, threshold=0.95, k=8)
     dedup_s = time.perf_counter() - t0
-    e = torch.nn.functional.normalize(torch.from_numpy(embd).to(q64.device), dim=1)
-    want, edge = set(), []
-    for s0 in range(0, DEDUP_DOCS, 2000):
-        v, j = torch.topk(e[s0:s0 + 2000] @ e.T, 9, dim=1)
-        v, j = v.cpu().numpy(), j.cpu().numpy()
-        r = np.arange(s0, s0 + len(j))[:, None].repeat(9, 1)
-        hit = (j != r) & (v >= 0.95)
-        want |= {(min(a, b), max(a, b)) for a, b in zip(r[hit].tolist(), j[hit].tolist())}
-        near = (j != r) & (np.abs(v - 0.95) <= 1e-5)
-        edge += [(min(a, b), max(a, b)) for a, b in zip(r[near].tolist(), j[near].tolist())]
+    want, edge = brute_pairs(torch.from_numpy(embd).to(q64.device), 0.95, 8)
     diff = set(pairs) ^ want
     planted = {(min(a, b), max(a, b)) for a, b in
                zip(src.tolist(), range(DEDUP_DOCS - DEDUP_PAIRS, DEDUP_DOCS))}
     out["dedup"] = {"docs": DEDUP_DOCS, "dim": DEDUP_DIM, "pairs": len(pairs),
                     "brute_pairs": len(want), "differ": len(diff),
-                    "differ_beyond_threshold_ties": len(diff - set(edge)),
+                    "differ_beyond_threshold_ties": len(diff - edge),
                     "planted_found": len(planted & set(pairs)), "planted": DEDUP_PAIRS,
                     "block_prune_frac": float(stats.block_prune_frac),
                     "backend": stats.backend, "seconds": dedup_s, "embed_s": embed_s}
@@ -1445,6 +1455,432 @@ def serving_parts(eng, live, eng64, q64, seed, mixture_seed):
           "find_near_duplicates differs from the brute force")
     out["seconds"] = time.perf_counter() - t_start
     log(f"[serve] phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+def brute_pairs(emb, threshold, k, chunk=2000):
+    """find_near_duplicates' answer by a brute force on the card: the pairs
+    (i < j) among each row's ``k`` nearest others (by torch.topk over the
+    whole matrix of cosines) at ``threshold`` or above, and the pairs
+    within 1e-5 of it, which may fall either way."""
+    e = torch.nn.functional.normalize(emb.float(), dim=1)
+    want, edge = set(), set()
+    for s0 in range(0, e.shape[0], chunk):
+        v, j = torch.topk(e[s0:s0 + chunk] @ e.T, k + 1, dim=1)
+        v, j = v.cpu().numpy(), j.cpu().numpy()
+        r = np.arange(s0, s0 + len(j))[:, None].repeat(k + 1, 1)
+        hit = (j != r) & (v >= threshold)
+        want |= {(min(a, b), max(a, b)) for a, b in zip(r[hit].tolist(), j[hit].tolist())}
+        near = (j != r) & (np.abs(v - threshold) <= 1e-5)
+        edge |= {(min(a, b), max(a, b)) for a, b in zip(r[near].tolist(), j[near].tolist())}
+    return want, edge
+
+
+#: phase 12, kNN-LM serving at full width (Khandelwal et al., ICLR 2020):
+#: the launcher's default arch at full depth and width with random weights
+#: from the seed (the repo has no weights); its datastore harvested by
+#: KNNDatastore.from_corpus over CORPUS_SEQS synthetic sequences of
+#: CORPUS_LEN tokens, CORPUS_BATCH per forward, built with the engine's
+#: defaults; traffic: each of KNNLM_REQUESTS prompts of KNNLM_PROMPT tokens,
+#: KNNLM_GEN greedy tokens, kNN off and on at the launcher's k and lambda
+KNNLM_ARCH = "tinyllama-1.1b"
+CORPUS_SEQS, CORPUS_LEN, CORPUS_BATCH = 512, 2048, 16
+KNNLM_REQUESTS, KNNLM_PROMPT, KNNLM_GEN = (8, 64), 256, 32
+KNNLM_K, KNNLM_LMBDA = 8, 0.25
+#: bf16 logits (std about 1) of cache decode against teacher forcing: the
+#: two run GEMMs of other shapes, whose bf16 outputs round apart, through
+#: 22 layers (PERF.md section 6, PR 21)
+KNNLM_LOGIT_ATOL = 0.25
+#: phase 12d: pairs added through add_pairs; near-copies planted among the
+#: hidden states that go to find_near_duplicates
+KNNLM_ADD, KNNLM_DEDUP_PLANTED = 64, 256
+
+
+class LaunchTally:
+    """Launch counts of ``kernels`` over a path driven in pieces: ``collect``
+    adds the counts since the last zeroing to ``total`` and zeroes them;
+    ``discard`` zeroes them without adding (launches that check the path
+    rather than run it)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.total = collections.Counter({kern.__name__: 0 for kern in kernels})
+        self.discard()
+
+    def counts(self):
+        return {kern.__name__: kern.launches for kern in self.kernels}
+
+    def collect(self):
+        self.total.update(self.counts())
+        self.discard()
+
+    def discard(self):
+        for kern in self.kernels:
+            kern.launches = 0
+
+
+class RecordedStore:
+    """The kNN-LM datastore as phase 12's Engine sees it.  Each decode
+    step's ``interpolate`` (lookup, knn_probs, the mix) runs between two
+    synchronizations on the host clock, with the launch counts zeroed
+    before it and read after it; the engine's search inside it is timed
+    alone the same way.  Each step keeps its queries, results, counts and
+    stats for the checks."""
+
+    def __init__(self, ds, tally):
+        self.ds, self.tally, self.steps = ds, tally, []
+        search = ds.engine.search
+
+        def timed_search(q, k, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = search(q, k, **kw)
+            torch.cuda.synchronize()
+            self._search = (time.perf_counter() - t0, q, r)
+            return r
+
+        ds.engine.search = timed_search
+
+    def close(self):
+        del self.ds.engine.search
+
+    def interpolate(self, hidden, lm_probs, lmbda):
+        self.tally.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = self.ds.interpolate(hidden, lm_probs, lmbda)
+        torch.cuda.synchronize()
+        search_s, q, (sims, ids, st) = self._search
+        self.steps.append({"s": time.perf_counter() - t0, "search_s": search_s, "q": q,
+                           "sims": sims, "ids": ids, "launches": self.tally.counts(),
+                           "block_prune_frac": float(st.block_prune_frac),
+                           "tile_computed_frac": float(st.tile_computed_frac)})
+        self.tally.collect()
+        return probs
+
+
+def gb(nbytes):
+    return nbytes / 1e9
+
+
+def phase_knnlm(seed, card, kernels):
+    """Phase 12: kNN-LM serving through the port's model at full width.
+
+    The launcher (``repro_torch.launch.serve.main``) at full width with its
+    own defaults and the kernel backend; then ARCHS[KNNLM_ARCH] at full
+    depth from ``seed``, its store from ``from_corpus``, and each of
+    KNNLM_REQUESTS prompts decoded through ``Engine`` with kNN off and on
+    (RecordedStore).  ``kernels``: pruned_topk and block_bounds_select,
+    which each kNN lookup launches once, then kernels it must not launch.
+    Checks, each fatal:
+
+    a. every kNN-on step's lookup against brute_topk over the store's keys
+       on the card (tie-aware), and one launch of each of kernels[:2] per
+       step and none of the rest;
+    b. B = KNNLM_REQUESTS[0], kNN off: every decode step's logits against
+       lm_forward over the whole sequence without cache, within
+       KNNLM_LOGIT_ATOL;
+    c. bound_soundness (phase 9's) of one kNN-on step's 64 queries over
+       every block at d = 2048;
+    d. CUDA tensors straight into the entry points: the model's hidden
+       states into from_corpus (the harvest), add_pairs (then a lookup that
+       finds them), ContinuousBatcher.submit, and find_near_duplicates.
+
+    The path's launches are counted over the launcher, the harvest and
+    build, the decode runs and d; the checks' own launches are not."""
+    import asyncio
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.dedup import find_near_duplicates
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm, model_fns, synthetic_batch
+    from repro_torch.serve import KNNDatastore
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = ARCHS[KNNLM_ARCH]
+    fns = model_fns(cfg)
+    tally = LaunchTally(kernels)
+    path = tuple(kern.__name__ for kern in kernels[:2])
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "corpus": [CORPUS_SEQS, CORPUS_LEN], "card": card}
+
+    # the launcher: full width, its own defaults, the kernel backend
+    t0 = time.perf_counter()
+    toks = launch_serve.main(["--arch", KNNLM_ARCH, "--knn", "--search-backend", "kernel",
+                              "--device", str(dev)])
+    launched = tally.counts()
+    out["launcher"] = {"s": time.perf_counter() - t0, "launches": launched}
+    log(f"[knn-lm] launcher at full width ({KNNLM_ARCH}, its defaults, kernel backend): "
+        f"{out['launcher']['s']:.1f} s, tokens {tuple(toks.shape)}, launches {launched}")
+    check(toks.shape == (8, 16) and int(toks.max()) < cfg.vocab
+          and all(launched[name] == 16 for name in path),
+          "the launcher's decode did not search once per step")
+    tally.collect()
+    del toks
+    torch.cuda.empty_cache()
+
+    # the model and the memory reckoned before the run
+    params = fns.init(seed, device=dev)
+    param_b = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_keys = CORPUS_SEQS * (CORPUS_LEN - 1)
+    key_b = n_keys * cfg.d_model * 4
+    log(f"[knn-lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype} activations, {cfg.param_dtype} params ({gb(param_b):.2f} GB); "
+        f"reckoned: {n_keys} keys of width {cfg.d_model} take {gb(key_b):.2f} GB; the "
+        f"build holds the keys, two float32 copies and one float64 copy at once "
+        f"(~{gb(param_b + 5 * key_b):.1f} GB with the params), a search adds the kernel's "
+        f"k-major copy of the db (~{gb(param_b + 2 * key_b):.1f} GB), of "
+        f"{gb(torch.cuda.get_device_properties(0).total_memory):.1f} GB")
+
+    # harvest and build, timed apart at from_pairs
+    batches = (synthetic_batch(cfg, CORPUS_BATCH, CORPUS_LEN, seed=seed + 1000 + b,
+                               device=dev) for b in range(CORPUS_SEQS // CORPUS_BATCH))
+    marks = {}
+    real = KNNDatastore.__dict__["from_pairs"]
+
+    def timed_pairs(cls, *a, **kw):
+        torch.cuda.synchronize()
+        marks["harvested"] = time.perf_counter()
+        return real.__func__(cls, *a, **kw)
+
+    KNNDatastore.from_pairs = classmethod(timed_pairs)
+    try:
+        t0 = time.perf_counter()
+        ds = KNNDatastore.from_corpus(fns, params, batches, cfg.vocab, k=KNNLM_K, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        KNNDatastore.from_pairs = real
+    idx = ds.index
+    out.update(harvest_s=marks["harvested"] - t0, build_s=t1 - marks["harvested"],
+               keys=ds.engine.n_valid, n_blocks=idx.n_blocks,
+               build_launches=tally.counts(),
+               build_peak_gb=gb(torch.cuda.max_memory_allocated()))
+    log(f"[knn-lm] from_corpus over {CORPUS_SEQS} sequences of {CORPUS_LEN} tokens "
+        f"({CORPUS_BATCH} per forward): harvest {out['harvest_s']:.2f} s, build "
+        f"{out['build_s']:.2f} s, {out['keys']} keys in {idx.n_blocks} blocks, backend "
+        f"{ds.engine.backend_name}, launches {out['build_launches']}; peak "
+        f"{out['build_peak_gb']:.2f} GB; {card}")
+    check(ds.engine.backend_name == "kernel" and out["keys"] == n_keys
+          and bool(idx.valid.all()) and ds.values.shape == (n_keys,),
+          "from_corpus built another store than reckoned")
+    tally.collect()
+
+    # traffic: each batch of prompts decoded with kNN off, then on
+    rec = RecordedStore(ds, tally)
+    runs = {}
+    for b in KNNLM_REQUESTS:
+        batch = synthetic_batch(cfg, b, KNNLM_PROMPT, seed=seed + 2000 + b, device=dev)
+        for knn in (False, True):
+            eng = Engine(fns, params, max_seq=KNNLM_PROMPT + KNNLM_GEN + 8,
+                         knn=rec if knn else None, lmbda=KNNLM_LMBDA)
+            logits = []
+            if not knn:
+                step = eng._decode_step
+
+                def recording(*a, _step=step, _logits=logits):
+                    hidden, lg, cache = _step(*a)
+                    _logits.append(lg)
+                    return hidden, lg, cache
+
+                eng._decode_step = recording
+            first = len(rec.steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, clen, _ = eng.prefill(batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            toks, cache = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del cache
+            steps = rec.steps[first:]
+            r = {"requests": b, "knn": knn, "prefill_s": t1 - t0,
+                 "prefill_tok_s": b * KNNLM_PROMPT / (t1 - t0), "decode_s": t2 - t1,
+                 "decode_tok_s": b * KNNLM_GEN / (t2 - t1),
+                 "step_ms": (t2 - t1) / KNNLM_GEN * 1e3}
+            if knn:
+                knn_s = sum(st["s"] for st in steps)
+                search_s = sum(st["search_s"] for st in steps)
+                r.update(knn_ms_per_step=knn_s / KNNLM_GEN * 1e3,
+                         search_ms_per_step=search_s / KNNLM_GEN * 1e3,
+                         search_share=search_s / (t2 - t1),
+                         model_ms_per_step=(t2 - t1 - knn_s) / KNNLM_GEN * 1e3,
+                         block_prune_frac=float(np.mean([st["block_prune_frac"]
+                                                         for st in steps])),
+                         tile_computed_frac=float(np.mean([st["tile_computed_frac"]
+                                                           for st in steps])),
+                         step_launches=[st["launches"] for st in steps])
+            else:
+                r["model_ms_per_step"] = r["step_ms"]
+            tally.collect()
+            runs[b, knn] = (r, toks, logits, steps, batch)
+            log(f"[knn-lm] B = {b}, kNN {'on' if knn else 'off'}: prefill "
+                f"{r['prefill_tok_s']:.0f} tok/s ({r['prefill_s']:.3f} s), decode "
+                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step"
+                + (f"; the kNN lookup {r['knn_ms_per_step']:.2f} ms, its search "
+                   f"{r['search_ms_per_step']:.2f} ms ({r['search_share']:.3f} of the step), "
+                   f"the model {r['model_ms_per_step']:.2f} ms; block_prune_frac "
+                   f"{r['block_prune_frac']:.4f}, tile_computed_frac "
+                   f"{r['tile_computed_frac']:.4f}" if knn else "") + f"); {card}")
+    rec.close()
+    out["runs"] = [r for r, *_ in runs.values()]
+
+    # where a kNN-on step's time goes: one model step and one lookup's
+    # search under the profiler, beside their times in the runs
+    for b in KNNLM_REQUESTS:
+        r, _, _, steps, batch = runs[b, True]
+        eng = Engine(fns, params, max_seq=KNNLM_PROMPT + KNNLM_GEN + 8)
+        cache, clen, _ = eng.prefill(batch)
+        with torch.inference_mode():
+            r["model_device"] = device_busy(
+                lambda: eng._decode_step(params, batch["tokens"][:, -1:], cache, clen),
+                r["model_ms_per_step"], top=6)
+        q = steps[0]["q"]
+        r["search_device"] = device_busy(lambda: ds.engine.search(q, KNNLM_K),
+                                         r["search_ms_per_step"], top=6)
+        del cache
+        for part in ("model", "search"):
+            busy = r[f"{part}_device"]
+            log(f"[knn-lm] B = {b}: one {part} step under the profiler kept the card busy "
+                f"{busy['busy_ms']:.3f} ms in {busy['kernels']} device events, "
+                f"{busy['busy_share']:.3f} of its {r[f'{part}_ms_per_step']:.2f} ms; top: "
+                + "; ".join(f"{n[:40]} {ms_:.3f} ms" for n, ms_ in busy["top"]))
+    tally.discard()
+
+    # a. every lookup against the brute force over the keys; launches per step
+    want_step = {kern.__name__: int(kern.__name__ in path) for kern in kernels}
+    exact = {}
+    for b in KNNLM_REQUESTS:
+        r, _, _, steps, _ = runs[b, True]
+        errs, bad = [], 0
+        for st in steps:
+            qn = torch.nn.functional.normalize(st["q"].float(), dim=1)
+            s_b, p_b = brute_topk(qn, idx.db, KNNLM_K)
+            s_b, i_b = s_b.cpu().numpy(), idx.row_ids[p_b].cpu().numpy()
+            s_g, i_g = st["sims"].cpu().numpy(), st["ids"].cpu().numpy()
+            check((i_g >= 0).all() and np.isfinite(s_g).all(), "a lookup returned padding")
+            errs.append(float(np.abs(s_g - s_b).max()))
+            bad += tie_aware_mismatches(s_g, i_g, s_b, i_b, 1e-5)
+        launches_ok = all(st["launches"] == want_step for st in steps)
+        exact[b] = {"steps": len(steps), "max_abs_err": max(errs), "rows_differing": bad,
+                    "one_launch_each_per_step": launches_ok}
+        log(f"[knn-lm] a. B = {b}: {len(steps)} lookups of {b} queries against the brute "
+            f"force over {n_keys} keys of width {cfg.d_model}: max |sim diff| "
+            f"{max(errs):.3e}, rows differing beyond near-ties {bad}; one "
+            f"{' and one '.join(path)} launch per step and nothing else: {launches_ok}")
+        check(max(errs) <= 1e-5 and bad == 0, f"B = {b}: a kNN lookup is not exact")
+        check(len(steps) == KNNLM_GEN and launches_ok,
+              f"B = {b}: a decode step's lookup did not launch each of {path} once")
+    out["exact"] = exact
+    tally.discard()
+
+    # b. cache decode against teacher forcing, kNN off
+    b = KNNLM_REQUESTS[0]
+    _, toks, logits, _, batch = runs[b, False]
+    seq = torch.cat([batch["tokens"], batch["tokens"][:, -1:], toks[:, :-1]], dim=1)
+    with torch.inference_mode():
+        hidden, _, _ = lm.lm_forward(params, seq, cfg)
+        want = lm.lm_head_apply(params, hidden[:, KNNLM_PROMPT:], cfg)
+    got = torch.stack(logits, dim=1)
+    diff = (got - want).abs()
+    flips = int((want.argmax(-1) != toks).sum())
+    out["teacher_forcing"] = {"max_abs_diff": float(diff.max()),
+                              "mean_abs_diff": float(diff.mean()),
+                              "logit_std": float(want.std()), "atol": KNNLM_LOGIT_ATOL,
+                              "argmax_differs": flips}
+    log(f"[knn-lm] b. B = {b}, kNN off: {KNNLM_GEN} cache-decode steps' logits against "
+        f"lm_forward over all {seq.shape[1]} positions without cache: max |diff| "
+        f"{float(diff.max()):.4f}, mean {float(diff.mean()):.5f} (logit std "
+        f"{float(want.std()):.3f}; tolerance {KNNLM_LOGIT_ATOL}); the teacher's argmax "
+        f"differs from the greedy token at {flips} of {toks.numel()}")
+    check(float(diff.max()) <= KNNLM_LOGIT_ATOL,
+          "cache decode departs from teacher forcing past the bf16 tolerance")
+    del hidden, want, got, diff
+
+    # c. the bound's soundness at d = 2048
+    q64 = runs[KNNLM_REQUESTS[-1], True][3][0]["q"]
+    out["soundness"] = bound_soundness(idx, None, q64, "knn-lm d=2048")
+    tally.discard()
+
+    # d. CUDA tensors straight into the entry points
+    r, toks64, _, steps64, _ = runs[KNNLM_REQUESTS[-1], True]
+    last = steps64[-1]["q"]
+    keys = lm.embed_hidden(params, last[:KNNLM_ADD], cfg)
+    new_toks = toks64[:KNNLM_ADD, -1]
+    ids = ds.add_pairs(keys, new_toks)
+    _, t_new, i_new = ds.lookup(keys)
+    found = (bool((i_new[:, 0].cpu() == torch.tensor(ids, dtype=torch.int32)).all())
+             and bool((t_new[:, 0] == new_toks).all()))
+    batcher = ds.frontend(max_batch=KNNLM_REQUESTS[-1])
+
+    async def submit_all():
+        try:
+            return await asyncio.gather(*(batcher.submit(x) for x in last))
+        finally:
+            await batcher.close()
+
+    answers = asyncio.run(asyncio.wait_for(submit_all(), timeout=600))
+    tally.collect()
+    s_w, i_w, _ = ds.engine.search(last, KNNLM_K)
+    tally.discard()
+    s_a = np.stack([a[0] for a in answers])
+    i_a = np.stack([a[1] for a in answers])
+    batched = (float(np.abs(s_a - s_w.cpu().numpy()).max()) <= 1e-6
+               and tie_aware_mismatches(s_a, i_a, s_w.cpu().numpy(),
+                                        i_w.cpu().numpy(), 1e-6) == 0)
+    hs = torch.cat([st["q"] for st in steps64]).float()
+    planted = hs[:KNNLM_DEDUP_PLANTED] + 1e-3 * torch.randn(
+        KNNLM_DEDUP_PLANTED, hs.shape[1], device=dev,
+        generator=torch.Generator(dev).manual_seed(seed))
+    emb = torch.cat([hs, planted])
+    pairs, dstats = find_near_duplicates(emb, threshold=0.95, k=8, device=dev)
+    want_pairs, edge = brute_pairs(emb, 0.95, 8)
+    n = hs.shape[0]
+    planted_found = len({(i, n + i) for i in range(KNNLM_DEDUP_PLANTED)} & set(pairs))
+    dedup_ok = (not (set(pairs) ^ want_pairs) - edge
+                and planted_found == KNNLM_DEDUP_PLANTED)
+    tally.collect()
+    out["cuda_entry_points"] = {
+        "add_pairs_found": found, "batcher_equals_search": batched,
+        "batcher_batches": batcher.n_batches, "dedup_docs": int(emb.shape[0]),
+        "dedup_pairs": len(pairs), "dedup_brute_pairs": len(want_pairs),
+        "dedup_planted_found": planted_found, "dedup_ok": dedup_ok,
+        "dedup_backend": dstats.backend}
+    log(f"[knn-lm] d. CUDA tensors into the entry points: from_corpus took the model's "
+        f"hidden states (above); add_pairs of {KNNLM_ADD} hidden states and their tokens, "
+        f"each found at top-1 by its lookup: {found}; ContinuousBatcher.submit of "
+        f"{last.shape[0]} hidden states ({batcher.n_batches} batches) equal to the "
+        f"search: {batched}; find_near_duplicates on {emb.shape[0]} hidden states "
+        f"({KNNLM_DEDUP_PLANTED} near-copies planted, backend {dstats.backend}): "
+        f"{len(pairs)} pairs, the brute force {len(want_pairs)}, planted found "
+        f"{planted_found}: {dedup_ok}")
+    check(found and batched and dedup_ok, "an entry point misbehaved on CUDA tensors")
+
+    out["launches"] = dict(tally.total)
+    out["peak_gb"] = gb(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_phase
+    for name in path:
+        check(out["launches"][name] > 0, f"phase 12's path never launched {name}")
+    off8, on8 = runs[KNNLM_REQUESTS[0], False][0], runs[KNNLM_REQUESTS[0], True][0]
+    off64, on64 = runs[KNNLM_REQUESTS[-1], False][0], runs[KNNLM_REQUESTS[-1], True][0]
+    log(f"[knn-lm] phase 12 on {card}: harvest {out['harvest_s']:.2f} s, build "
+        f"{out['build_s']:.2f} s; prefill {off8['prefill_tok_s']:.0f} / "
+        f"{off64['prefill_tok_s']:.0f} tok/s; decode kNN off {off8['decode_tok_s']:.1f} / "
+        f"{off64['decode_tok_s']:.1f} tok/s, on {on8['decode_tok_s']:.1f} / "
+        f"{on64['decode_tok_s']:.1f} tok/s (B = {KNNLM_REQUESTS[0]} / "
+        f"{KNNLM_REQUESTS[-1]}); search {on8['search_ms_per_step']:.2f} / "
+        f"{on64['search_ms_per_step']:.2f} ms a step ({on8['search_share']:.3f} / "
+        f"{on64['search_share']:.3f} of it), model {on8['model_ms_per_step']:.2f} / "
+        f"{on64['model_ms_per_step']:.2f} ms; peak {out['peak_gb']:.2f} GB; launches "
+        f"{out['launches']}; {out['seconds']:.1f} s")
+    del ds, rec, runs, params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2167,6 +2603,12 @@ def main(argv=None) -> int:
     report["serving"]["merge_small_batches"] = small_batch_merge(
         online_eng, q64, _launch, _operands, merge_splits)
     del eng64, q64, online_eng, live
+    torch.cuda.empty_cache()
+
+    # 12. kNN-LM serving through the port's model at full width
+    report["knn_lm"] = phase_knnlm(args.seed + 11, card, (pruned_topk, block_bounds_select,
+                                                         block_bounds, merge_splits))
+    knn_lm = report["knn_lm"]["launches"]
 
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
@@ -2195,7 +2637,8 @@ def main(argv=None) -> int:
                                       "tree_kernel_leaves": gather_entry["launches"],
                                       "online_kernel": online["kernel"]["pruned_topk"],
                                       "online_tree": online["tree"]["pruned_topk"],
-                                      "serving": serving["pruned_topk"]}
+                                      "serving": serving["pruned_topk"],
+                                      "knn_lm": knn_lm["pruned_topk"]}
     topk_entry["launches"] = sum(topk_entry["launches_by_path"].values())
     # the epilogue runs in every pruned_topk launch
     merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
@@ -2205,12 +2648,13 @@ def main(argv=None) -> int:
     gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
     bb_entry["launches_by_path"].update(
         online_tree=online["tree"]["block_bounds"],
-        online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"])
+        online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"],
+        knn_lm=knn_lm["block_bounds"])
     bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
     sel_entry["launches_by_path"] = {
         "main": sel_entry["launches"], "online_kernel": online["kernel"]["block_bounds_select"],
         "online_tree": online["tree"]["block_bounds_select"],
-        "serving": serving["block_bounds_select"]}
+        "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"]}
     sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]

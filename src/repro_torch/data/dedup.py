@@ -32,18 +32,19 @@ def find_near_duplicates(embeddings, *, threshold: float = 0.95, k: int = 8,
                          n_pivots: int = 16, block_size: int = 128, device=None):
     """``(pairs [(i, j), ...] with i < j and sim >= threshold, stats)``.
 
-    Builds an engine over the embeddings on ``device`` (``None`` means
-    CUDA, and raises without a GPU) and searches every document's ``k``
-    nearest others (``k + 1`` with its self-match)."""
-    emb = torch.as_tensor(np.asarray(embeddings, np.float32))
+    Builds an engine over the embeddings (numpy, or a tensor on any device)
+    on ``device`` (``None`` means CUDA, and raises without a GPU) and
+    searches every document's ``k`` nearest others (``k + 1`` with its
+    self-match); only the hits come back to the host."""
+    emb = torch.as_tensor(embeddings, dtype=torch.float32)
     eng = SearchEngine.build(emb, n_pivots=n_pivots, block_size=block_size,
                              device=device)
     sims, ids, stats = eng.search(emb, k + 1)
-    sims, ids = sims.cpu().numpy(), ids.cpu().numpy()
-    rows = np.broadcast_to(np.arange(len(ids))[:, None], ids.shape)
+    rows = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
     hit = (ids >= 0) & (ids != rows) & (sims >= threshold)
-    pairs = np.unique(np.stack([np.minimum(rows, ids)[hit],
-                                np.maximum(rows, ids)[hit]], 1), axis=0)
+    pairs = np.unique(torch.stack([torch.minimum(rows, ids)[hit],
+                                   torch.maximum(rows, ids)[hit]], 1).cpu().numpy(),
+                      axis=0)
     return [(int(i), int(j)) for i, j in pairs], stats
 
 

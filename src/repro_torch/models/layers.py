@@ -1,0 +1,363 @@
+"""Shared neural-net layers: norms, RoPE, GQA flash attention, GLU MLPs
+(counterpart of :mod:`repro.models.layers`).
+
+PyTorch idiom: each layer is an ``nn.Module`` (:class:`Norm`,
+:class:`Attention`, :class:`MLP`) whose parameters carry the reference's
+names and layouts (``wq [d, h, dh]``, ``wo [h, dh, d]``, ``w_up [d, f]``,
+...), so carrying the reference's weights across is a copy
+(:func:`repro_torch.models.lm.params_from_reference`).  The reference's
+functions keep their names: ``<layer>_init(gen, cfg, ...)`` builds the
+module from a ``torch.Generator`` and ``<layer>_apply(p, x, cfg, ...)``
+runs it, ``p`` being the module (its ``forward`` calls the same function).
+
+Attention is the reference's chunked online-softmax ("flash") attention in
+plain torch ops (matmul, max, exp): memory stays O(chunk_q * chunk_k) per
+head whatever the sequence length, causal and sliding-window masks are
+applied per tile, and the softmax statistics are fp32.  It is pure JAX in
+the reference, not a Pallas kernel.  The reference's ``shd.shard``
+annotations are identity without a mesh and are dropped here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["dense_init", "Norm", "norm_init", "norm_apply", "rope_freqs", "rope_apply",
+           "Attention", "attn_init", "flash_attention", "attn_apply", "MLP", "mlp_init",
+           "mlp_apply"]
+
+
+def _param(t: Tensor) -> nn.Parameter:
+    """A weight of the serving port: no gradient is kept (training is not
+    ported)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator | None, shape, dtype, scale: float | None = None, *,
+               device=None) -> Tensor:
+    """Normal weights of std ``scale`` (default ``1/sqrt(shape[0])``, the
+    fan-in of ``[d, ...]`` projections) drawn from ``gen``, on its device.
+    ``gen=None`` leaves them uninitialized on ``device``, for weights about
+    to be copied in."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm or LayerNorm (``cfg.norm_kind``): ``scale`` (and ``bias``)."""
+
+    def __init__(self, cfg: ModelConfig, d: int | None = None, *, device=None):
+        super().__init__()
+        d = d or cfg.d_model
+        self.cfg = cfg
+        self.scale = _param(torch.ones(d, dtype=cfg.p_dtype, device=device))
+        self.bias = (_param(torch.zeros(d, dtype=cfg.p_dtype, device=device))
+                     if cfg.norm_kind == "layernorm" else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return norm_apply(self, x, self.cfg)
+
+
+def norm_init(cfg: ModelConfig, d: int | None = None, *, device=None) -> Norm:
+    return Norm(cfg, d, device=device)
+
+
+def norm_apply(p: Norm, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Normalizes in fp32 and returns ``x``'s dtype."""
+    xf = x.float()
+    if cfg.norm_kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        y = y * p.scale.float() + p.bias.float()
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p.scale.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, dh: int | None = None, *, device=None) -> Tensor:
+    dh = dh or cfg.head_dim
+    exps = torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh
+    return 1.0 / (cfg.rope_theta ** exps)  # [dh/2]
+
+
+def rope_apply(x: Tensor, positions: Tensor, inv_freq: Tensor) -> Tensor:
+    """x: [..., S, H, Dh]; positions broadcastable to [..., S]."""
+    ang = positions[..., None].float() * inv_freq  # [..., S, dh/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """GQA self-attention weights: ``wq [d, h, dh]``, ``wk``/``wv [d, kv,
+    dh]``, ``wo [h, dh, d]``, and ``bq``/``bk``/``bv`` with
+    ``cfg.qkv_bias``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
+                 device=None):
+        super().__init__()
+        d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dev = gen.device if gen is not None else device
+        self.cfg = cfg
+        self.wq = _param(dense_init(gen, (d, h, dh), cfg.p_dtype, device=dev))
+        self.wk = _param(dense_init(gen, (d, kv, dh), cfg.p_dtype, device=dev))
+        self.wv = _param(dense_init(gen, (d, kv, dh), cfg.p_dtype, device=dev))
+        self.wo = _param(dense_init(gen, (h, dh, d), cfg.p_dtype,
+                                    scale=1.0 / math.sqrt(h * dh), device=dev))
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = _param(torch.zeros(h, dh, dtype=cfg.p_dtype, device=dev))
+            self.bk = _param(torch.zeros(kv, dh, dtype=cfg.p_dtype, device=dev))
+            self.bv = _param(torch.zeros(kv, dh, dtype=cfg.p_dtype, device=dev))
+
+    def forward(self, x: Tensor, **kw):
+        return attn_apply(self, x, self.cfg, **kw)
+
+
+def attn_init(gen: torch.Generator | None, cfg: ModelConfig, *, device=None) -> Attention:
+    return Attention(cfg, gen, device=device)
+
+
+def _tile_mask(q_pos: Tensor, k_pos: Tensor, causal: bool, window: int | None) -> Tensor:
+    """[Q, K] bool mask tile from absolute positions."""
+    d = q_pos[:, None] - k_pos[None, :]
+    m = torch.ones(d.shape, dtype=torch.bool, device=d.device)
+    if causal:
+        m &= d >= 0
+    if window is not None:
+        m &= d < window
+    return m
+
+
+def flash_attention(
+    q: Tensor, k: Tensor, v: Tensor, *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    chunk_q: int = 512,
+    chunk_k: int = 1024,
+    kv_valid: Tensor | None = None,
+) -> Tensor:
+    """Chunked online-softmax attention.
+
+    q: [B, Sq, H, Dh];  k/v: [B, Sk, KV, Dh] with H % KV == 0; query head
+    ``h`` reads KV head ``h // (H // KV)`` (the reference's ``jnp.repeat``).
+    ``q_offset``: absolute position of q[0] (cross/self decode alignment).
+    ``kv_valid``: [B, Sk] bool — masks cache padding.
+    Returns [B, Sq, H, Dh] in q.dtype; softmax in fp32.
+
+    The reference's double scan becomes a double loop, q chunks outer and
+    kv chunks inner, with the same tiles and the same update per tile.
+    Each tile is one batched matmul per KV head over its ``g`` query heads
+    (``[g·cq, Dh] @ [Dh, ck]``), so the repeated K/V are never written.
+    """
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    # pad to tile multiples
+    pq, pk = (-Sq) % cq, (-Sk) % ck
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    kvv = kv_valid
+    if pk or kvv is not None:
+        base = (torch.ones((B, Sk), dtype=torch.bool, device=q.device) if kvv is None
+                else kvv)
+        kvv = F.pad(base, (0, pk))
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+
+    qg = q.view(B, nq * cq, KV, g, Dh).permute(0, 2, 3, 1, 4)   # [B,KV,g,Sq',Dh]
+    kt = k.permute(0, 2, 1, 3)                                 # [B,KV,Sk',Dh]
+    vt = v.permute(0, 2, 1, 3)
+    out = torch.empty((B, KV, g, nq * cq, Dh), dtype=q.dtype, device=dev)
+    for i in range(nq):
+        qs = slice(i * cq, (i + 1) * cq)
+        qf = qg[:, :, :, qs].float().reshape(B, KV, g * cq, Dh)
+        q_pos = q_offset + torch.arange(i * cq, (i + 1) * cq, device=dev)
+        m_run = torch.full((B, KV, g, cq), float("-inf"), device=dev)
+        l_run = torch.zeros((B, KV, g, cq), device=dev)
+        acc = torch.zeros((B, KV, g, cq, Dh), device=dev)
+        for j in range(nk):
+            ks = slice(j * ck, (j + 1) * ck)
+            kc, vc = kt[:, :, ks].float(), vt[:, :, ks].float()   # [B,KV,ck,Dh]
+            s = torch.matmul(qf, kc.transpose(-1, -2)).view(B, KV, g, cq, ck).mul_(scale)
+            mask = _tile_mask(q_pos, torch.arange(j * ck, (j + 1) * ck, device=dev),
+                              causal, window)
+            if kvv is not None:
+                mask = mask & kvv[:, None, None, None, ks]
+            s.masked_fill_(~mask, float("-inf"))
+            m_new = torch.maximum(m_run, s.amax(-1))
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            # masked entries are -inf, so exp leaves them 0 (the reference's
+            # where(mask, p, 0)); so does a row that nothing has reached yet
+            p = s.sub_(m_safe[..., None]).exp_()
+            corr = torch.where(torch.isneginf(m_run), 0.0, torch.exp(m_run - m_safe))
+            l_run = l_run * corr + p.sum(-1)
+            pv = torch.matmul(p.view(B, KV, g * cq, ck), vc).view(B, KV, g, cq, Dh)
+            acc = acc * corr[..., None] + pv
+            m_run = m_new
+        out[:, :, :, qs] = (acc / l_run.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, nq * cq, H, Dh)[:, :Sq]
+
+
+def attn_apply(
+    p: Attention, x: Tensor, cfg: ModelConfig, *,
+    positions: Tensor | None = None,
+    cache: dict | None = None,
+    cache_len: int | None = None,
+    kv_override: tuple[Tensor, Tensor] | None = None,
+    causal: bool = True,
+):
+    """Self-attention (or cross-attention via ``kv_override``).
+
+    Training/prefill: ``cache=None`` — full-sequence flash attention.
+    Decode: ``cache = {"k": [B,Smax,KV,Dh], "v": ...}`` with ``cache_len``
+    (an int) the number of valid entries; x is [B, S, D] (S = 1 to decode,
+    more to fill the cache).  The new K/V are written into the cache's
+    tensors in place (the reference returns updated copies).  Returns
+    (y, cache).
+    """
+    B, S, D = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    inv_freq = rope_freqs(cfg, device=x.device)
+
+    q = (x @ p.wq.to(x.dtype).reshape(D, h * dh)).view(B, S, h, dh)
+    if p.bq is not None:
+        q = q + p.bq.to(x.dtype)
+    if kv_override is None:
+        kx = (x @ p.wk.to(x.dtype).reshape(D, kv * dh)).view(B, S, kv, dh)
+        vx = (x @ p.wv.to(x.dtype).reshape(D, kv * dh)).view(B, S, kv, dh)
+        if p.bk is not None:
+            kx = kx + p.bk.to(x.dtype)
+            vx = vx + p.bv.to(x.dtype)
+    else:
+        kx, vx = kv_override
+
+    if positions is None:
+        offset = cache_len if cache_len is not None else 0
+        positions = (torch.arange(S, device=x.device) + offset).expand(B, S)
+    q = rope_apply(q, positions, inv_freq)
+    if kv_override is None:
+        kx = rope_apply(kx, positions, inv_freq)
+    g_orig = h // kv
+    g_pad = cfg.q_group_pad
+    if g_pad is not None and g_pad > g_orig:
+        # q-group padding: zero q-heads at each KV group's tail so the padded
+        # head count shards over TP; their outputs are sliced off before wo,
+        # so the outputs equal the unpadded model's (tested)
+        qg = F.pad(q.view(B, S, kv, g_orig, dh), (0, 0, 0, g_pad - g_orig))
+        q = qg.reshape(B, S, kv * g_pad, dh)
+    if cfg.kv_repeat > 1:
+        # Megatron-style KV replication (params stay at n_kv_heads)
+        kx = kx.repeat_interleave(cfg.kv_repeat, dim=2)
+        vx = vx.repeat_interleave(cfg.kv_repeat, dim=2)
+
+    if cache is not None:
+        idx = int(cache_len)
+        smax = cache["k"].shape[1]
+        ring = (cfg.sliding_window is not None and smax == cfg.sliding_window
+                and S == 1)
+        if ring:
+            # rolling SWA buffer: slot = t mod W; every live slot is inside
+            # the window by construction, RoPE was baked at write time, so
+            # masking reduces to "slot is filled".
+            write_at = idx % smax
+            kvalid = (torch.arange(smax, device=x.device) < min(idx + 1, smax)).expand(B, smax)
+            causal, window, q_off = False, None, 0
+        else:
+            if idx + S > smax:
+                raise ValueError(f"cache of {smax} slots cannot take {S} more "
+                                 f"after {idx}")
+            write_at = idx
+            # causal across the cache: q row t attends to kv <= idx + t (and
+            # within the window)
+            kvalid = (torch.arange(smax, device=x.device) < idx + S).expand(B, smax)
+            causal, window, q_off = True, cfg.sliding_window, idx
+        cache["k"][:, write_at:write_at + S] = kx
+        cache["v"][:, write_at:write_at + S] = vx
+        out = flash_attention(
+            q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+            causal=causal, window=window, q_offset=q_off, kv_valid=kvalid,
+            chunk_q=min(max(S, 8), cfg.attn_chunk_q), chunk_k=cfg.attn_chunk_k,
+        )
+    else:
+        out = flash_attention(
+            q, kx, vx, causal=causal, window=cfg.sliding_window,
+            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+        )
+    if g_pad is not None and g_pad > g_orig:
+        out = out.reshape(B, S, kv, g_pad, dh)[:, :, :, :g_orig]
+    y = out.reshape(B, S, h * dh) @ p.wo.to(x.dtype).reshape(h * dh, D)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (GLU family)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """``w_up``/``w_gate [d, f]`` (the gate for swiglu and geglu) and
+    ``w_down [f, d]``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None,
+                 d_ff: int | None = None, *, device=None):
+        super().__init__()
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        dev = gen.device if gen is not None else device
+        self.cfg = cfg
+        self.w_up = _param(dense_init(gen, (d, f), cfg.p_dtype, device=dev))
+        self.w_down = _param(dense_init(gen, (f, d), cfg.p_dtype, device=dev))
+        self.w_gate = (_param(dense_init(gen, (d, f), cfg.p_dtype, device=dev))
+                       if cfg.mlp_kind in ("swiglu", "geglu") else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return mlp_apply(self, x, self.cfg)
+
+
+def mlp_init(gen: torch.Generator | None, cfg: ModelConfig, d_ff: int | None = None, *,
+             device=None) -> MLP:
+    return MLP(cfg, gen, d_ff, device=device)
+
+
+def mlp_apply(p: MLP, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """GELU is the tanh form, ``jax.nn.gelu``'s default."""
+    up = x @ p.w_up.to(x.dtype)
+    if cfg.mlp_kind == "swiglu":
+        hidden = F.silu(x @ p.w_gate.to(x.dtype)) * up
+    elif cfg.mlp_kind == "geglu":
+        hidden = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh") * up
+    else:
+        hidden = F.gelu(up, approximate="tanh")
+    return hidden @ p.w_down.to(x.dtype)

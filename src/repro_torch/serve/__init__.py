@@ -1,6 +1,5 @@
-"""Serving (counterpart of :mod:`repro.serve`): the kNN-LM datastore and the
-continuous-batching front end.  The decode engine (``serve/engine.py``)
-waits for the model slice."""
+"""Serving (counterpart of :mod:`repro.serve`): the decode engine, the
+kNN-LM datastore and the continuous-batching front end."""
 from repro_torch.serve.frontend import ContinuousBatcher
 from repro_torch.serve.knnlm import KNNDatastore
 

@@ -30,6 +30,7 @@ import asyncio
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 __all__ = ["ContinuousBatcher"]
 
@@ -100,11 +101,13 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------- serving
     async def submit(self, query):
-        """Search one query ``[d]``; returns ``(sims [k], ids [k])`` as
-        numpy arrays once its microbatch has run."""
+        """Search one query ``[d]`` (numpy, or a tensor on any device, which
+        stays there); returns ``(sims [k], ids [k])`` as numpy arrays once
+        its microbatch has run."""
         if self._closed:
             raise RuntimeError("batcher is closed")
-        q = np.asarray(query, np.float32)
+        q = (query.detach().float() if isinstance(query, torch.Tensor)
+             else np.asarray(query, np.float32))
         if q.ndim != 1:
             raise ValueError(f"submit takes one query [d], got {q.shape}")
         loop = asyncio.get_running_loop()
@@ -154,7 +157,7 @@ class ContinuousBatcher:
                 except asyncio.TimeoutError:
                     break
             b = len(batch)
-            q = np.stack([qi for qi, _ in batch])
+            q = _stack([qi for qi, _ in batch])
             try:
                 sims, ids, _stats = await loop.run_in_executor(
                     self._pool, self._search, q)
@@ -171,8 +174,17 @@ class ContinuousBatcher:
                 for _ in batch:
                     self._queue.task_done()
 
-    def _search(self, q: np.ndarray):
+    def _search(self, q):
         """One engine search of the microbatch; its rows come back to the
         host once, here (one device sync per microbatch)."""
         sims, ids, stats = self.engine.search(q, self.k)
         return sims.cpu().numpy(), ids.cpu().numpy(), stats
+
+
+def _stack(queries):
+    """One microbatch ``[b, d]`` of submitted rows: numpy if every row is,
+    else a tensor on the first tensor row's device (numpy rows join it)."""
+    dev = next((q.device for q in queries if isinstance(q, torch.Tensor)), None)
+    if dev is None:
+        return np.stack(queries)
+    return torch.stack([torch.as_tensor(q, device=dev) for q in queries])

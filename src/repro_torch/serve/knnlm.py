@@ -12,9 +12,13 @@ backend is engine policy.  The store is online: :meth:`KNNDatastore.
 add_pairs` and :meth:`KNNDatastore.delete` mutate it through the engine's
 :class:`~repro_torch.core.online.MutableIndex`, and :meth:`KNNDatastore.
 frontend` serves it request by request through a
-:class:`~repro_torch.serve.frontend.ContinuousBatcher`.  Building a store
-from a model's own forward pass (the reference's ``from_corpus``) waits for
-the model slice of the port.
+:class:`~repro_torch.serve.frontend.ContinuousBatcher`, and :meth:`
+KNNDatastore.from_corpus` harvests a store from a model's own forward pass.
+
+Every entry point takes numpy arrays or tensors on any device: keys,
+values and hidden states stay on the device they come from until the
+engine moves them to its own, and only the online insert's float64
+normalization reads rows on the host.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.core.index import BlockIndex
+from repro_torch.models.lm import embed_hidden
 from repro_torch.search import SearchEngine
 from repro_torch.serve.frontend import ContinuousBatcher
 
@@ -36,8 +41,8 @@ class KNNDatastore:
     Args:
       index: a :class:`SearchEngine`, or a :class:`BlockIndex` that gets
         wrapped in one (``backend``, on the index's device).
-      values: ``[n]`` next-token id of each row; kept as an int32 tensor on
-        the engine's device.
+      values: ``[n]`` next-token id of each row (numpy or a tensor on any
+        device); kept as an int32 tensor on the engine's device.
       vocab: vocabulary size of the distributions :meth:`knn_probs` returns.
       k / temp: neighbours per lookup and the softmax temperature.
       engine: an engine to use instead of ``index``'s.
@@ -52,7 +57,7 @@ class KNNDatastore:
             self.engine = index
         else:
             self.engine = SearchEngine(index, backend=backend, device=index.device)
-        self.values = torch.as_tensor(np.asarray(values), dtype=torch.int32,
+        self.values = torch.as_tensor(values, dtype=torch.int32,
                                       device=self.engine.device)
         self.vocab = vocab
         self.k = k
@@ -66,13 +71,32 @@ class KNNDatastore:
     def from_pairs(cls, embeddings, next_tokens, vocab: int, *, k: int = 16,
                    temp: float = 10.0, backend: str = "auto",
                    engine: SearchEngine | None = None, **build_kw) -> "KNNDatastore":
-        """A store over (embedding, next-token) pairs; ``build_kw`` goes to
-        :meth:`SearchEngine.build` verbatim (``n_pivots``, ``block_size``,
-        ``device``, any engine knob).  Pass ``engine=`` to skip the build."""
+        """A store over (embedding, next-token) pairs, numpy or tensors on
+        any device; ``build_kw`` goes to :meth:`SearchEngine.build` verbatim
+        (``n_pivots``, ``block_size``, ``device``, any engine knob).  Pass
+        ``engine=`` to skip the build."""
         if engine is None:
-            engine = SearchEngine.build(np.asarray(embeddings, np.float32),
-                                        backend=backend, **build_kw)
+            engine = SearchEngine.build(embeddings, backend=backend, **build_kw)
         return cls(engine, next_tokens, vocab, k=k, temp=temp)
+
+    @classmethod
+    def from_corpus(cls, fns, params, batches, vocab: int, **kw) -> "KNNDatastore":
+        """Harvest (hidden -> next token) pairs with the model itself: each
+        batch's final hidden states past ``fns.loss_offset``, unit-normalized
+        (:func:`~repro_torch.models.lm.embed_hidden`), are the keys of the
+        tokens that follow them.  The keys stay on the model's device, the
+        tokens on their batches', and both go to :meth:`from_pairs` (``kw``)
+        in one piece."""
+        embs, nxt = [], []
+        with torch.inference_mode():
+            for batch in batches:
+                hidden, _, _ = fns.forward(params, batch)
+                h = embed_hidden(params, hidden[:, fns.loss_offset(batch):], fns.cfg)
+                embs.append(h[:, :-1].reshape(-1, h.shape[-1]))
+                nxt.append(torch.as_tensor(batch["tokens"])[:, 1:].reshape(-1))
+            keys, toks = torch.cat(embs), torch.cat(nxt)
+        del embs
+        return cls.from_pairs(keys, toks, vocab, **kw)
 
     def add_pairs(self, embeddings, next_tokens) -> list[int]:
         """Append (embedding, next-token) pairs to the live store through
@@ -82,7 +106,7 @@ class KNNDatastore:
         store only through these methods: an insert past the store would
         mint ids the value table does not cover.  Both checks run before
         anything is inserted (the reference inserts first)."""
-        toks = torch.as_tensor(np.asarray(next_tokens), dtype=torch.int32,
+        toks = torch.as_tensor(next_tokens, dtype=torch.int32,
                                device=self.values.device).reshape(-1)
         n = 1 if np.ndim(embeddings) == 1 else len(embeddings)
         if n != toks.shape[0]:

@@ -1030,3 +1030,128 @@ def test_batcher_on_cuda_answers_equal_engine_search(cuda, deep_corpus):
     np.testing.assert_allclose(s, want_s.cpu().numpy(), atol=1e-6)
     assert_topk_sets_close(s, i, want_s.cpu().numpy(), want_i.cpu().numpy(), tol=1e-6)
     assert batcher.n_queries == 100 and batcher.n_batches >= 4
+
+
+# ---------------------------------------------------------------------------
+# the serving and data entry points take CUDA tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_knn_datastore_takes_cuda_tensors(cuda):
+    """KNNDatastore's values, from_pairs' embeddings and add_pairs' next
+    tokens as CUDA tensors: the same store, ids and lookups as from the same
+    numpy arrays; a store over a bare index takes CUDA values too."""
+    from repro_torch.serve import KNNDatastore
+
+    rng = np.random.default_rng(41)
+    emb, toks = clustered(rng, 3000, 32), rng.integers(0, 500, 3000)
+    new, new_toks = clustered(rng, 64, 32), rng.integers(0, 500, 64)
+    stores = []
+    for conv in (lambda a: a, lambda a: torch.from_numpy(a).to(cuda)):
+        ds = KNNDatastore.from_pairs(conv(emb), conv(toks), 500, k=8, n_pivots=8,
+                                     block_size=64, device=cuda)
+        stores.append((ds, ds.add_pairs(conv(new), conv(new_toks))))
+    (a, ids_a), (b, ids_b) = stores
+    assert ids_a == ids_b == list(range(3000, 3064))
+    assert b.values.device.type == "cuda" and torch.equal(a.values, b.values)
+    assert torch.equal(a.index.db, b.index.db)
+    q = torch.from_numpy(new).to(cuda)
+    got = b.lookup(q)
+    for x, y in zip(a.lookup(q), got):
+        assert torch.equal(x, y)
+    assert torch.equal(got[2][:, 0].cpu(), torch.tensor(ids_b, dtype=torch.int32))
+    assert torch.equal(got[1][:, 0].cpu(), torch.from_numpy(new_toks).int())
+    bare = KNNDatastore(b.index, b.values, 500, k=8)
+    assert bare.engine.device.type == "cuda" and torch.equal(bare.values, b.values)
+
+
+@pytest.mark.cuda
+def test_batcher_submit_takes_cuda_tensors(cuda, deep_corpus):
+    """ContinuousBatcher.submit of CUDA rows, with a numpy row in among
+    them: every answer equals the engine's own search."""
+    import asyncio
+
+    from repro_torch.search import SearchEngine
+    from repro_torch.serve import ContinuousBatcher
+
+    db, q = deep_corpus
+    eng = SearchEngine.build(db, n_pivots=16, block_size=128, device=cuda)
+    rows = [torch.from_numpy(x).to(cuda) for x in q[:40]]
+    rows[7] = q[7]
+    batcher = ContinuousBatcher(eng, k=10, max_batch=16, max_wait_ms=1.0)
+
+    async def main():
+        try:
+            return await asyncio.gather(*(batcher.submit(x) for x in rows))
+        finally:
+            await batcher.close()
+
+    answers = asyncio.run(asyncio.wait_for(main(), timeout=60))
+    want_s, want_i, _ = eng.search(q[:40], 10)
+    s = np.stack([a[0] for a in answers])
+    i = np.stack([a[1] for a in answers])
+    np.testing.assert_allclose(s, want_s.cpu().numpy(), atol=1e-6)
+    assert_topk_sets_close(s, i, want_s.cpu().numpy(), want_i.cpu().numpy(), tol=1e-6)
+    assert batcher.n_queries == 40
+
+
+@pytest.mark.cuda
+def test_find_near_duplicates_takes_cuda_tensors(cuda):
+    """CUDA embeddings give the pairs the same numpy embeddings give, and
+    every planted near-duplicate pair."""
+    from repro_torch.data.dedup import embed_tokens, find_near_duplicates
+
+    rng = np.random.default_rng(43)
+    tokens = rng.integers(0, 5000, (4000, 48))
+    tokens[-200:] = tokens[:200]
+    tokens[-200:, 0] = rng.integers(0, 5000, 200)
+    emb = embed_tokens(tokens, dim=128)
+    want, _ = find_near_duplicates(emb, threshold=0.95, device=cuda)
+    got, stats = find_near_duplicates(torch.from_numpy(emb).to(cuda), threshold=0.95)
+    assert got == want
+    assert {(i, 3800 + i) for i in range(200)} <= set(got)
+    assert stats.backend == "kernel"
+
+
+@pytest.mark.cuda
+def test_from_corpus_and_engine_on_cuda_match_cpu(cuda):
+    """The smoke tinyllama-1.1b (float32) on the card and on the CPU with
+    the same weights: from_corpus over the same tokens (CUDA hidden states
+    straight into the store) gives keys within 1e-5 by row id and the same
+    value table; greedy decoding with kNN on gives the CPU's tokens, and
+    the launcher runs on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm, model_fns
+    from repro_torch.serve import KNNDatastore
+    from repro_torch.serve.engine import Engine
+
+    cfg = smoke_config("tinyllama-1.1b")
+    fns = model_fns(cfg)
+    cpu = lm.lm_init(0, cfg, device="cpu")
+    gpu = lm.lm_init(0, cfg, device="cpu").to(cuda)
+    rng = np.random.default_rng(44)
+    corpus = [rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32) for _ in range(4)]
+    prompt = rng.integers(0, cfg.vocab, (3, 16)).astype(np.int32)
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, cuda)):
+        batches = [{"tokens": torch.from_numpy(t).to(dev)} for t in corpus]
+        ds = KNNDatastore.from_corpus(fns, model, batches, cfg.vocab, k=8, n_pivots=8,
+                                      block_size=64, device=dev)
+        eng = Engine(fns, model, max_seq=32, knn=ds)
+        cache, clen, _ = eng.prefill({"tokens": torch.from_numpy(prompt).to(dev)})
+        out[name] = ds, eng.decode(cache, clen, prompt[:, -1:], 8)[0].cpu()
+    (ds_c, toks_c), (ds_g, toks_g) = out["cpu"], out["gpu"]
+    assert ds_g.engine.backend_name == "kernel" and ds_g.values.device.type == "cuda"
+    keys = []
+    for idx in (ds_c.index, ds_g.index.to("cpu")):
+        ids = idx.row_ids[idx.valid].long()
+        k = torch.zeros(len(ids), idx.db.shape[1])
+        k[ids] = idx.db[idx.valid]
+        keys.append(k)
+    torch.testing.assert_close(keys[1], keys[0], atol=1e-5, rtol=0)
+    assert torch.equal(ds_c.values, ds_g.values.cpu())
+    assert torch.equal(toks_c, toks_g)
+    toks = launch_serve.main(["--smoke", "--knn", "--search-backend", "kernel",
+                              "--requests", "2", "--prompt-len", "12", "--gen", "4"])
+    assert toks.device.type == "cuda" and toks.shape == (2, 4)

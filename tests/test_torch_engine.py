@@ -272,6 +272,31 @@ def test_port_imports_no_jax_and_no_reference(path):
             assert name.split(".")[0] not in FORBIDDEN, (path.name, node.lineno, name)
 
 
+def test_port_modules_load_no_jax_and_no_reference():
+    """Importing every module of repro_torch (the model, serving and launch
+    modules included) and chip_smoke.py in a fresh interpreter loads
+    neither jax nor repro: the AST scan above misses imports made through
+    another module."""
+    import os
+    import subprocess
+    import sys
+    code = ("import importlib, pkgutil, sys\n"
+            "import repro_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')]\n"
+            "for name in names: importlib.import_module(name)\n"
+            "import chip_smoke\n"
+            "assert 'repro_torch.launch.serve' in names, names\n"
+            "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+            f"{FORBIDDEN!r}))\n")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_chip_smoke_refuses_without_gpu():
     """No GPU: chip_smoke.py exits non-zero and prints no result."""
     if torch.cuda.is_available():
