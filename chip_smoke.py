@@ -118,7 +118,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    straight into from_corpus, add_pairs, ContinuousBatcher.submit and
    find_near_duplicates.  It prints harvest and build s, prefill and
    decode tok/s, the search's and the model's ms per step, and the peak
-   memory, each beside the card's name and power limit.
+   memory, each beside the card's name and power limit;
+13. kNN-LM serving across the model families at full width and depth,
+   one model on the card at a time: granite-moe-1b-a400m (MoE),
+   zamba2-1.2b (Mamba2 and the shared attention block), rwkv6-1.6b,
+   internvl2-1b (vlm) and whisper-small (whisper), random weights from the
+   seed.  Each: the launcher at its defaults (--arch <arch> --knn), a store
+   from from_corpus over 128 sequences of 1,024 tokens (130,944 keys of
+   the model's width), and phase 12's traffic.  Checks: a. every kNN-on
+   lookup exact with one pruned_topk and one block_bounds_select launch a
+   step; b. cache decode against teacher forcing (an MoE's with the
+   teacher's expert choices replayed, in bf16 and in float32); c. rwkv6's chunked WKV
+   against its scan and Mamba2's chunked path against its recurrent
+   update, one layer in float32 at full width; d. two decodes from one
+   prefilled cache give the same tokens.  mixtral-8x22b (141 B params) and
+   qwen2-72b do not fit one card at fp32 and are not run.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -1496,6 +1510,40 @@ KNNLM_LOGIT_ATOL = 0.25
 KNNLM_ADD, KNNLM_DEDUP_PLANTED = 64, 256
 
 
+#: phase 13, kNN-LM serving across the model families: each arch at full
+#: width and depth with random weights from the seed, one at a time; its
+#: store from from_corpus over FAMILY_SEQS synthetic sequences of
+#: FAMILY_LEN tokens (or cfg.max_seq_len where that is smaller; a VLM's
+#: sequences also carry its vision positions, which loss_offset cuts),
+#: FAMILY_BATCH per forward, the engine's defaults; traffic as phase 12's.
+#: mixtral-8x22b (141 B params) and qwen2-72b do not fit one card at fp32
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "zamba2-1.2b", "rwkv6-1.6b", "internvl2-1b",
+                "whisper-small")
+FAMILY_SEQS, FAMILY_LEN, FAMILY_BATCH = 128, 1024, 16
+#: check b: cache decode against teacher forcing, max |logit diff| over the
+#: teacher's logit std (bf16 activations: GEMMs of other shapes round
+#: apart, as in phase 12, whose 22 layers gave 0.082 at std 1)
+FAMILY_LOGIT_REL_ATOL = 0.25
+#: check b for an MoE, whose routing is discontinuous: GEMMs of other shapes
+#: give another top-k of the router at some (layer, position) pairs, and
+#: such a position moves by a whole expert's share (max |logit diff| 3.39
+#: at std 0.64 in bf16).  So the teacher's expert choices are replayed into
+#: the cache path (moe_replay) and the two paths compared in bf16 within
+#: this share of the teacher's logit std.  The honest gap is bf16 rounding
+#: that grows with depth, alike on the card and the CPU: 0.095 / 0.146 /
+#: 0.296 / 0.380 at 4 / 8 / 16 / 24 layers on the card, 0.403 at 24 on the
+#: CPU, 0.485 with the old index_add_ combine; each bf16 path lies ~1.0 std
+#: from the float32 computation (tools/moe_teacher_forcing.py, PERF.md
+#: section 6) ...
+FAMILY_MOE_BF16_REL_ATOL = 0.6
+#: ... and in float32 activations (TF32 off) within this one (1.2e-4)
+FAMILY_MOE_FP32_REL_ATOL = 1e-3
+#: check c: the chunked and the recurrent form of one layer in float32 at
+#: full width over one 256-token prompt: max |diff| over max |value| of the
+#: outputs and of the final states (sums of 256 steps in other orders)
+FAMILY_RECURRENT_RTOL = 1e-4
+
+
 class LaunchTally:
     """Launch counts of ``kernels`` over a path driven in pieces: ``collect``
     adds the counts since the last zeroing to ``total`` and zeroes them;
@@ -1563,6 +1611,162 @@ def gb(nbytes):
     return nbytes / 1e9
 
 
+def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=()):
+    """Each batch of prompts (``batches``: {B: batch}) prefilled and decoded
+    KNNLM_GEN greedy tokens through Engine, with kNN off and then on
+    (``rec``, a RecordedStore), timed on the host clock between
+    synchronizations; the kNN-off runs record every step's logits.  For
+    each (B, kNN) in ``again`` the same prefilled cache is decoded a second
+    time, and ``again_equal`` says whether it gave the same tokens.
+    Returns {(B, kNN): (result, tokens, logits, steps, batch)}."""
+    from repro_torch.serve.engine import Engine
+
+    runs = {}
+    for b, batch in batches.items():
+        max_seq = fns.loss_offset(batch) + KNNLM_PROMPT + KNNLM_GEN + 8
+        for knn in (False, True):
+            eng = Engine(fns, params, max_seq=max_seq, knn=rec if knn else None,
+                         lmbda=KNNLM_LMBDA)
+            logits = []
+            if not knn:
+                step = eng._decode_step
+
+                def recording(*a, _step=step, _logits=logits):
+                    hidden, lg, cache = _step(*a)
+                    _logits.append(lg)
+                    return hidden, lg, cache
+
+                eng._decode_step = recording
+            first = len(rec.steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, clen, _ = eng.prefill(batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            toks, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps = rec.steps[first:]
+            r = {"requests": b, "knn": knn, "prefill_s": t1 - t0,
+                 "prefill_tok_s": b * KNNLM_PROMPT / (t1 - t0), "decode_s": t2 - t1,
+                 "decode_tok_s": b * KNNLM_GEN / (t2 - t1),
+                 "step_ms": (t2 - t1) / KNNLM_GEN * 1e3}
+            if not knn:
+                # the wrapper closes over eng's own method: a cycle that would
+                # keep the model alive until the garbage collector runs
+                del eng._decode_step
+            if (b, knn) in again:
+                toks2, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
+                r["again_equal"] = bool(torch.equal(toks, toks2))
+            del cache
+            if knn:
+                knn_s = sum(st["s"] for st in steps)
+                search_s = sum(st["search_s"] for st in steps)
+                r.update(knn_ms_per_step=knn_s / KNNLM_GEN * 1e3,
+                         search_ms_per_step=search_s / KNNLM_GEN * 1e3,
+                         search_share=search_s / (t2 - t1),
+                         model_ms_per_step=(t2 - t1 - knn_s) / KNNLM_GEN * 1e3,
+                         block_prune_frac=float(np.mean([st["block_prune_frac"]
+                                                         for st in steps])),
+                         tile_computed_frac=float(np.mean([st["tile_computed_frac"]
+                                                           for st in steps])),
+                         step_launches=[st["launches"] for st in steps])
+            else:
+                r["model_ms_per_step"] = r["step_ms"]
+            tally.collect()
+            runs[b, knn] = (r, toks, logits, steps, batch)
+            log(f"{tag} B = {b}, kNN {'on' if knn else 'off'}: prefill "
+                f"{r['prefill_tok_s']:.0f} tok/s ({r['prefill_s']:.3f} s), decode "
+                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step"
+                + (f"; the kNN lookup {r['knn_ms_per_step']:.2f} ms, its search "
+                   f"{r['search_ms_per_step']:.2f} ms ({r['search_share']:.3f} of the step), "
+                   f"the model {r['model_ms_per_step']:.2f} ms; block_prune_frac "
+                   f"{r['block_prune_frac']:.4f}, tile_computed_frac "
+                   f"{r['tile_computed_frac']:.4f}" if knn else "") + f"); {card}")
+    return runs
+
+
+def check_lookups(runs, idx, kernels, tag):
+    """Check a of phases 12 and 13: every kNN-on step's lookup against
+    brute_topk over the store's keys (tie-aware within 1e-5), and one
+    launch of each of kernels[:2] per step and none of the rest.  Fatal on
+    failure; returns {B: what was found}."""
+    path = tuple(kern.__name__ for kern in kernels[:2])
+    want_step = {kern.__name__: int(kern.__name__ in path) for kern in kernels}
+    n_keys = int(idx.valid.sum())
+    exact = {}
+    for (b, knn), (r, _, _, steps, _) in runs.items():
+        if not knn:
+            continue
+        errs, bad = [], 0
+        for st in steps:
+            qn = torch.nn.functional.normalize(st["q"].float(), dim=1)
+            s_b, p_b = brute_topk(qn, idx.db, KNNLM_K)
+            s_b, i_b = s_b.cpu().numpy(), idx.row_ids[p_b].cpu().numpy()
+            s_g, i_g = st["sims"].cpu().numpy(), st["ids"].cpu().numpy()
+            check((i_g >= 0).all() and np.isfinite(s_g).all(), "a lookup returned padding")
+            errs.append(float(np.abs(s_g - s_b).max()))
+            bad += tie_aware_mismatches(s_g, i_g, s_b, i_b, 1e-5)
+        launches_ok = all(st["launches"] == want_step for st in steps)
+        exact[b] = {"steps": len(steps), "max_abs_err": max(errs), "rows_differing": bad,
+                    "one_launch_each_per_step": launches_ok}
+        log(f"{tag} B = {b}: {len(steps)} lookups of {b} queries against the brute "
+            f"force over {n_keys} keys of width {idx.db.shape[1]}: max |sim diff| "
+            f"{max(errs):.3e}, rows differing beyond near-ties {bad}; one "
+            f"{' and one '.join(path)} launch per step and nothing else: {launches_ok}")
+        check(max(errs) <= 1e-5 and bad == 0, f"{tag} B = {b}: a kNN lookup is not exact")
+        check(len(steps) == KNNLM_GEN and launches_ok,
+              f"{tag} B = {b}: a decode step's lookup did not launch each of {path} once")
+    return exact
+
+
+def run_launcher(argv, cfg, tally, tag):
+    """``repro_torch.launch.serve.main(argv)`` at full width: its tokens
+    must be [8, 16] and its decode must launch each of the tally's first
+    two kernels once a step.  Returns its seconds and launches."""
+    from repro_torch.launch import serve as launch_serve
+
+    path = tuple(kern.__name__ for kern in tally.kernels[:2])
+    t0 = time.perf_counter()
+    toks = launch_serve.main(argv)
+    launched = tally.counts()
+    r = {"s": time.perf_counter() - t0, "launches": launched}
+    log(f"{tag} the launcher ({' '.join(argv)}): {r['s']:.1f} s, tokens "
+        f"{tuple(toks.shape)}, launches {launched}")
+    check(toks.shape == (8, 16) and int(toks.max()) < cfg.vocab
+          and all(launched[name] == 16 for name in path),
+          f"{tag} the launcher's decode did not search once per step")
+    tally.collect()
+    del toks
+    torch.cuda.empty_cache()
+    return r
+
+
+def harvest_store(fns, params, batches, cfg, dev):
+    """KNNDatastore.from_corpus over ``batches`` (the engine's defaults,
+    k = KNNLM_K), the harvest and the build timed apart at from_pairs.
+    Returns (store, harvest s, build s)."""
+    from repro_torch.serve import KNNDatastore
+
+    marks = {}
+    real = KNNDatastore.__dict__["from_pairs"]
+
+    def timed_pairs(cls, *a, **kw):
+        torch.cuda.synchronize()
+        marks["harvested"] = time.perf_counter()
+        return real.__func__(cls, *a, **kw)
+
+    KNNDatastore.from_pairs = classmethod(timed_pairs)
+    try:
+        t0 = time.perf_counter()
+        ds = KNNDatastore.from_corpus(fns, params, batches, cfg.vocab, k=KNNLM_K, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        KNNDatastore.from_pairs = real
+    return ds, marks["harvested"] - t0, t1 - marks["harvested"]
+
+
 def phase_knnlm(seed, card, kernels):
     """Phase 12: kNN-LM serving through the port's model at full width.
 
@@ -1592,9 +1796,7 @@ def phase_knnlm(seed, card, kernels):
 
     from repro_torch.configs import ARCHS
     from repro_torch.data.dedup import find_near_duplicates
-    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import lm, model_fns, synthetic_batch
-    from repro_torch.serve import KNNDatastore
     from repro_torch.serve.engine import Engine
 
     t_phase = time.perf_counter()
@@ -1609,19 +1811,8 @@ def phase_knnlm(seed, card, kernels):
            "corpus": [CORPUS_SEQS, CORPUS_LEN], "card": card}
 
     # the launcher: full width, its own defaults, the kernel backend
-    t0 = time.perf_counter()
-    toks = launch_serve.main(["--arch", KNNLM_ARCH, "--knn", "--search-backend", "kernel",
-                              "--device", str(dev)])
-    launched = tally.counts()
-    out["launcher"] = {"s": time.perf_counter() - t0, "launches": launched}
-    log(f"[knn-lm] launcher at full width ({KNNLM_ARCH}, its defaults, kernel backend): "
-        f"{out['launcher']['s']:.1f} s, tokens {tuple(toks.shape)}, launches {launched}")
-    check(toks.shape == (8, 16) and int(toks.max()) < cfg.vocab
-          and all(launched[name] == 16 for name in path),
-          "the launcher's decode did not search once per step")
-    tally.collect()
-    del toks
-    torch.cuda.empty_cache()
+    out["launcher"] = run_launcher(["--arch", KNNLM_ARCH, "--knn", "--search-backend",
+                                    "kernel", "--device", str(dev)], cfg, tally, "[knn-lm]")
 
     # the model and the memory reckoned before the run
     params = fns.init(seed, device=dev)
@@ -1640,25 +1831,9 @@ def phase_knnlm(seed, card, kernels):
     # harvest and build, timed apart at from_pairs
     batches = (synthetic_batch(cfg, CORPUS_BATCH, CORPUS_LEN, seed=seed + 1000 + b,
                                device=dev) for b in range(CORPUS_SEQS // CORPUS_BATCH))
-    marks = {}
-    real = KNNDatastore.__dict__["from_pairs"]
-
-    def timed_pairs(cls, *a, **kw):
-        torch.cuda.synchronize()
-        marks["harvested"] = time.perf_counter()
-        return real.__func__(cls, *a, **kw)
-
-    KNNDatastore.from_pairs = classmethod(timed_pairs)
-    try:
-        t0 = time.perf_counter()
-        ds = KNNDatastore.from_corpus(fns, params, batches, cfg.vocab, k=KNNLM_K, device=dev)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    finally:
-        KNNDatastore.from_pairs = real
+    ds, out["harvest_s"], out["build_s"] = harvest_store(fns, params, batches, cfg, dev)
     idx = ds.index
-    out.update(harvest_s=marks["harvested"] - t0, build_s=t1 - marks["harvested"],
-               keys=ds.engine.n_valid, n_blocks=idx.n_blocks,
+    out.update(keys=ds.engine.n_valid, n_blocks=idx.n_blocks,
                build_launches=tally.counts(),
                build_peak_gb=gb(torch.cuda.max_memory_allocated()))
     log(f"[knn-lm] from_corpus over {CORPUS_SEQS} sequences of {CORPUS_LEN} tokens "
@@ -1673,61 +1848,9 @@ def phase_knnlm(seed, card, kernels):
 
     # traffic: each batch of prompts decoded with kNN off, then on
     rec = RecordedStore(ds, tally)
-    runs = {}
-    for b in KNNLM_REQUESTS:
-        batch = synthetic_batch(cfg, b, KNNLM_PROMPT, seed=seed + 2000 + b, device=dev)
-        for knn in (False, True):
-            eng = Engine(fns, params, max_seq=KNNLM_PROMPT + KNNLM_GEN + 8,
-                         knn=rec if knn else None, lmbda=KNNLM_LMBDA)
-            logits = []
-            if not knn:
-                step = eng._decode_step
-
-                def recording(*a, _step=step, _logits=logits):
-                    hidden, lg, cache = _step(*a)
-                    _logits.append(lg)
-                    return hidden, lg, cache
-
-                eng._decode_step = recording
-            first = len(rec.steps)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            cache, clen, _ = eng.prefill(batch)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            toks, cache = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            del cache
-            steps = rec.steps[first:]
-            r = {"requests": b, "knn": knn, "prefill_s": t1 - t0,
-                 "prefill_tok_s": b * KNNLM_PROMPT / (t1 - t0), "decode_s": t2 - t1,
-                 "decode_tok_s": b * KNNLM_GEN / (t2 - t1),
-                 "step_ms": (t2 - t1) / KNNLM_GEN * 1e3}
-            if knn:
-                knn_s = sum(st["s"] for st in steps)
-                search_s = sum(st["search_s"] for st in steps)
-                r.update(knn_ms_per_step=knn_s / KNNLM_GEN * 1e3,
-                         search_ms_per_step=search_s / KNNLM_GEN * 1e3,
-                         search_share=search_s / (t2 - t1),
-                         model_ms_per_step=(t2 - t1 - knn_s) / KNNLM_GEN * 1e3,
-                         block_prune_frac=float(np.mean([st["block_prune_frac"]
-                                                         for st in steps])),
-                         tile_computed_frac=float(np.mean([st["tile_computed_frac"]
-                                                           for st in steps])),
-                         step_launches=[st["launches"] for st in steps])
-            else:
-                r["model_ms_per_step"] = r["step_ms"]
-            tally.collect()
-            runs[b, knn] = (r, toks, logits, steps, batch)
-            log(f"[knn-lm] B = {b}, kNN {'on' if knn else 'off'}: prefill "
-                f"{r['prefill_tok_s']:.0f} tok/s ({r['prefill_s']:.3f} s), decode "
-                f"{r['decode_tok_s']:.1f} tok/s ({r['step_ms']:.2f} ms a step"
-                + (f"; the kNN lookup {r['knn_ms_per_step']:.2f} ms, its search "
-                   f"{r['search_ms_per_step']:.2f} ms ({r['search_share']:.3f} of the step), "
-                   f"the model {r['model_ms_per_step']:.2f} ms; block_prune_frac "
-                   f"{r['block_prune_frac']:.4f}, tile_computed_frac "
-                   f"{r['tile_computed_frac']:.4f}" if knn else "") + f"); {card}")
+    batches = {b: synthetic_batch(cfg, b, KNNLM_PROMPT, seed=seed + 2000 + b, device=dev)
+               for b in KNNLM_REQUESTS}
+    runs = decode_runs(fns, params, rec, tally, batches, card, "[knn-lm]")
     rec.close()
     out["runs"] = [r for r, *_ in runs.values()]
 
@@ -1754,29 +1877,7 @@ def phase_knnlm(seed, card, kernels):
     tally.discard()
 
     # a. every lookup against the brute force over the keys; launches per step
-    want_step = {kern.__name__: int(kern.__name__ in path) for kern in kernels}
-    exact = {}
-    for b in KNNLM_REQUESTS:
-        r, _, _, steps, _ = runs[b, True]
-        errs, bad = [], 0
-        for st in steps:
-            qn = torch.nn.functional.normalize(st["q"].float(), dim=1)
-            s_b, p_b = brute_topk(qn, idx.db, KNNLM_K)
-            s_b, i_b = s_b.cpu().numpy(), idx.row_ids[p_b].cpu().numpy()
-            s_g, i_g = st["sims"].cpu().numpy(), st["ids"].cpu().numpy()
-            check((i_g >= 0).all() and np.isfinite(s_g).all(), "a lookup returned padding")
-            errs.append(float(np.abs(s_g - s_b).max()))
-            bad += tie_aware_mismatches(s_g, i_g, s_b, i_b, 1e-5)
-        launches_ok = all(st["launches"] == want_step for st in steps)
-        exact[b] = {"steps": len(steps), "max_abs_err": max(errs), "rows_differing": bad,
-                    "one_launch_each_per_step": launches_ok}
-        log(f"[knn-lm] a. B = {b}: {len(steps)} lookups of {b} queries against the brute "
-            f"force over {n_keys} keys of width {cfg.d_model}: max |sim diff| "
-            f"{max(errs):.3e}, rows differing beyond near-ties {bad}; one "
-            f"{' and one '.join(path)} launch per step and nothing else: {launches_ok}")
-        check(max(errs) <= 1e-5 and bad == 0, f"B = {b}: a kNN lookup is not exact")
-        check(len(steps) == KNNLM_GEN and launches_ok,
-              f"B = {b}: a decode step's lookup did not launch each of {path} once")
+    exact = check_lookups(runs, idx, kernels, "[knn-lm] a.")
     out["exact"] = exact
     tally.discard()
 
@@ -1881,6 +1982,381 @@ def phase_knnlm(seed, card, kernels):
         f"{out['launches']}; {out['seconds']:.1f} s")
     del ds, rec, runs, params
     torch.cuda.empty_cache()
+    return out
+
+
+def moe_hooks(params, cfg, pre):
+    """Registers ``pre(i, module, args, kwargs)`` as a forward pre-hook on
+    the MoE of each "moe" layer i of ``cfg.layer_types`` (args: the layer's
+    input [B, S, D] and the config; kwargs: no_drop, experts); returns the
+    function that removes them."""
+    moes = [params.blocks[li].moe for li, t in enumerate(cfg.layer_types) if t == "moe"]
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args, kwargs, i=i: pre(i, mod, args, kwargs), with_kwargs=True)
+        for i, m in enumerate(moes)]
+    return lambda: [h.remove() for h in handles]
+
+
+def moe_drops(params, cfg, fn):
+    """Run ``fn()`` counting the (token, expert) assignments that the MoE
+    layers dropped past their capacity."""
+    from repro_torch.models import moe as moe_mod
+
+    drops = collections.Counter()
+
+    def count(i, mod, args, kwargs):
+        x, c = args[0].reshape(-1, args[0].shape[-1]), args[1]
+        cap = x.shape[0] if kwargs.get("no_drop") else moe_mod._capacity(x.shape[0], c.moe)
+        _, _, gate_e = moe_mod._route(mod, x, c)
+        _, keep, _, token_of = moe_mod._dispatch(gate_e, c.moe.n_experts, cap)
+        drops["assignments"] += keep.numel()
+        drops["dropped"] += int((~keep).sum())
+        drops["tokens_with_a_drop"] += int(torch.unique(token_of[~keep]).numel())
+
+    undo = moe_hooks(params, cfg, count)
+    try:
+        fn()
+    finally:
+        undo()
+    return dict(drops)
+
+
+def moe_replay(params, cfg, prompt, toks, experts=None):
+    """Check b's two paths for an MoE with the expert choices held equal.
+
+    The teacher is one cache-path prefill (no_drop) of the whole
+    teacher-forced sequence; it routes afresh, or takes ``experts`` (one
+    [B, P + G, K] per MoE layer).  The path under test is a prefill of the
+    prompt and one decode step per generated token; at every (layer,
+    position) it takes the teacher's experts, weighted by its own router's
+    probabilities, so only the two paths' arithmetic differs.  GEMMs of
+    other shapes would otherwise move a near-tie of the router and send a
+    position to another expert.  Returns the teacher's logits [B, G, V],
+    the path's, the experts, and the (layer, row, position) triples where
+    the path's own router would have chosen another set."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+
+    B, P = prompt.shape
+    G = toks.shape[1]
+    seq = torch.cat([prompt, prompt[:, -1:], toks[:, :-1]], dim=1)
+    experts = [] if experts is None else [e.to(seq.device) for e in experts]
+    at = {"pos": 0, "flips": 0, "of": 0}
+
+    def teacher(i, mod, args, kwargs):
+        x, c = args[0], args[1]
+        if len(experts) <= i:
+            experts.append(moe_mod._route(mod, x.reshape(-1, x.shape[-1]), c)[2]
+                           .view(B, x.shape[1], -1))
+        kwargs["experts"] = experts[i]
+        return args, kwargs
+
+    def path(i, mod, args, kwargs):
+        x, c = args[0], args[1]
+        want = experts[i][:, at["pos"]:at["pos"] + x.shape[1]]
+        own = moe_mod._route(mod, x.reshape(-1, x.shape[-1]), c)[2].view(want.shape)
+        at["flips"] += (own.sort(-1).values != want.sort(-1).values).any(-1).sum()
+        at["of"] += want.shape[0] * want.shape[1]
+        kwargs["experts"] = want
+        return args, kwargs
+
+    with torch.inference_mode():
+        undo = moe_hooks(params, cfg, teacher)
+        try:
+            cache = lm.lm_cache_init(cfg, B, P + G, device=seq.device)
+            h, _, _ = lm.lm_forward(params, seq, cfg, cache=cache, cache_len=0)
+            want = lm.lm_head_apply(params, h[:, P:], cfg)
+        finally:
+            undo()
+        undo = moe_hooks(params, cfg, path)
+        try:
+            cache = lm.lm_cache_init(cfg, B, P + G, device=seq.device)
+            _, cache, _ = lm.lm_forward(params, seq[:, :P], cfg, cache=cache, cache_len=0)
+            got = []
+            for i in range(G):
+                at["pos"] = P + i
+                h, cache, _ = lm.lm_forward(params, seq[:, P + i:P + i + 1], cfg, cache=cache,
+                                            cache_len=P + i)
+                got.append(lm.lm_head_apply(params, h, cfg)[:, -1])
+        finally:
+            undo()
+    return {"want": want, "got": torch.stack(got, dim=1), "experts": experts,
+            "flips": int(at["flips"]), "of_pairs": at["of"]}
+
+
+def logit_gap(got, want):
+    """max and mean |got - want| beside want's std."""
+    diff = (got.float() - want.float()).abs()
+    std = float(want.float().std())
+    return {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+            "logit_std": std, "rel": float(diff.max()) / std}
+
+
+def moe_check_b(params, cfg, prompt, toks, tag):
+    """Check b for an MoE (see phase_families): the teacher's experts
+    replayed into the cache path (moe_replay), in bf16 within
+    FAMILY_MOE_BF16_REL_ATOL and in float32 activations within
+    FAMILY_MOE_FP32_REL_ATOL of the teacher's logit std; the tokens that
+    the cache-free forward (capacity dispatch) drops, printed."""
+    from repro_torch.models import lm
+
+    seq = torch.cat([prompt, prompt[:, -1:], toks[:, :-1]], dim=1)
+    with torch.inference_mode():
+        drops = moe_drops(params, cfg, lambda: lm.lm_forward(params, seq, cfg))
+    bf = moe_replay(params, cfg, prompt, toks)
+    f32 = moe_replay(params, cfg.replace(dtype="float32"), prompt, toks,
+                     experts=bf["experts"])
+    out = {"teacher": "one cache-path prefill (no_drop) of the whole sequence, its experts "
+                      "replayed into the cache path",
+           **logit_gap(bf["got"], bf["want"]), "rel_atol": FAMILY_MOE_BF16_REL_ATOL,
+           "argmax_differs": int((bf["want"].argmax(-1) != toks).sum()),
+           "routing_differs": bf["flips"], "of_pairs": bf["of_pairs"],
+           "float32": {**logit_gap(f32["got"], f32["want"]),
+                       "rel_atol": FAMILY_MOE_FP32_REL_ATOL},
+           "cache_free_forward_drops": drops}
+    log(f"{tag} b. the cache-free forward (capacity dispatch) dropped {drops['dropped']} of "
+        f"{drops['assignments']} (token, expert) assignments ({drops['tokens_with_a_drop']} "
+        f"token-layer pairs with a drop); the cache path drops none.  Its own router would "
+        f"route {bf['flips']} of {bf['of_pairs']} (layer, row, position) triples of the "
+        f"cache path otherwise; the teacher's experts are replayed into it")
+    for name, m in (("bfloat16", out), ("float32", out["float32"])):
+        log(f"{tag} b. {name} activations, B = {prompt.shape[0]}: {toks.shape[1]} cache-decode "
+            f"steps' logits against {out['teacher']}: max |diff| {m['max_abs_diff']:.4e}, mean "
+            f"{m['mean_abs_diff']:.4e}, logit std {m['logit_std']:.3f}, max over std "
+            f"{m['rel']:.4e} (tolerance {m['rel_atol']})")
+    check(out["rel"] <= FAMILY_MOE_BF16_REL_ATOL,
+          f"{tag} cache decode departs from teacher forcing (bfloat16, the same experts)")
+    check(out["float32"]["rel"] <= FAMILY_MOE_FP32_REL_ATOL,
+          f"{tag} cache decode departs from teacher forcing (float32, the same experts)")
+    return out
+
+
+def rel_diff(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def recurrent_check(fns, params, batch, cfg):
+    """Check c on one request's prompt, in float32 at full width: rwkv6's
+    _wkv_chunked against _wkv_scan on the first layer's r, k, v, w (taken
+    as rwkv6_apply passes them on); Mamba2's chunked mamba2_apply (from a
+    zero state) against its recurrent update one token at a time, on the
+    first layer's input.  Outputs and final states, max |diff| over max
+    |value|."""
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import norm_apply
+
+    c32 = cfg.replace(dtype="float32")
+    with torch.inference_mode():
+        x = params.embed["table"][batch["tokens"][:1].long()].float()
+        block = params.blocks[0]
+        if block.btype == "rwkv6":
+            seen = {}
+            real = rwkv_mod._wkv_chunked
+
+            def keep_inputs(*a, **kw):
+                seen["args"] = a
+                return real(*a, **kw)
+
+            rwkv_mod._wkv_chunked = keep_inputs
+            try:
+                rwkv_mod.rwkv6_apply(block.rwkv, x, c32, chunked=True,
+                                     cache=rwkv_mod.rwkv6_cache_init(c32, 1, device=x.device))
+            finally:
+                rwkv_mod._wkv_chunked = real
+            (o_c, s_c), (o_s, s_s) = real(*seen["args"]), rwkv_mod._wkv_scan(*seen["args"])
+            what = "rwkv6 layer 0: _wkv_chunked against _wkv_scan"
+        else:
+            h = norm_apply(block.ln1, x, c32)
+            o_c, st_c = ssm_mod.mamba2_apply(block.ssm, h, c32,
+                                             cache=ssm_mod.mamba2_cache_init(c32, 1,
+                                                                             device=x.device))
+            st = ssm_mod.mamba2_cache_init(c32, 1, device=x.device)
+            outs = []
+            for t in range(h.shape[1]):
+                o, st = ssm_mod.mamba2_apply(block.ssm, h[:, t:t + 1], c32, cache=st)
+                outs.append(o)
+            o_s = torch.cat(outs, 1)
+            s_c, s_s = st_c["ssm_state"], st["ssm_state"]
+            what = "mamba2 layer 0: chunked mamba2_apply against the recurrent update"
+    out = {"what": what, "tokens": int(x.shape[1]), "out_rel": rel_diff(o_c, o_s),
+           "state_rel": rel_diff(s_c, s_s), "rtol": FAMILY_RECURRENT_RTOL}
+    return out
+
+
+def family_model(arch, seed, card, kernels):
+    """Phase 13 for one arch: the launcher at its defaults, then the model
+    at full width and depth, its store, the traffic and checks a-d (see
+    phase_families).  Returns its report and its launches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm, model_fns, synthetic_batch
+    from repro_torch.models.vlm import vlm_forward
+    from repro_torch.models.whisper import whisper_forward
+
+    t_model = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = gb(torch.cuda.memory_allocated())       # what earlier phases still hold
+    dev = torch.device("cuda")
+    cfg = ARCHS[arch]
+    fns = model_fns(cfg)
+    tag = f"[families] {arch}:"
+    tally = LaunchTally(kernels)
+    path = tuple(kern.__name__ for kern in kernels[:2])
+    out = {"arch": arch, "kind": fns.kind, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "layer_types": sorted(set(cfg.layer_types)), "card": card,
+           "resident_gb_at_start": resident}
+
+    # the launcher: full width, its own defaults
+    out["launcher"] = run_launcher(["--arch", arch, "--knn"], cfg, tally, tag)
+
+    # the model, its store (harvest and build timed apart at from_pairs)
+    params = fns.init(seed, device=dev)
+    out["params_gb"] = gb(sum(p.numel() * p.element_size() for p in params.parameters()))
+    seq_len = min(FAMILY_LEN, cfg.max_seq_len)
+    n_keys = FAMILY_SEQS * (seq_len - 1)
+    batches = (synthetic_batch(cfg, FAMILY_BATCH, seq_len, seed=seed + 1000 + b, device=dev)
+               for b in range(FAMILY_SEQS // FAMILY_BATCH))
+    ds, out["harvest_s"], out["build_s"] = harvest_store(fns, params, batches, cfg, dev)
+    idx = ds.index
+    out.update(keys=ds.engine.n_valid, n_blocks=idx.n_blocks, seq_len=seq_len,
+               build_launches=tally.counts())
+    log(f"{tag} {cfg.n_layers} layers {out['layer_types']}, d_model {cfg.d_model}, "
+        f"{cfg.dtype} activations, {out['params_gb']:.2f} GB of {cfg.param_dtype} params; "
+        f"from_corpus over {FAMILY_SEQS} sequences of {seq_len} tokens"
+        + (f" (+{cfg.vision_seq} vision positions each)" if cfg.vision_seq else "")
+        + f": harvest {out['harvest_s']:.2f} s, build {out['build_s']:.2f} s, "
+        f"{out['keys']} keys in {idx.n_blocks} blocks, backend {ds.engine.backend_name}; "
+        f"{card}")
+    check(ds.engine.backend_name == "kernel" and out["keys"] == n_keys
+          and bool(idx.valid.all()), f"{tag} from_corpus built another store than reckoned")
+    tally.collect()
+
+    # traffic: B = 8 and 64, kNN off and on; B = 8 kNN off decoded twice (d)
+    rec = RecordedStore(ds, tally)
+    batches = {b: synthetic_batch(cfg, b, KNNLM_PROMPT, seed=seed + 2000 + b, device=dev)
+               for b in KNNLM_REQUESTS}
+    b8 = KNNLM_REQUESTS[0]
+    runs = decode_runs(fns, params, rec, tally, batches, card, tag, again=((b8, False),))
+    rec.close()
+    out["runs"] = [r for r, *_ in runs.values()]
+    out["launches"] = dict(tally.total)      # the launcher's, the build's, the runs'
+    tally.discard()
+
+    # a. every kNN-on step's lookup against the brute force; launches per step
+    out["exact"] = check_lookups(runs, idx, kernels, f"{tag} a.")
+    tally.discard()
+
+    # b. cache decode against teacher forcing, B = 8, kNN off
+    r8, toks, logits, _, batch = runs[b8, False]
+    if "moe" in cfg.layer_types:
+        out["teacher_forcing"] = moe_check_b(params, cfg, batch["tokens"], toks, tag)
+    else:
+        seq = torch.cat([batch["tokens"], batch["tokens"][:, -1:], toks[:, :-1]], dim=1)
+        with torch.inference_mode():
+            if fns.kind == "vlm":
+                hidden, _, _ = vlm_forward(params, batch["patches"], seq, cfg)
+                hidden = hidden[:, cfg.vision_seq:]
+                teacher = "vlm_forward with the patches"
+            elif fns.kind == "whisper":
+                hidden, _, _ = whisper_forward(params, batch["frames"], seq, cfg)
+                teacher = "whisper_forward with the frames"
+            else:
+                hidden, _, _ = lm.lm_forward(params, seq, cfg)
+                teacher = "lm_forward without cache (chunked)"
+            want = fns.lm_head(params, hidden[:, KNNLM_PROMPT:])
+        got = torch.stack(logits, dim=1)
+        tf = out["teacher_forcing"] = {
+            "teacher": teacher, **logit_gap(got, want), "rel_atol": FAMILY_LOGIT_REL_ATOL,
+            "argmax_differs": int((want.argmax(-1) != toks).sum())}
+        log(f"{tag} b. B = {b8}, kNN off: {KNNLM_GEN} cache-decode steps' logits against "
+            f"{teacher}: max |diff| {tf['max_abs_diff']:.4f}, mean {tf['mean_abs_diff']:.5f}, "
+            f"logit std {tf['logit_std']:.3f}, max over std {tf['rel']:.4f} (tolerance "
+            f"{FAMILY_LOGIT_REL_ATOL}); the teacher's argmax differs from the greedy token at "
+            f"{tf['argmax_differs']} of {toks.numel()}")
+        check(tf["rel"] <= FAMILY_LOGIT_REL_ATOL,
+              f"{tag} cache decode departs from teacher forcing past the bf16 tolerance")
+        del hidden, want, got
+
+    # c. the recurrent paths in float32 at full width
+    if cfg.layer_types[0] in ("rwkv6", "mamba2"):
+        rc = out["recurrent"] = recurrent_check(fns, params, batch, cfg)
+        log(f"{tag} c. {rc['what']} over {rc['tokens']} tokens in float32: max relative "
+            f"diff of the outputs {rc['out_rel']:.3e}, of the final states "
+            f"{rc['state_rel']:.3e} (tolerance {FAMILY_RECURRENT_RTOL})")
+        check(rc["out_rel"] <= FAMILY_RECURRENT_RTOL and rc["state_rel"] <= FAMILY_RECURRENT_RTOL,
+              f"{tag} the chunked and the recurrent form disagree")
+
+    # d. two decodes from one prefilled cache
+    out["deterministic"] = r8["again_equal"]
+    log(f"{tag} d. two greedy decodes of {KNNLM_GEN} tokens from one prefilled cache "
+        f"(B = {b8}, kNN off) give the same tokens: {r8['again_equal']}")
+    check(r8["again_equal"], f"{tag} two decodes from one cache differ")
+
+    out["peak_gb"] = gb(torch.cuda.max_memory_allocated())
+    out["seconds"] = time.perf_counter() - t_model
+    for name in path:
+        check(out["launches"][name] > 0, f"{tag} the path never launched {name}")
+    off8, on8 = runs[b8, False][0], runs[b8, True][0]
+    off64, on64 = runs[KNNLM_REQUESTS[-1], False][0], runs[KNNLM_REQUESTS[-1], True][0]
+    log(f"{tag} on {card}: params {out['params_gb']:.2f} GB, peak {out['peak_gb']:.2f} GB "
+        f"({resident:.2f} GB of it held by earlier phases); "
+        f"harvest {out['harvest_s']:.2f} s, build {out['build_s']:.2f} s; prefill "
+        f"{off8['prefill_tok_s']:.0f} / {off64['prefill_tok_s']:.0f} tok/s; decode kNN off "
+        f"{off8['decode_tok_s']:.1f} / {off64['decode_tok_s']:.1f} tok/s, on "
+        f"{on8['decode_tok_s']:.1f} / {on64['decode_tok_s']:.1f} tok/s (B = {b8} / "
+        f"{KNNLM_REQUESTS[-1]}); search {on8['search_ms_per_step']:.2f} / "
+        f"{on64['search_ms_per_step']:.2f} ms a step ({on8['search_share']:.3f} / "
+        f"{on64['search_share']:.3f} of it); launches {out['launches']}; "
+        f"{out['seconds']:.1f} s")
+    del ds, rec, runs, params, batches, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(seed, card, kernels, archs=FAMILY_ARCHS):
+    """Phase 13: kNN-LM serving across the model families at full width.
+
+    For each arch of ``archs`` in turn (one model on the card at a time):
+    ``repro_torch.launch.serve.main(["--arch", arch, "--knn"])`` at its
+    defaults; then ARCHS[arch] at full width and depth with random weights
+    from ``seed``, its store from ``from_corpus`` (FAMILY_SEQS x FAMILY_LEN
+    tokens), and 8 and 64 prompts of KNNLM_PROMPT tokens (with the kind's
+    patches or frames) decoded KNNLM_GEN greedy tokens through Engine with
+    kNN off and on.  ``kernels`` as in phase_knnlm.  Checks, each fatal:
+
+    a. every kNN-on step's lookup against brute_topk over the keys
+       (tie-aware), one launch of each of kernels[:2] per step, none of the
+       rest (check_lookups);
+    b. B = 8, kNN off: every decode step's logits against the cache-free
+       forward over the whole sequence (lm_forward, vlm_forward with the
+       patches, whisper_forward with the frames), within
+       FAMILY_LOGIT_REL_ATOL of the teacher's logit std.  For zamba2 and
+       rwkv6 this is also the chunked path (prefill) against the recurrent
+       one (decode).  An MoE's cache-free forward drops tokens past
+       capacity and its cache path does not, so its teacher is one
+       cache-path prefill of the whole sequence (the drops printed); its
+       routing flips between GEMMs of other shapes, so the teacher's
+       expert choices are replayed into the cache path, in bf16 and in
+       float32 activations (moe_check_b, FAMILY_MOE_BF16_REL_ATOL,
+       FAMILY_MOE_FP32_REL_ATOL);
+    c. rwkv6 and zamba2: the chunked and the recurrent form of the first
+       layer in float32 at full width (recurrent_check);
+    d. two greedy decodes from one prefilled cache give the same tokens.
+
+    The path's launches are counted over the launcher, the harvest and
+    build and the decode runs; the checks' own launches are not."""
+    t_phase = time.perf_counter()
+    out = {"models": {}}
+    total = collections.Counter({kern.__name__: 0 for kern in kernels})
+    for i, arch in enumerate(archs):
+        r = family_model(arch, seed + i, card, kernels)
+        out["models"][arch] = r
+        total.update(r["launches"])
+    out["launches"] = dict(total)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[families] phase 13 on {card}: {len(archs)} models, launches {out['launches']}, "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -2610,6 +3086,11 @@ def main(argv=None) -> int:
                                                          block_bounds, merge_splits))
     knn_lm = report["knn_lm"]["launches"]
 
+    # 13. kNN-LM serving across the model families at full width
+    report["families"] = phase_families(args.seed + 13, card, (pruned_topk, block_bounds_select,
+                                                              block_bounds, merge_splits))
+    families = report["families"]["launches"]
+
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
         for name, old in runs.items():
@@ -2638,7 +3119,8 @@ def main(argv=None) -> int:
                                       "online_kernel": online["kernel"]["pruned_topk"],
                                       "online_tree": online["tree"]["pruned_topk"],
                                       "serving": serving["pruned_topk"],
-                                      "knn_lm": knn_lm["pruned_topk"]}
+                                      "knn_lm": knn_lm["pruned_topk"],
+                                      "model_families": families["pruned_topk"]}
     topk_entry["launches"] = sum(topk_entry["launches_by_path"].values())
     # the epilogue runs in every pruned_topk launch
     merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
@@ -2649,12 +3131,13 @@ def main(argv=None) -> int:
     bb_entry["launches_by_path"].update(
         online_tree=online["tree"]["block_bounds"],
         online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"],
-        knn_lm=knn_lm["block_bounds"])
+        knn_lm=knn_lm["block_bounds"], model_families=families["block_bounds"])
     bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
     sel_entry["launches_by_path"] = {
         "main": sel_entry["launches"], "online_kernel": online["kernel"]["block_bounds_select"],
         "online_tree": online["tree"]["block_bounds_select"],
-        "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"]}
+        "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"],
+        "model_families": families["block_bounds_select"]}
     sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]

@@ -7,9 +7,12 @@ On the GPU (the default)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --requests 8 --prompt-len 32 --gen 16 --knn
 
-Demo (CPU, the kernels' plain versions)::
+Demo (CPU, the kernels' plain versions), any of the ten archs of
+``configs/archs.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --knn
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke --device cpu --knn
 """
 from __future__ import annotations
 
@@ -67,7 +70,9 @@ def main(argv=None):
               f"backend={knn.engine.backend_name} "
               f"({time.perf_counter() - t0:.1f}s to build)")
 
-    eng = Engine(fns, params, max_seq=args.prompt_len + args.gen + 8,
+    # the cache also holds a VLM's vision prefix (the reference's cache of
+    # prompt + gen + 8 slots cannot take it at the full vision_seq)
+    eng = Engine(fns, params, max_seq=cfg.vision_seq + args.prompt_len + args.gen + 8,
                  knn=knn, lmbda=args.lmbda)
     batch = synthetic_batch(cfg, args.requests, args.prompt_len, seed=42, device=dev)
 

@@ -13,8 +13,8 @@ are first-class: ``block_pattern`` is a list of block-type strings of length
                  set of weights applied at several depths)
 
 Encoder–decoder (whisper) and vision-prefix (internvl2) variants are handled
-by the reference's model wrappers (``whisper``, ``vlm``) on top of the same
-decoder stack; the port runs the ``"attn"`` block so far
+by the model wrappers (:mod:`repro_torch.models.whisper`,
+:mod:`repro_torch.models.vlm`) on top of the same decoder stack
 (:mod:`repro_torch.models.lm`).  The dataclasses are copies of the
 reference's, field for field and default for default, so a configuration
 means the same in both packages; ``act_dtype`` and ``p_dtype`` return torch

@@ -1,10 +1,20 @@
-"""Generic decoder LM (counterpart of :mod:`repro.models.lm`).
+"""Generic decoder LM over heterogeneous block stacks (counterpart of
+:mod:`repro.models.lm`).
 
 The model is an ``nn.Module`` (:class:`LM`) whose parameters keep the
 reference's names and layouts: ``embed.table``, ``final_norm``,
-``lm_head.w`` (absent with tied embeddings) and one :class:`Block` per
-layer (``ln1``, ``attn``, ``ln2``, ``mlp``).  :func:`params_from_reference`
-copies the reference's parameter pytree into it.
+``lm_head.w`` (absent with tied embeddings), one :class:`Block` per layer,
+and Zamba2's weight-tied ``shared`` block.  A block holds, by type:
+
+  "attn"         ``ln1``, ``attn``, ``ln2``, ``mlp``
+  "moe"          ``ln1``, ``attn``, ``ln2``, ``moe`` (:mod:`~repro_torch.models.moe`)
+  "mamba2"       ``ln1``, ``ssm`` (:mod:`~repro_torch.models.ssm`)
+  "rwkv6"        ``rwkv`` (:mod:`~repro_torch.models.rwkv`; residuals inside)
+  "shared_attn"  nothing: every occurrence applies ``LM.shared`` to
+                 ``concat(x, x0)``, x0 the embedding stream (arXiv:2411.15242)
+
+:func:`params_from_reference` copies the reference's parameter pytree into
+it.
 
 Departures from the reference, all of them execution, not arithmetic:
 
@@ -14,11 +24,12 @@ Departures from the reference, all of them execution, not arithmetic:
   (``cfg.remat``): both are compile devices of XLA.  The port keeps one
   module per layer in an ``nn.ModuleList`` and loops over it eagerly;
   ``use_scan`` and ``remat`` are read by nothing here.
-* The KV cache is one preallocated ``[B, Smax, KV, Dh]`` pair per layer
-  (:func:`lm_cache_init`), written in place at ``cache_len``; the
-  reference's scan returns an updated copy.
-* Only the ``"attn"`` block type is ported.  The others raise
-  ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+* The cache is one entry per layer (:func:`lm_cache_init`), not one per
+  run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
+  written in place at ``cache_len``; the recurrent states (Mamba2's,
+  RWKV's) are replaced by new tensors at every call, in the new list that
+  :func:`lm_forward` returns, so a second decode from the same cache starts
+  from the same state.
 
 The forward pass returns final *hidden states*; logits come from
 :func:`lm_head_apply`, and :func:`embed_hidden` is the kNN-LM datastore's
@@ -31,29 +42,17 @@ import torch
 from torch import Tensor, nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply, dense_init,
                                        mlp_apply, norm_apply)
 
-__all__ = ["Block", "LM", "lm_init", "lm_forward", "lm_head_apply", "lm_cache_init",
-           "embed_hidden", "params_from_reference"]
+__all__ = ["Block", "SharedBlock", "LM", "lm_init", "lm_forward", "lm_head_apply",
+           "lm_cache_init", "embed_hidden", "params_from_reference", "load_reference"]
 
-#: block types of the reference that the port does not run yet, and the
-#: ROADMAP.md item that ports each
-_UNPORTED = {
-    "moe": "ROADMAP.md Queue 1 item 2 (models/moe.py)",
-    "mamba2": "ROADMAP.md Queue 1 item 2 (models/ssm.py)",
-    "rwkv6": "ROADMAP.md Queue 1 item 2 (models/rwkv.py)",
-    "shared_attn": "ROADMAP.md Queue 1 item 2 (Zamba2's shared block, with models/ssm.py)",
-}
-
-
-def _check_block_type(btype: str) -> None:
-    if btype in _UNPORTED:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported to repro_torch yet: {_UNPORTED[btype]}")
-    if btype != "attn":
-        raise ValueError(f"unknown block type {btype!r}")
+BLOCK_TYPES = ("attn", "moe", "mamba2", "rwkv6", "shared_attn")
 
 
 def _runs(cfg: ModelConfig):
@@ -73,16 +72,45 @@ def _runs(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """The ``"attn"`` block: pre-norm GQA attention and MLP, each residual."""
+    """One layer of type ``btype`` (see the module's docstring)."""
+
+    def __init__(self, btype: str, cfg: ModelConfig, gen: torch.Generator | None = None, *,
+                 device=None):
+        super().__init__()
+        if btype not in BLOCK_TYPES:
+            raise ValueError(f"unknown block type {btype!r}")
+        dev = gen.device if gen is not None else device
+        self.btype = btype
+        if btype in ("attn", "moe"):
+            self.ln1 = Norm(cfg, device=dev)
+            self.attn = Attention(cfg, gen, device=dev)
+            self.ln2 = Norm(cfg, device=dev)
+            if btype == "attn":
+                self.mlp = MLP(cfg, gen, device=dev)
+            else:
+                self.moe = moe_mod.MoE(cfg, gen, device=dev)
+        elif btype == "mamba2":
+            self.ln1 = Norm(cfg, device=dev)
+            self.ssm = ssm_mod.Mamba2(cfg, gen, device=dev)
+        elif btype == "rwkv6":
+            self.rwkv = rwkv_mod.RWKV6(cfg, gen, device=dev)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's weight-tied block: ``in_proj [2d, d]``, ``ln1``, ``attn``,
+    ``ln2``, ``mlp``, ``out_proj [d, d]``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None):
         super().__init__()
+        d = cfg.d_model
         dev = gen.device if gen is not None else device
+        self.in_proj = _param(dense_init(gen, (2 * d, d), cfg.p_dtype, device=dev))
         self.ln1 = Norm(cfg, device=dev)
         self.attn = Attention(cfg, gen, device=dev)
         self.ln2 = Norm(cfg, device=dev)
         self.mlp = MLP(cfg, gen, device=dev)
+        self.out_proj = _param(dense_init(gen, (d, d), cfg.p_dtype, device=dev))
 
 
 class LM(nn.Module):
@@ -94,8 +122,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None):
         super().__init__()
-        for t in cfg.layer_types:
-            _check_block_type(t)
         dev = gen.device if gen is not None else device
         self.cfg = cfg
         self.embed = nn.ParameterDict({"table": _param(dense_init(
@@ -105,7 +131,9 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.ParameterDict({"w": _param(dense_init(
                 gen, (cfg.d_model, cfg.vocab), cfg.p_dtype, device=dev))})
-        self.blocks = nn.ModuleList(Block(cfg, gen, device=dev) for _ in cfg.layer_types)
+        self.blocks = nn.ModuleList(Block(t, cfg, gen, device=dev) for t in cfg.layer_types)
+        self.shared = (SharedBlock(cfg, gen, device=dev)
+                       if "shared_attn" in cfg.layer_types else None)
 
     @property
     def device(self) -> torch.device:
@@ -123,25 +151,57 @@ def lm_init(gen: torch.Generator | int, cfg: ModelConfig, *, device=None) -> LM:
 
 def _block_apply(btype: str, p: Block, x: Tensor, cfg: ModelConfig, *,
                  cache=None, cache_len=None):
-    """Returns (x_out, cache)."""
-    _check_block_type(btype)
-    a, new_attn = attn_apply(p.attn, norm_apply(p.ln1, x, cfg), cfg,
-                             cache=None if cache is None else cache["attn"],
-                             cache_len=cache_len)
-    x = x + a
-    x = x + mlp_apply(p.mlp, norm_apply(p.ln2, x, cfg), cfg)
-    return x, None if cache is None else {"attn": new_attn}
+    """Returns (x_out, new_cache, aux_loss); the aux loss is None for the
+    blocks without one (the reference's zero)."""
+    aux = None
+    if btype in ("attn", "moe"):
+        a, new_attn = attn_apply(p.attn, norm_apply(p.ln1, x, cfg), cfg,
+                                 cache=None if cache is None else cache["attn"],
+                                 cache_len=cache_len)
+        x = x + a
+        h2 = norm_apply(p.ln2, x, cfg)
+        if btype == "attn":
+            x = x + mlp_apply(p.mlp, h2, cfg)
+        else:
+            y, aux = p.moe(h2, cfg, no_drop=cache is not None)  # a module call: hooks see it
+            x = x + y
+        return x, None if cache is None else {"attn": new_attn}, aux
+    if btype == "mamba2":
+        y, new_ssm = ssm_mod.mamba2_apply(p.ssm, norm_apply(p.ln1, x, cfg), cfg,
+                                          cache=None if cache is None else cache["ssm"])
+        return x + y, None if cache is None else {"ssm": new_ssm}, aux
+    if btype == "rwkv6":
+        y, new_rw = rwkv_mod.rwkv6_apply(p.rwkv, x, cfg,
+                                         cache=None if cache is None else cache["rwkv"])
+        return y, None if cache is None else {"rwkv": new_rw}, aux  # residuals inside
+    raise ValueError(btype)
 
 
 def _block_cache_init(btype: str, cfg: ModelConfig, batch: int, max_seq: int, device):
-    _check_block_type(btype)
-    kv, dh = cfg.n_kv_heads * cfg.kv_repeat, cfg.head_dim
-    if cfg.sliding_window is not None:
-        max_seq = min(max_seq, cfg.sliding_window)   # rolling SWA buffer
-    return {"attn": {
-        "k": torch.zeros((batch, max_seq, kv, dh), dtype=cfg.act_dtype, device=device),
-        "v": torch.zeros((batch, max_seq, kv, dh), dtype=cfg.act_dtype, device=device),
-    }}
+    if btype in ("attn", "moe", "shared_attn"):
+        kv, dh = cfg.n_kv_heads * cfg.kv_repeat, cfg.head_dim
+        if cfg.sliding_window is not None:
+            max_seq = min(max_seq, cfg.sliding_window)   # rolling SWA buffer
+        return {"attn": {
+            n: torch.zeros((batch, max_seq, kv, dh), dtype=cfg.act_dtype, device=device)
+            for n in ("k", "v")}}
+    if btype == "mamba2":
+        return {"ssm": ssm_mod.mamba2_cache_init(cfg, batch, device=device)}
+    if btype == "rwkv6":
+        return {"rwkv": rwkv_mod.rwkv6_cache_init(cfg, batch, device=device)}
+    raise ValueError(btype)
+
+
+def _shared_apply(p: SharedBlock, x: Tensor, x0: Tensor, cfg: ModelConfig, *,
+                  cache=None, cache_len=None):
+    u = torch.cat([x, x0], dim=-1) @ p.in_proj.to(x.dtype)
+    a, new_attn = attn_apply(p.attn, norm_apply(p.ln1, u, cfg), cfg,
+                             cache=None if cache is None else cache["attn"],
+                             cache_len=cache_len)
+    u = u + a
+    u = u + mlp_apply(p.mlp, norm_apply(p.ln2, u, cfg), cfg)
+    y = u @ p.out_proj.to(x.dtype)
+    return x + y, None if cache is None else {"attn": new_attn}
 
 
 def lm_forward(
@@ -153,27 +213,35 @@ def lm_forward(
     cache: list | None = None,
     cache_len: int | None = None,
 ):
-    """tokens [B, S] -> (hidden [B, S', D], cache, aux_loss).
+    """tokens [B, S] -> (hidden [B, S', D], new_cache, aux_loss).
 
     ``extra_embeds`` [B, Sv, D] (vision/audio prefix) is prepended;
     S' = Sv + S.  ``cache``/``cache_len`` select the decode path: the
-    cache (one entry per layer, :func:`lm_cache_init`) is written in place
-    and returned.  ``aux_loss`` is the MoE balance loss, 0 for the ported
-    block types.
+    cache is one entry per layer (:func:`lm_cache_init`); the new cache is
+    a new list (attention K/V written in place, recurrent states new).
+    ``aux_loss`` is the sum of the MoE layers' balance losses.
     """
     tokens = torch.as_tensor(tokens, device=params.device)
     x = params.embed["table"][tokens].to(cfg.act_dtype)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cfg.act_dtype), x], dim=1)
-    li = 0
-    for btype, count in _runs(cfg):
-        for _ in range(count):
-            x, _ = _block_apply(btype, params.blocks[li], x, cfg,
-                                cache=None if cache is None else cache[li],
-                                cache_len=cache_len)
-            li += 1
+    x0 = x
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: list | None = None if cache is None else []
+    for li, btype in enumerate(cfg.layer_types):
+        layer_c = None if cache is None else cache[li]
+        if btype == "shared_attn":
+            x, nc = _shared_apply(params.shared, x, x0, cfg, cache=layer_c,
+                                  cache_len=cache_len)
+        else:
+            x, nc, aux = _block_apply(btype, params.blocks[li], x, cfg, cache=layer_c,
+                                      cache_len=cache_len)
+            if aux is not None:
+                aux_total = aux_total + aux
+        if new_cache is not None:
+            new_cache.append(nc)
     x = norm_apply(params.final_norm, x, cfg)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux_total
 
 
 def lm_head_apply(params: LM, hidden: Tensor, cfg: ModelConfig) -> Tensor:
@@ -186,9 +254,12 @@ def lm_head_apply(params: LM, hidden: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> list:
-    """One ``{"attn": {"k", "v"}}`` of zeros per layer, ``[batch, max_seq
-    (the window with sliding-window attention), KV, Dh]`` in the
-    activation dtype, on ``device`` (``None`` means CUDA)."""
+    """One entry of zeros per layer, on ``device`` (``None`` means CUDA):
+    ``{"attn": {"k", "v"}}`` for attn, moe and shared_attn layers
+    (``[batch, max_seq (the window with sliding-window attention), KV,
+    Dh]`` in the activation dtype), ``{"ssm": ...}`` for mamba2
+    (:func:`~repro_torch.models.ssm.mamba2_cache_init`) and ``{"rwkv":
+    ...}`` for rwkv6 (:func:`~repro_torch.models.rwkv.rwkv6_cache_init`)."""
     dev = resolve_device(device)
     return [_block_cache_init(t, cfg, batch, max_seq, dev) for t in cfg.layer_types]
 
@@ -213,25 +284,49 @@ def _flat(tree: dict, prefix: str = ""):
             yield f"{prefix}{name}", leaf
 
 
-def params_from_reference(params_np: dict, cfg: ModelConfig, device=None) -> LM:
-    """The port's model with the reference's weights.
+def _layer_leaves(run, j: int, stacked: bool, prefix: str):
+    """Layer ``j`` of a run of the reference: a slice of its stacked
+    ``[count, ...]`` leaves (``lax.scan`` layout) or its ``j``-th tree."""
+    for name, a in _flat(run if stacked else run[j], prefix):
+        yield name, a[j] if stacked else a
 
-    ``params_np`` is the reference's parameter pytree with numpy leaves
-    (``jax.tree.map(np.asarray, params)``).  Its scanned runs' leading
-    ``[count, ...]`` axis is unstacked into the layer list; every leaf must
-    meet a parameter of the same name and shape, and every parameter a
-    leaf.  The counterpart of ``core/index.py:index_from_reference``.
-    """
-    model = LM(cfg, device=resolve_device(device))
+
+def _reference_leaves(params_np: dict, cfg: ModelConfig) -> dict:
+    """The reference's decoder pytree as the port's ``named_parameters``
+    names: its scanned runs unstacked into ``blocks.<layer>``, Zamba2's
+    ``{}`` run placeholders skipped, and its top-level trees (``shared``,
+    a VLM's ``projector``) kept as they are."""
     leaves = dict(_flat({k: v for k, v in params_np.items() if k != "blocks"}))
     li = 0
     for (btype, count), run in zip(_runs(cfg), params_np["blocks"], strict=True):
+        if btype == "shared_attn" and run:
+            raise ValueError(f"blocks[{li}]: the reference keeps the weight-tied "
+                             "block at the top level, not in its run")
         stacked = count > 1 and cfg.use_scan
         for j in range(count):
-            layer = run if stacked else run[j]
-            for name, a in _flat(layer, f"blocks.{li}."):
-                leaves[name] = a[j] if stacked else a
+            if btype != "shared_attn":
+                leaves.update(_layer_leaves(run, j, stacked, f"blocks.{li}."))
             li += 1
+    return leaves
+
+
+def params_from_reference(params_np: dict, cfg: ModelConfig, device=None) -> LM:
+    """The port's :class:`LM` with the reference's weights.
+
+    ``params_np`` is the reference's parameter pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``), mapped by
+    :func:`_reference_leaves`.  The other kinds' models come from
+    :func:`repro_torch.models.registry.params_from_reference`.  The
+    counterpart of ``core/index.py:index_from_reference``.
+    """
+    return load_reference(LM(cfg, device=resolve_device(device)),
+                          _reference_leaves(params_np, cfg))
+
+
+def load_reference(model: nn.Module, leaves: dict) -> nn.Module:
+    """Copies ``leaves`` (numpy arrays by the port's parameter names) into
+    ``model``: every leaf must meet a parameter of the same name and shape,
+    and every parameter a leaf."""
     own = dict(model.named_parameters())
     if own.keys() != leaves.keys():
         raise ValueError(f"parameter names differ: only in the reference "

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts FFN: top-k routing, sort-based capacity dispatch
+(counterpart of :mod:`repro.models.moe`).
+
+Capacity: each expert takes at most ``C = ceil(T * top_k * cf / E)`` tokens;
+overflow tokens fall back to their residual stream (token-dropping
+semantics, GShard/Switch).  With ``no_drop`` (the cache path) ``C = T``, so
+no token is dropped and cached decoding equals teacher forcing.  The router
+and its softmax run in fp32; the Switch load-balancing loss is returned.
+
+The dispatch is the reference's, op for op: a stable argsort of the flat
+expert ids, ``bincount`` for the segment starts, a buffer of ``E * C`` rows
+plus one trash row that overflow tokens are written to, a batched expert
+einsum, and the combine.  The reference combines with a scatter-add over
+the tokens; here each assignment's weighted row goes back to its place in
+the flat ``[T*K]`` order and each token sums its ``K`` rows, so the sum
+has one fixed order on every device (no atomics) and decoding twice from
+one cache gives the same tokens.  ``experts`` forces the routing: the
+router's probabilities still weight the given experts (used to replay one
+path's expert choices into another).  The reference's mesh path
+(``_moe_sharded``: tokens local per data shard, ``d_ff`` tensor-parallel,
+one ``psum``) waits for the port of ``dist/sharding.py``; on one device
+the reference takes the local path, which is this one.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor, nn
+
+from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.models.layers import _param, dense_init
+
+__all__ = ["MoE", "moe_init", "moe_apply"]
+
+
+class MoE(nn.Module):
+    """``router [d, E]`` (fp32) and ``experts.{up, gate, down}``
+    (``[E, d, f]``, ``[E, d, f]``, ``[E, f, d]``; the gate for swiglu and
+    geglu)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
+                 device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+        dev = gen.device if gen is not None else device
+        self.cfg = cfg
+        self.router = _param(dense_init(gen, (d, e), torch.float32, device=dev))
+        experts = {"up": dense_init(gen, (e, d, f), cfg.p_dtype, device=dev),
+                   "down": dense_init(gen, (e, f, d), cfg.p_dtype, device=dev)}
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            experts["gate"] = dense_init(gen, (e, d, f), cfg.p_dtype, device=dev)
+        self.experts = nn.ParameterDict({n: _param(t) for n, t in experts.items()})
+
+    def forward(self, x: Tensor, cfg: ModelConfig | None = None, *, no_drop: bool = False,
+                experts: Tensor | None = None):
+        return moe_apply(self, x, self.cfg if cfg is None else cfg, no_drop=no_drop,
+                         experts=experts)
+
+
+def moe_init(gen: torch.Generator | None, cfg: ModelConfig, *, device=None) -> MoE:
+    return MoE(cfg, gen, device=device)
+
+
+def _capacity(t: int, m: MoEConfig) -> int:
+    return max(1, math.ceil(t * m.top_k * m.capacity_factor / m.n_experts))
+
+
+def _route(p: MoE, x: Tensor, cfg: ModelConfig, experts: Tensor | None = None):
+    """x [T, D] -> (probs [T, E] fp32, gate weights [T, K] renormalized,
+    gate experts [T, K]): the router's softmax and its top ``K``, or the
+    given ``experts [T, K]`` weighted by their probabilities."""
+    logits = x.float() @ p.router.float()
+    probs = torch.softmax(logits, dim=-1)
+    if experts is None:
+        gate_w, gate_e = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    else:
+        gate_e = experts.to(device=probs.device, dtype=torch.int64)
+        gate_w = probs.gather(1, gate_e)
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, gate_w, gate_e
+
+
+def _dispatch(gate_e: Tensor, n_experts: int, capacity: int):
+    """The sort-based capacity dispatch of the flat ``[T*K]`` assignments:
+    (order, keep, buffer slot, token of each sorted assignment).  Each
+    expert keeps its first ``capacity`` assignments in token order; the
+    rest go to the trash slot ``E * C``."""
+    tk = gate_e.numel()
+    flat_e = gate_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    seg_start = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(tk, device=gate_e.device) - seg_start[sorted_e]
+    keep = pos_in_e < capacity
+    trash = n_experts * capacity
+    buf_slot = torch.where(keep, sorted_e * capacity + pos_in_e, trash)
+    token_of = order // gate_e.shape[1]
+    return order, keep, buf_slot, token_of
+
+
+def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
+                experts: Tensor | None = None):
+    """Core MoE on a flat token batch x: [T, D] -> ([T, D], aux_loss);
+    ``experts [T, K]`` forces the routing (see :func:`_route`)."""
+    m = cfg.moe
+    T, D = x.shape
+    E, K = m.n_experts, m.top_k
+    C = T if no_drop else _capacity(T, m)
+
+    probs, gate_w, gate_e = _route(p, x, cfg, experts)
+
+    # ---- load-balancing aux loss (Switch): E * sum_e f_e * p_e --------
+    me = probs.mean(0)
+    assign = torch.bincount(gate_e.reshape(-1), minlength=E).float()
+    aux = E * torch.sum(assign / (T * K) * me)
+
+    # ---- sort-based capacity dispatch ---------------------------------
+    order, keep, buf_slot, token_of = _dispatch(gate_e, E, C)
+    xbuf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    xbuf[buf_slot] = x[token_of]
+    xbuf = xbuf[: E * C].view(E, C, D)
+
+    # ---- expert computation (batched over E) ---------------------------
+    up = torch.bmm(xbuf, p.experts["up"].to(x.dtype))
+    if "gate" in p.experts:
+        g = torch.bmm(xbuf, p.experts["gate"].to(x.dtype))
+        act = F.silu(g) if cfg.mlp_kind == "swiglu" else F.gelu(g, approximate="tanh")
+        hidden = act * up
+    else:
+        hidden = F.gelu(up, approximate="tanh")
+    ybuf = torch.bmm(hidden, p.experts["down"].to(x.dtype))
+
+    # ---- combine back ---------------------------------------------------
+    yflat = torch.cat([ybuf.reshape(E * C, D), ybuf.new_zeros((1, D))], 0)
+    contrib = yflat[buf_slot]                                 # the trash row for dropped
+    w = (gate_w.reshape(-1)[order] * keep).to(contrib.dtype)  # dropped -> 0
+    out = torch.empty_like(contrib)
+    out[order] = contrib * w[:, None]                         # back to [T*K] order
+    return out.view(T, K, D).sum(1).to(x.dtype), aux
+
+
+def moe_apply(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
+              experts: Tensor | None = None):
+    """[B, S, D] -> ([B, S, D], aux).  The reference's local path;
+    ``experts [B, S, K]`` forces the routing (see :func:`_route`)."""
+    B, S, D = x.shape
+    if experts is not None:
+        experts = experts.reshape(B * S, -1)
+    y, aux = _moe_tokens(p, x.reshape(B * S, D), cfg, no_drop=no_drop, experts=experts)
+    return y.view(B, S, D), aux

@@ -1,13 +1,13 @@
-"""Uniform model interface (counterpart of :mod:`repro.models.registry`).
+"""Uniform model interface over the three model kinds, lm / vlm / whisper
+(counterpart of :mod:`repro.models.registry`).
 
     fns = model_fns(cfg)
-    params = fns.init(seed, device)                       # an LM module
+    params = fns.init(seed, device)                       # an nn.Module
     hidden, cache, aux = fns.forward(params, batch)       # train/prefill
     cache = fns.cache_init(params, batch, bsz, max_seq)   # serving
     hidden, cache = fns.decode_step(params, tokens, cache, cache_len)
 
-``batch`` is a dict: tokens/labels.  Only the ``"lm"`` kind is ported; the
-reference's ``vlm`` and ``whisper`` kinds raise ``NotImplementedError``.
+``batch`` is a dict: tokens/labels (+ patches | frames for vlm | whisper).
 """
 from __future__ import annotations
 
@@ -19,15 +19,17 @@ import torch
 from repro_torch.configs.shapes import model_kind
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import vlm as vlm_mod
+from repro_torch.models import whisper as wh_mod
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ModelFns", "model_fns", "synthetic_batch"]
+__all__ = ["ModelFns", "model_fns", "model_class", "params_from_reference", "synthetic_batch"]
 
-#: model kinds of the reference that the port does not run yet
-_UNPORTED_KINDS = {
-    "vlm": "ROADMAP.md Queue 1 item 2 (models/vlm.py)",
-    "whisper": "ROADMAP.md Queue 1 item 2 (models/whisper.py)",
-}
+#: each kind's module and the map of the reference's parameter pytree onto
+#: its parameter names
+_KINDS = {"lm": (lm_mod.LM, lm_mod._reference_leaves),
+          "vlm": (vlm_mod.VLM, lm_mod._reference_leaves),
+          "whisper": (wh_mod.Whisper, wh_mod._reference_leaves)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,42 +44,73 @@ class ModelFns:
     loss_offset: Callable[[dict], int]   # #prefix positions excluded from loss
 
 
-def _check_kind(kind: str) -> None:
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported to repro_torch yet: {_UNPORTED_KINDS[kind]}")
+def model_class(cfg: ModelConfig) -> type:
+    """The ``nn.Module`` that holds ``cfg``'s parameters."""
+    return _KINDS[model_kind(cfg)][0]
+
+
+def reference_leaves(params_np: dict, cfg: ModelConfig) -> dict:
+    """The reference's parameter pytree (numpy leaves) of ``cfg``'s kind as
+    the port's ``named_parameters`` names."""
+    return _KINDS[model_kind(cfg)][1](params_np, cfg)
+
+
+def params_from_reference(params_np: dict, cfg: ModelConfig, device=None):
+    """The port's model of ``cfg``'s kind (``LM``, ``VLM`` or ``Whisper``)
+    with the reference's weights (``jax.tree.map(np.asarray, params)``):
+    every leaf must meet a parameter of the same name and shape
+    (:func:`repro_torch.models.lm.load_reference`)."""
+    return lm_mod.load_reference(model_class(cfg)(cfg, device=resolve_device(device)),
+                                 reference_leaves(params_np, cfg))
 
 
 def model_fns(cfg: ModelConfig) -> ModelFns:
     kind = model_kind(cfg)
-    _check_kind(kind)
+    make = {"lm": lm_mod.lm_init, "vlm": vlm_mod.vlm_init, "whisper": wh_mod.whisper_init}
 
     def init(seed=0, device=None):
-        return lm_mod.lm_init(seed, cfg, device=device)
+        return make[kind](seed, cfg, device=device)
+
+    def head(params, hidden):
+        return lm_mod.lm_head_apply(params, hidden, cfg)
+
+    if kind == "whisper":
+        def fwd(params, batch):
+            return wh_mod.whisper_forward(params, batch["frames"], batch["tokens"], cfg)
+
+        def cache_init(params, batch, bsz, max_seq):
+            return wh_mod.whisper_cache_init(params, batch["frames"], cfg, bsz, max_seq)
+
+        def decode(params, tokens, cache, cache_len):
+            return wh_mod.whisper_decode_step(params, tokens, cfg, cache, cache_len)
+
+        return ModelFns(cfg, kind, init, fwd, cache_init, decode, head, lambda batch: 0)
 
     def fwd(params, batch):
+        if kind == "vlm":
+            return vlm_mod.vlm_forward(params, batch["patches"], batch["tokens"], cfg)
         return lm_mod.lm_forward(params, batch["tokens"], cfg)
 
     def cache_init(params, batch, bsz, max_seq):
         return lm_mod.lm_cache_init(cfg, bsz, max_seq, device=params.device)
 
     def decode(params, tokens, cache, cache_len):
-        h, nc, _ = lm_mod.lm_forward(params, tokens, cfg, cache=cache,
-                                     cache_len=cache_len)
+        h, nc, _ = lm_mod.lm_forward(params, tokens, cfg, cache=cache, cache_len=cache_len)
         return h, nc
 
-    return ModelFns(cfg, kind, init, fwd, cache_init, decode,
-                    lambda p, h: lm_mod.lm_head_apply(p, h, cfg),
-                    lambda batch: 0)
+    return ModelFns(cfg, kind, init, fwd, cache_init, decode, head,
+                    lambda batch: cfg.vision_seq)
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                     device=None) -> dict:
-    """Random int32 tokens and labels ``[batch, seq]`` from a
-    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None`` means
-    CUDA).  They are not the reference's ``jax.random`` draws; tests give
-    both packages the same numpy tokens."""
-    _check_kind(model_kind(cfg))
+    """Random int32 tokens and labels ``[batch, seq]``, and for the vlm
+    kind ``patches [batch, vision_seq, VIT_WIDTH]``, for the whisper kind
+    ``frames [batch, encoder_seq, d_model]`` (standard normal, bf16), all
+    from one ``torch.Generator`` seeded with ``seed`` on ``device``
+    (``None`` means CUDA).  They are not the reference's ``jax.random``
+    draws; tests give both packages the same numpy inputs."""
+    kind = model_kind(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
 
@@ -85,4 +118,11 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
         return torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev,
                              dtype=torch.int32)
 
-    return {"tokens": draw(), "labels": draw()}
+    out = {"tokens": draw(), "labels": draw()}
+    if kind == "vlm":
+        out["patches"] = torch.randn((batch, cfg.vision_seq, vlm_mod.VIT_WIDTH),
+                                     generator=gen, device=dev).to(torch.bfloat16)
+    if kind == "whisper":
+        out["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                    generator=gen, device=dev).to(torch.bfloat16)
+    return out

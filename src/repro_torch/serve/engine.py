@@ -2,13 +2,15 @@
 (counterpart of :mod:`repro.serve.engine`).
 
 ``prefill`` runs the model over the prompt tokens through the cache-filling
-path (attention writes K/V as it goes), so a following ``decode`` continues
-exactly.  Sampling is greedy or temperature; the kNN-LM hook (the paper's
-technique in the serving layer) interpolates next-token distributions with
-datastore neighbours — see :mod:`repro_torch.serve.knnlm`.
+path (attention writes K/V as it goes; SSM/RWKV states carry forward), so
+a following ``decode`` continues exactly.  Sampling is greedy or
+temperature; the kNN-LM hook (the paper's technique in the serving layer)
+interpolates next-token distributions with datastore neighbours — see
+:mod:`repro_torch.serve.knnlm`.
 
 There is no ``jax.jit``: each step runs eagerly under
-``torch.inference_mode()``, and the cache is written in place.
+``torch.inference_mode()``; attention K/V are written into the cache in
+place, recurrent states are replaced (:mod:`repro_torch.models.lm`).
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.lm import lm_forward
 from repro_torch.models.registry import ModelFns
+from repro_torch.models.vlm import project_patches
 
 __all__ = ["Engine"]
 
@@ -33,10 +37,20 @@ class Engine:
 
     # -------------------------------------------------------------- prefill
     def prefill(self, batch: dict):
-        """Prompt batch -> (cache, cache_len, last_hidden [B, D])."""
+        """Prompt batch -> (cache, cache_len, last_hidden [B, D]).
+
+        For ``whisper`` the encoder runs inside ``cache_init`` (the cross
+        K/V) and the decoder takes the prompt; for ``vlm`` the projected
+        patches and the prompt go through the cache path together, so the
+        cache holds ``Sv + St`` positions."""
         with torch.inference_mode():
             toks = torch.as_tensor(batch["tokens"], device=self.params.device)
             cache = self.fns.cache_init(self.params, batch, toks.shape[0], self.max_seq)
+            if self.fns.kind == "vlm":
+                vis = project_patches(self.params, batch["patches"], self.cfg)
+                hidden, cache, _ = lm_forward(self.params, toks, self.cfg, extra_embeds=vis,
+                                              cache=cache, cache_len=0)
+                return cache, vis.shape[1] + toks.shape[1], hidden[:, -1]
             hidden, cache = self.fns.decode_step(self.params, toks, cache, 0)
         return cache, toks.shape[1], hidden[:, -1]
 

@@ -1155,3 +1155,51 @@ def test_from_corpus_and_engine_on_cuda_match_cpu(cuda):
     toks = launch_serve.main(["--smoke", "--knn", "--search-backend", "kernel",
                               "--requests", "2", "--prompt-len", "12", "--gen", "4"])
     assert toks.device.type == "cuda" and toks.shape == (2, 4)
+
+
+#: one arch of each model family beyond the "attn" LM
+FAMILY_ARCHS = ["granite-moe-1b-a400m", "zamba2-1.2b", "rwkv6-1.6b", "internvl2-1b",
+                "whisper-small"]
+#: float32 hidden states after the final norm (entries of order 1), TF32
+#: off: the CPU's and the card's matmuls sum in other orders (~1e-6 a
+#: layer, 4 to 6 layers)
+FAMILY_FP32_ATOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_model_family_on_cuda_matches_cpu_and_decodes_deterministically(cuda, arch):
+    """Each family's smoke model with the same weights on the CPU and on
+    the card.  The cache-free forward's hidden states: in float32 within
+    FAMILY_FP32_ATOL; in bf16 activations, the card no farther from the CPU
+    than bf16 itself moves the CPU's result (max |card bf16 - CPU bf16| <=
+    max |CPU bf16 - CPU float32|).  Then on the card in bf16, two greedy
+    decodes from one prefilled cache give the same tokens (recurrent states
+    are replaced, not written in place)."""
+    import copy
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model_fns, synthetic_batch
+    from repro_torch.serve.engine import Engine
+
+    hidden = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = smoke_config(arch).replace(dtype=dtype)
+        fns = model_fns(cfg)
+        cpu = fns.init(0, device="cpu")
+        gpu = copy.deepcopy(cpu).to(cuda)
+        batch = synthetic_batch(cfg, 2, 24, seed=3, device="cpu")
+        on_card = {n: v.to(cuda) for n, v in batch.items()}
+        with torch.inference_mode():
+            hidden[dtype] = (fns.forward(cpu, batch)[0].float(),
+                             fns.forward(gpu, on_card)[0].float().cpu())
+    (c32, g32), (c16, g16) = hidden["float32"], hidden["bfloat16"]
+    assert torch.isfinite(g32).all() and torch.isfinite(g16).all()
+    torch.testing.assert_close(g32, c32, atol=FAMILY_FP32_ATOL, rtol=0)
+    bf16_error = float((c16 - c32).abs().max())
+    assert float((g16 - c16).abs().max()) <= bf16_error, bf16_error
+    eng = Engine(fns, gpu, max_seq=fns.loss_offset(batch) + 40)
+    cache, clen, _ = eng.prefill(on_card)
+    t1, _ = eng.decode(cache, clen, on_card["tokens"][:, -1:], 8)
+    t2, _ = eng.decode(cache, clen, on_card["tokens"][:, -1:], 8)
+    assert t1.device.type == "cuda" and torch.equal(t1, t2)

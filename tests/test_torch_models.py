@@ -29,7 +29,7 @@ from repro_torch.configs import ARCHS, SHAPES, smoke_config  # noqa: E402
 from repro_torch.configs import shapes as t_shapes  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models import model_fns, synthetic_batch  # noqa: E402
+from repro_torch.models import model_fns, registry, synthetic_batch  # noqa: E402
 from repro_torch.models.config import ModelConfig, MoEConfig  # noqa: E402
 
 ATOL = 1e-5
@@ -62,7 +62,17 @@ def ref_lm(arch, **kw):
     jcfg, cfg = cfgs(arch, **kw)
     jfns = j_model_fns(jcfg)
     jp = jfns.init(jax.random.PRNGKey(0))
-    model = lm.params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    model = registry.params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return jcfg, jfns, jp, cfg, model
+
+
+def ref_family(arch):
+    """ref_lm of ``arch``'s smoke config, the reference's weights drawn by
+    its jitted init (another draw than the eager one, and seconds faster)."""
+    jcfg, cfg = cfgs(arch)
+    jfns = j_model_fns(jcfg)
+    jp = jax.jit(jfns.init)(jax.random.PRNGKey(0))
+    model = registry.params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
     return jcfg, jfns, jp, cfg, model
 
 
@@ -72,6 +82,63 @@ def tokens(cfg, b, s, seed=0):
 
 def close(got, want, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol, rtol=0)
+
+
+#: the reference's own tolerances for its smoke models in float32
+#: (tests/test_serve.py): hidden states, and logits
+HIDDEN_ATOL, LOGITS_ATOL = 2e-4, 2e-3
+
+
+def family_batch(cfg, b, s, seed=0):
+    """A numpy batch of ``cfg``'s kind: int32 tokens ``[b, s]``, and
+    float32 standard-normal patches (vlm) or frames (whisper)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    kind = t_shapes.model_kind(cfg)
+    if kind == "vlm":
+        batch["patches"] = rng.normal(size=(b, cfg.vision_seq, 1024)).astype(np.float32)
+    if kind == "whisper":
+        batch["frames"] = rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def assert_forward_matches(jcfg, jfns, jp, cfg, model, batch):
+    """The cache-free forward's hidden states and aux loss against the
+    reference's; returns the port's hidden states."""
+    fns = model_fns(cfg)
+    h, cache, aux = fns.forward(model, batch)
+    jh, _, jaux = jfns.forward(jp, {n: jnp.asarray(v) for n, v in batch.items()})
+    assert cache is None and h.shape == jh.shape
+    close(h, jh, HIDDEN_ATOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=1e-6)
+    return h
+
+
+def assert_prefill_decode_matches(jfns, jp, fns, model, batch, steps=5, seed=1):
+    """Both packages' Engine.prefill of ``batch`` (the cache-filling path),
+    then ``steps`` decode steps fed the same random tokens: the prefill's
+    last hidden state within HIDDEN_ATOL and every step's logits within
+    LOGITS_ATOL of the reference's.  Returns both caches after the
+    prefill, the port's first."""
+    from repro.serve.engine import Engine as JEngine
+    from repro_torch.serve.engine import Engine
+
+    b, s = batch["tokens"].shape
+    max_seq = fns.loss_offset(batch) + s + steps + 3
+    jeng, eng = JEngine(jfns, jp, max_seq=max_seq), Engine(fns, model, max_seq=max_seq)
+    jc, jlen, jlast = jeng.prefill({n: jnp.asarray(v) for n, v in batch.items()})
+    cache, clen, last = eng.prefill(batch)
+    assert clen == int(jlen)
+    close(last, jlast, HIDDEN_ATOL)
+    feed = tokens(fns.cfg, b, steps, seed=seed)
+    c, jprefilled = cache, jc
+    with torch.inference_mode():
+        for i in range(steps):
+            _, jlogits, jc = jeng._decode_jit(jp, jnp.asarray(feed[:, i:i + 1]), jc,
+                                              jlen + i)
+            _, logits, c = eng._decode_step(model, feed[:, i:i + 1], c, clen + i)
+            close(logits, jlogits, LOGITS_ATOL)
+    return cache, jprefilled
 
 
 # ---------------------------------------------------------------------------
@@ -330,27 +397,82 @@ def test_cache_decode_matches_teacher_forcing(arch):
     close(fns.lm_head(model, got[:, 30:]), fns.lm_head(model, full[:, 30:]))
 
 
+def ref_cache_layers(jcfg, jcache) -> list:
+    """The reference's cache (one entry per run, a scanned run's leaves
+    stacked) as one entry per layer, the port's layout."""
+    if j_shapes.model_kind(jcfg) == "whisper":
+        return ([jax.tree.map(lambda a, j=j: a[j], jcache) for j in range(jcfg.n_layers)]
+                if jcfg.use_scan else list(jcache))
+    out = []
+    for (btype, count), run in zip(jlm._runs(jcfg), jcache, strict=True):
+        if btype == "shared_attn":
+            out.append(run)
+        elif count > 1 and jcfg.use_scan:
+            out += [jax.tree.map(lambda a, j=j: a[j], run) for j in range(count)]
+        else:
+            out += run
+    return out
+
+
+def assert_builds_and_carries(arch):
+    """The port builds ``arch``'s smoke model from a seed and empty: its
+    parameters are exactly the reference's names and shapes (unstacked per
+    layer), params_from_reference carries every reference leaf, and both
+    caches hold the same entries, shapes and dtypes layer by layer."""
+    jcfg, cfg = cfgs(arch)
+    jfns, fns = j_model_fns(jcfg), model_fns(cfg)
+    assert fns.kind == jfns.kind
+    jparams = jax.jit(jfns.init)(jax.random.PRNGKey(0))
+    jp = jax.tree.map(np.asarray, jparams)
+    leaves = registry.reference_leaves(jp, cfg)
+    want = {n: tuple(a.shape) for n, a in leaves.items()}
+    for model in (fns.init(0, device="cpu"), registry.params_from_reference(jp, cfg, "cpu")):
+        assert {n: tuple(p.shape) for n, p in model.named_parameters()} == want
+    for name, p in model.named_parameters():
+        np.testing.assert_array_equal(p.numpy(), leaves[name], err_msg=name)
+    batch = synthetic_batch(cfg, 2, 5, device="cpu")
+    jbatch = {n: jnp.asarray(v.float().numpy()) for n, v in batch.items()}
+    cache = fns.cache_init(model, batch, 2, 16)
+    jcache = jfns.cache_init(jparams, jbatch, 2, 16)
+    jcache = ref_cache_layers(jcfg, jcache)
+    assert len(cache) == len(jcache) == cfg.n_layers
+    for mine, ref in zip(cache, jcache):
+        flat, jflat = dict(lm._flat(mine)), dict(lm._flat(ref))
+        assert flat.keys() == jflat.keys()
+        for n, t in flat.items():
+            assert tuple(t.shape) == jflat[n].shape, n
+            assert str(t.dtype).removeprefix("torch.") == str(jflat[n].dtype), n
+    return cfg, fns, batch
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-1.2b", "rwkv6-1.6b"])
-def test_unported_block_types_raise(arch):
-    """moe, mamba2 with shared_attn, and rwkv6 blocks raise
-    NotImplementedError naming the ROADMAP item that ports them, before
-    anything is allocated."""
-    cfg = smoke_config(arch)
-    fns = model_fns(cfg)
-    for make in (lambda: fns.init(0, device="cpu"),
-                 lambda: lm.lm_cache_init(cfg, 1, 8, device="cpu"),
-                 lambda: lm.params_from_reference({}, cfg, "cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-            make()
+def test_other_block_types_build_and_carry(arch):
+    """moe, mamba2 with Zamba2's shared_attn, and rwkv6 blocks: built from
+    a seed and from the reference's weights, with the reference's cache
+    layout, and the forward runs."""
+    cfg, fns, batch = assert_builds_and_carries(arch)
+    types = set(cfg.layer_types)
+    assert types - {"attn"} and fns.kind == "lm"
+    model = fns.init(0, device="cpu")
+    assert (model.shared is not None) == ("shared_attn" in types)
+    h, cache, aux = fns.forward(model, batch)
+    assert h.shape == (2, 5, cfg.d_model) and cache is None
+    assert (float(aux) > 0) == ("moe" in types)
 
 
 @pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
-def test_unported_model_kinds_raise(arch):
-    cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        model_fns(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        synthetic_batch(cfg, 1, 4, device="cpu")
+def test_other_model_kinds_build_and_carry(arch):
+    """The whisper and vlm kinds: built and carried as above, and
+    synthetic_batch draws their frames or patches (bf16) from its seed."""
+    cfg, fns, batch = assert_builds_and_carries(arch)
+    extra = {"whisper": ("frames", (2, cfg.encoder_seq, cfg.d_model)),
+             "vlm": ("patches", (2, cfg.vision_seq, 1024))}[fns.kind]
+    assert batch.keys() == {"tokens", "labels", extra[0]}
+    assert batch[extra[0]].shape == extra[1] and batch[extra[0]].dtype == torch.bfloat16
+    again = synthetic_batch(cfg, 2, 5, device="cpu")
+    assert all(torch.equal(batch[n], again[n]) for n in batch)
+    h, _, _ = fns.forward(fns.init(0, device="cpu"), batch)
+    assert h.shape == (2, fns.loss_offset(batch) + 5, cfg.d_model)
 
 
 def test_lm_init_is_seeded_and_counts_its_params():

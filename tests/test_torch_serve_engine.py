@@ -22,9 +22,9 @@ from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import model_fns as j_model_fns  # noqa: E402
 from repro.serve.engine import Engine as JEngine  # noqa: E402
 from repro.serve.knnlm import KNNDatastore as JDatastore  # noqa: E402
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import lm, model_fns  # noqa: E402
+from repro_torch.models import MoEConfig, lm, model_fns, synthetic_batch  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.knnlm import KNNDatastore  # noqa: E402
 
@@ -93,6 +93,69 @@ def test_engine_prefill_then_decode_matches_forward(models):
     out, _ = eng.decode(cache, clen, toks[:, -1:], 5)
     assert out.shape == (2, 5) and out.dtype == torch.int32
     assert int(out.max()) < fns.cfg.vocab
+
+
+#: one arch of each family the serving path gained after the "attn" LM; the
+#: MoE's capacity factor lets every expert take every token, so its
+#: cache-free forward (capacity dispatch) drops none and equals the cache
+#: path (no_drop), as the reference's test requires of an "attn" LM
+FAMILIES = {"granite-moe-1b-a400m": dict(moe=MoEConfig(n_experts=8, top_k=2,
+                                                       capacity_factor=4.0)),
+            "zamba2-1.2b": {}, "rwkv6-1.6b": {}, "internvl2-1b": {}, "whisper-small": {}}
+
+
+@pytest.fixture
+def one_thread():
+    """Smoke-size torch ops on one thread: under the suite's parallel
+    workers, torch's per-process pool of one thread per core makes these
+    small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_engine_prefill_then_decode_matches_forward_by_family(one_thread, arch):
+    """The reference's test_engine_prefill_then_decode_matches_forward and
+    its decode checks (tests/test_serve.py), on the port alone: the
+    prefill's last hidden state equals the forward's within 2e-4, the first
+    decode step's logits the forward's over the prompt with its last token
+    repeated within 2e-3, and two decodes from one prefilled cache give the
+    same tokens."""
+    cfg = smoke_config(arch).replace(**FAMILIES[arch])
+    fns = model_fns(cfg)
+    params = fns.init(0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 10, device="cpu")
+    eng = Engine(fns, params, max_seq=fns.loss_offset(batch) + 40)
+    cache, clen, last_h = eng.prefill(batch)
+    assert clen == fns.loss_offset(batch) + 10
+    with torch.inference_mode():
+        h_full, _, _ = fns.forward(params, batch)
+        np.testing.assert_allclose(last_h.numpy(), h_full[:, -1].numpy(), atol=2e-4)
+        ext = dict(batch, tokens=torch.cat([batch["tokens"], batch["tokens"][:, -1:]], 1))
+        h_ext, _, _ = fns.forward(params, ext)
+        _, logits, _ = eng._decode_step(params, batch["tokens"][:, -1:], cache, clen)
+    np.testing.assert_allclose(logits.numpy(), fns.lm_head(params, h_ext)[:, -1].numpy(),
+                               atol=2e-3)
+    t1, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], 5)
+    t2, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], 5)
+    assert t1.shape == (2, 5) and int(t1.max()) < cfg.vocab
+    assert torch.equal(t1, t2)
+
+
+@pytest.mark.parametrize("arch", sorted(a for a in ARCHS
+                                         if set(ARCHS[a].layer_types) != {"attn"}
+                                         or ARCHS[a].encoder_layers or ARCHS[a].vision_seq))
+def test_launcher_runs_every_family_on_cpu(one_thread, capsys, arch):
+    """The launcher at its defaults with kNN on, at the smoke config of
+    each of the six archs of the MoE, Mamba2, RWKV6, vlm and whisper
+    families (mixtral-8x22b's among them): 8 requests of 16 greedy tokens
+    over a store of 4 x 4 x 31 keys (512 rows in blocks of 64)."""
+    toks = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--knn"])
+    assert toks.shape == (8, 16) and int(toks.max()) < smoke_config(arch).vocab
+    out = capsys.readouterr().out
+    assert "knn=on" in out and "on cpu" in out and "datastore: 512 keys" in out
 
 
 @pytest.mark.parametrize("knn", [False, True], ids=["knn_off", "knn_on"])
