@@ -132,7 +132,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    against its scan and Mamba2's chunked path against its recurrent
    update, one layer in float32 at full width; d. two decodes from one
    prefilled cache give the same tokens.  mixtral-8x22b (141 B params) and
-   qwen2-72b do not fit one card at fp32 and are not run.
+   qwen2-72b do not fit one card at fp32 and are not run;
+14. training at full width (the reference's whole-system flow): a.
+   tinyllama-1.1b at full width and depth, remat on: find_near_duplicates
+   on the card over the 1,920 passages of 128 tokens of the run's batches
+   (32 planted copies: all found, the pairs equal to a brute force, one
+   pruned_topk and one block_bounds_select launch), 30 steps through
+   Trainer at B = 8, S = 1,024 (warmup_cosine as launch/train.py sets it;
+   every loss and grad_norm finite, the last 5 losses' mean below the
+   first 5's), then from_corpus with the trained weights over 128 x 1,024
+   tokens and 64 greedy decode steps at B = 8 with kNN off and on (every
+   lookup exact, one launch of each kernel a step); b. an async
+   checkpoint at step 10 from a fresh Trainer, another fresh Trainer
+   resumes from it to step 20: its losses within 1e-4 of a's; c. a
+   2-layer float32 copy at full width, one loss and backward on the card
+   against the same in float64 on the CPU (loss within 1e-5 relative,
+   each gradient within 1e-4 of its leaf's max); d. one step with int8 gradient compression, |err|
+   within the quantizer's half step; e. one train step of each phase-13
+   family at full width and depth (B = 2, S = 1,024 or its max_seq_len),
+   every parameter a finite gradient, the MoE router's nonzero, and a
+   second step on the same batch lowers the loss.  It prints ms a step,
+   tokens/s, peak memory, the checkpoint's GB and save and restore
+   seconds, each beside the card's name and power limit.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -1611,9 +1632,9 @@ def gb(nbytes):
     return nbytes / 1e9
 
 
-def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=()):
+def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=(), gen=KNNLM_GEN):
     """Each batch of prompts (``batches``: {B: batch}) prefilled and decoded
-    KNNLM_GEN greedy tokens through Engine, with kNN off and then on
+    ``gen`` greedy tokens through Engine, with kNN off and then on
     (``rec``, a RecordedStore), timed on the host clock between
     synchronizations; the kNN-off runs record every step's logits.  For
     each (B, kNN) in ``again`` the same prefilled cache is decoded a second
@@ -1623,7 +1644,7 @@ def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=()):
 
     runs = {}
     for b, batch in batches.items():
-        max_seq = fns.loss_offset(batch) + KNNLM_PROMPT + KNNLM_GEN + 8
+        max_seq = fns.loss_offset(batch) + KNNLM_PROMPT + gen + 8
         for knn in (False, True):
             eng = Engine(fns, params, max_seq=max_seq, knn=rec if knn else None,
                          lmbda=KNNLM_LMBDA)
@@ -1643,29 +1664,29 @@ def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=()):
             cache, clen, _ = eng.prefill(batch)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            toks, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
+            toks, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], gen)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             steps = rec.steps[first:]
             r = {"requests": b, "knn": knn, "prefill_s": t1 - t0,
                  "prefill_tok_s": b * KNNLM_PROMPT / (t1 - t0), "decode_s": t2 - t1,
-                 "decode_tok_s": b * KNNLM_GEN / (t2 - t1),
-                 "step_ms": (t2 - t1) / KNNLM_GEN * 1e3}
+                 "decode_tok_s": b * gen / (t2 - t1),
+                 "step_ms": (t2 - t1) / gen * 1e3}
             if not knn:
                 # the wrapper closes over eng's own method: a cycle that would
                 # keep the model alive until the garbage collector runs
                 del eng._decode_step
             if (b, knn) in again:
-                toks2, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], KNNLM_GEN)
+                toks2, _ = eng.decode(cache, clen, batch["tokens"][:, -1:], gen)
                 r["again_equal"] = bool(torch.equal(toks, toks2))
             del cache
             if knn:
                 knn_s = sum(st["s"] for st in steps)
                 search_s = sum(st["search_s"] for st in steps)
-                r.update(knn_ms_per_step=knn_s / KNNLM_GEN * 1e3,
-                         search_ms_per_step=search_s / KNNLM_GEN * 1e3,
+                r.update(knn_ms_per_step=knn_s / gen * 1e3,
+                         search_ms_per_step=search_s / gen * 1e3,
                          search_share=search_s / (t2 - t1),
-                         model_ms_per_step=(t2 - t1 - knn_s) / KNNLM_GEN * 1e3,
+                         model_ms_per_step=(t2 - t1 - knn_s) / gen * 1e3,
                          block_prune_frac=float(np.mean([st["block_prune_frac"]
                                                          for st in steps])),
                          tile_computed_frac=float(np.mean([st["tile_computed_frac"]
@@ -1686,7 +1707,7 @@ def decode_runs(fns, params, rec, tally, batches, card, tag, *, again=()):
     return runs
 
 
-def check_lookups(runs, idx, kernels, tag):
+def check_lookups(runs, idx, kernels, tag, gen=KNNLM_GEN):
     """Check a of phases 12 and 13: every kNN-on step's lookup against
     brute_topk over the store's keys (tie-aware within 1e-5), and one
     launch of each of kernels[:2] per step and none of the rest.  Fatal on
@@ -1715,7 +1736,7 @@ def check_lookups(runs, idx, kernels, tag):
             f"{max(errs):.3e}, rows differing beyond near-ties {bad}; one "
             f"{' and one '.join(path)} launch per step and nothing else: {launches_ok}")
         check(max(errs) <= 1e-5 and bad == 0, f"{tag} B = {b}: a kNN lookup is not exact")
-        check(len(steps) == KNNLM_GEN and launches_ok,
+        check(len(steps) == gen and launches_ok,
               f"{tag} B = {b}: a decode step's lookup did not launch each of {path} once")
     return exact
 
@@ -2357,6 +2378,510 @@ def phase_families(seed, card, kernels, archs=FAMILY_ARCHS):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[families] phase 13 on {card}: {len(archs)} models, launches {out['launches']}, "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+#: phase 14, training at full width: the reference's whole-system flow
+#: (tests/test_system.py: embed -> dedup -> train -> datastore -> kNN-LM
+#: serving) on TRAIN_ARCH at full width and depth, remat on.  The run draws
+#: TRAIN_STEPS batches of TRAIN_BATCH x TRAIN_SEQ SyntheticLM tokens (8,192 a
+#: step), with duplicate passages planted into them: the dedup's documents
+#: are the passages of DEDUP_DOC tokens of those batches (1,920), of which
+#: DEDUP_PLANTED are copies of others (half exact, half with DEDUP_EDITS
+#: tokens changed).  SyntheticLM's text repeats its Markov chains, so most
+#: passages have natural near-duplicates too (up to 109 at the threshold,
+#: seed 14): DEDUP_K lies above that, so the k-nearest cut drops no pair
+#: and the answer is every pair at the threshold.  The learning rate is
+#: launch/train.py's warmup_cosine
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
+DEDUP_DOC, DEDUP_PLANTED, DEDUP_EDITS, DEDUP_THRESHOLD, DEDUP_K = 128, 32, 2, 0.95, 120
+#: the trained model's store: from_corpus over TRAIN_STORE_SEQS x TRAIN_SEQ
+#: tokens; TRAIN_DECODE greedy kNN-on steps at B = TRAIN_BATCH
+TRAIN_STORE_SEQS, TRAIN_DECODE = 128, 64
+#: check b: a checkpoint at RESTART_AT, a fresh Trainer resumes to RESTART_TO
+RESTART_AT, RESTART_TO, RESTART_LOSS_ATOL = 10, 20, 1e-4
+#: check c: a GRAD_LAYERS-layer copy of TRAIN_ARCH at full width in float32,
+#: one loss and backward on the card, and in float64 on the host's CPU (the
+#: truth: a float32 CPU run's own rounding moves with the host's BLAS path)
+#: at GRAD_BATCH x GRAD_SEQ tokens: the loss within GRAD_LOSS_RTOL, each
+#: gradient within GRAD_RTOL of its leaf's max |gradient|
+GRAD_LAYERS, GRAD_BATCH, GRAD_SEQ, GRAD_LOSS_RTOL, GRAD_RTOL = 2, 2, 256, 1e-5, 1e-4
+#: check d: |err| <= scale * ERR_HALF_STEP: the quantizer's half step, and
+#: the float32 roundings of t / s, q * s and t - q * s (t / s < 128 is
+#: within 2^-18 of its value, q * s within 2^-17 s of its, each below
+#: 2^-16 s)
+ERR_HALF_STEP = 0.5 + 2 ** -15
+#: check e: one train step of each FAMILY_ARCHS model at full width and
+#: depth, FAMILY_TRAIN_BATCH x FAMILY_LEN tokens (or cfg.max_seq_len), a
+#: constant learning rate of TRAIN_LR (warmup_cosine's first step is 0)
+FAMILY_TRAIN_BATCH = 2
+
+
+class PlantedCorpus:
+    """The batches the run draws: ``steps`` SyntheticLM batches with
+    ``DEDUP_PLANTED`` passages of DEDUP_DOC tokens overwritten by copies of
+    others (the second half with DEDUP_EDITS tokens changed); labels are
+    the next tokens, as SyntheticLM's.  ``pairs`` are the planted (source,
+    copy) document indices, documents being the passages in batch order."""
+
+    def __init__(self, vocab, seq, batch, steps, seed):
+        from repro_torch.data.pipeline import SyntheticLM
+
+        self.src = SyntheticLM(vocab, seq, batch, seed=seed)
+        toks = np.concatenate([self.src.batch(s)["tokens"] for s in range(steps)])
+        docs = toks.reshape(-1, DEDUP_DOC)                    # a view: writes go to toks
+        rng = np.random.default_rng(seed)
+        picked = rng.choice(len(docs), 2 * DEDUP_PLANTED, replace=False)
+        self.pairs = []
+        for i, (a, b) in enumerate(zip(picked[::2], picked[1::2])):
+            docs[b] = docs[a]
+            if i >= DEDUP_PLANTED // 2:
+                at = rng.choice(DEDUP_DOC, DEDUP_EDITS, replace=False)
+                docs[b, at] = (docs[b, at] + 1 + rng.integers(0, vocab - 1, DEDUP_EDITS)) % vocab
+            self.pairs.append((int(min(a, b)), int(max(a, b))))
+        self.tokens, self.batch_size, self.docs = toks, batch, docs
+
+    def batch(self, step):
+        tok = self.tokens[step * self.batch_size:(step + 1) * self.batch_size].copy()
+        labels = np.roll(tok, -1, axis=1)
+        labels[:, -1] = tok[:, 0]
+        return {"tokens": tok, "labels": labels}
+
+    def state(self):
+        return {"kind": "planted", "seed": self.src.seed}
+
+    def restore(self, state):
+        assert state.get("kind") == "planted"
+
+
+class TimedCheckpoints:
+    """Times a Trainer's CheckpointManager: each save call (for an async
+    save, the host copy; for a blocking one, the whole write), each wait
+    for an async write, each restore; and the bytes of each step
+    directory written."""
+
+    def __init__(self, cm):
+        self.cm, self.events = cm, []
+        save, wait, restore = cm.save, cm.wait, cm.restore
+
+        def timed_save(step, tree, *, extra=None, block=False):
+            t0 = time.perf_counter()
+            save(step, tree, extra=extra, block=block)
+            self.events.append({"save": step, "block": block or not cm.async_save,
+                                "s": time.perf_counter() - t0})
+
+        def timed_wait():
+            busy = cm._thread is not None
+            t0 = time.perf_counter()
+            wait()
+            if busy:
+                self.events.append({"wait": True, "s": time.perf_counter() - t0})
+
+        def timed_restore(*a, **kw):
+            t0 = time.perf_counter()
+            out = restore(*a, **kw)
+            self.events.append({"restore": out[2], "s": time.perf_counter() - t0})
+            return out
+
+        cm.save, cm.wait, cm.restore = timed_save, timed_wait, timed_restore
+
+    def step_bytes(self, step):
+        d = Path(self.cm.dir) / f"step_{step:08d}"
+        return sum(f.stat().st_size for f in d.iterdir())
+
+
+def train_run(fns, cfg, data, ckpt_dir, total, seed, dev, *, ckpt_every=10 ** 9, keep=1):
+    """A Trainer over a fresh state from ``seed`` with launch/train.py's
+    schedule for TRAIN_STEPS steps; returns (trainer, its output, its
+    TimedCheckpoints)."""
+    import functools
+
+    from repro_torch.optim import schedule
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    step_fn = make_train_step(fns, cfg, lr_schedule=functools.partial(
+        schedule.warmup_cosine, peak_lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5),
+        total_steps=TRAIN_STEPS))
+    tc = TrainerConfig(total_steps=total, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
+                       keep=keep, log_every=10)
+    tr = Trainer(step_fn, init_state(fns, seed, device=dev), data, tc)
+    timed = TimedCheckpoints(tr.ckpt)
+    out = tr.run(install_signal=False)
+    torch.cuda.synchronize()
+    return tr, out, timed
+
+
+def step_stats(history):
+    """ms per step (median and mean past the first step) and tokens/s."""
+    ms = np.array([h["time_s"] for h in history[1:]]) * 1e3
+    return {"ms_median": float(np.median(ms)), "ms_mean": float(ms.mean()),
+            "first_ms": history[0]["time_s"] * 1e3}
+
+
+def grads_of(fns, cfg, params, batch):
+    """{name: gradient} of the train step's loss at ``params`` (and the
+    loss); the parameters' .grad are cleared after."""
+    from repro_torch.train.train_step import make_loss_fn
+
+    loss, _ = make_loss_fn(fns, cfg)(params, batch)
+    loss.backward()
+    out = {n: p.grad for n, p in params.named_parameters()}
+    params.zero_grad(set_to_none=True)
+    return loss.detach(), out
+
+
+def grads_of_float64(cfg, params, batch):
+    """:func:`grads_of` of a float64 copy of ``params`` on the CPU: the
+    model and its activations in float64, and ``Tensor.float`` (with which
+    the layers compute their norms, softmaxes and losses) made ``double``
+    for the call."""
+    import copy
+
+    from repro_torch.models import model_fns
+
+    c64 = cfg.replace(dtype="float64", param_dtype="float64")
+    m64 = copy.deepcopy(params).to("cpu").double()
+    as_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        return grads_of(model_fns(c64), c64, m64, batch)
+    finally:
+        torch.Tensor.float = as_float
+
+
+def phase_train(seed, card, kernels):
+    """Phase 14: training at full width.
+
+    a. Dedup -> train -> serve, on ARCHS[TRAIN_ARCH] at full width and
+       depth: find_near_duplicates over the passages of the run's planted
+       batches (every planted pair found, the pairs equal to brute_pairs,
+       one launch of each of kernels[:2]); TRAIN_STEPS steps through
+       Trainer (every loss finite, grad_norm finite and > 0, the mean of
+       the last 5 losses below the first 5's); from_corpus with the
+       trained weights over TRAIN_STORE_SEQS x TRAIN_SEQ tokens and
+       TRAIN_DECODE greedy steps at B = TRAIN_BATCH, kNN off and on, every
+       lookup exact with one launch of each kernel a step (check_lookups).
+    b. Restart: an async checkpoint at RESTART_AT from a fresh Trainer of
+       the same seed, then another fresh Trainer on its directory resumes
+       to RESTART_TO; its losses equal a's within RESTART_LOSS_ATOL.
+    c. One loss and backward of a GRAD_LAYERS-layer float32 copy on the
+       card, against the same in float64 on the CPU from the same weights
+       and batch (a float32 CPU run's distances are logged too).
+    d. One full-width step with compress_grads: |err| within the
+       quantizer's half step of its leaf's scale, the loss finite.
+    e. One train step of each FAMILY_ARCHS model at full width and depth,
+       then a second on the same batch, which must lower the loss; every
+       parameter a finite gradient, the MoE router's nonzero.
+
+    The path's launches are the dedup's, the store's build and the decode
+    runs'; the checks' own are not counted.  The checkpoints (13.2 GB each
+    at full width) go under build/train_ckpt, which is removed as soon as
+    a run's are read and, whatever happens, when the phase ends.  b's
+    resumed Trainer ends with the Trainer's blocking final save (the
+    reference's): its time is a second reading of a blocking save."""
+    import shutil
+
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        return train_checks(seed, card, kernels, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def train_checks(seed, card, kernels, ckpt_root):
+    """The checks of :func:`phase_train`, its checkpoints under
+    ``ckpt_root``."""
+    import copy
+    import functools
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.dedup import dedup_mask, embed_tokens, find_near_duplicates
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model_fns, synthetic_batch
+    from repro_torch.models.registry import reference_paths
+    from repro_torch.optim import schedule
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = ARCHS[TRAIN_ARCH]
+    fns = model_fns(cfg)
+    tally = LaunchTally(kernels)
+    path = tuple(kern.__name__ for kern in kernels[:2])
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "remat": cfg.remat, "batch": [TRAIN_BATCH, TRAIN_SEQ], "card": card}
+    tag = "[train]"
+
+    # a. the planted corpus, its dedup on the card
+    t0 = time.perf_counter()
+    data = PlantedCorpus(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, seed)
+    emb = embed_tokens(data.docs)
+    t1 = time.perf_counter()
+    tally.discard()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    pairs, dstats = find_near_duplicates(emb, threshold=DEDUP_THRESHOLD, k=DEDUP_K, device=dev)
+    torch.cuda.synchronize()
+    dedup_s = time.perf_counter() - t2
+    dedup_launches = tally.counts()
+    tally.collect()
+    e = torch.nn.functional.normalize(torch.as_tensor(emb, device=dev), dim=1)
+    most = int(((e @ e.T) >= DEDUP_THRESHOLD).sum(1).max()) - 1
+    want_pairs, edge = brute_pairs(e, DEDUP_THRESHOLD, DEDUP_K)
+    found = len(set(data.pairs) & set(pairs))
+    keep = dedup_mask(len(emb), pairs)
+    out["dedup"] = {"docs": int(len(emb)), "doc_tokens": DEDUP_DOC, "planted": len(data.pairs),
+                    "planted_found": found, "pairs": len(pairs), "brute_pairs": len(want_pairs),
+                    "kept": int(keep.sum()), "backend": dstats.backend, "s": dedup_s,
+                    "k": DEDUP_K, "most_neighbours": most,
+                    "corpus_s": t1 - t0, "launches": dedup_launches}
+    log(f"{tag} a. dedup of the run's {len(emb)} passages of {DEDUP_DOC} tokens "
+        f"({len(data.pairs)} planted copies, {DEDUP_PLANTED // 2} with {DEDUP_EDITS} tokens "
+        f"changed): find_near_duplicates on the card {dedup_s:.3f} s (backend "
+        f"{dstats.backend}, launches {dedup_launches}), {len(pairs)} pairs, the brute force "
+        f"{len(want_pairs)}, planted found {found}, {int(keep.sum())} passages kept (k = "
+        f"{DEDUP_K}; at most {most} neighbours of a passage at the threshold); the corpus "
+        f"and its embedding {t1 - t0:.2f} s on the host")
+    check(most < DEDUP_K, f"{tag} a passage has more neighbours at the threshold than k")
+    check(found == len(data.pairs), f"{tag} the dedup missed a planted pair")
+    check(not (set(pairs) ^ want_pairs) - edge,
+          f"{tag} the dedup's pairs differ from the brute force")
+    check(dedup_launches == {kern.__name__: int(kern.__name__ in path) for kern in kernels},
+          f"{tag} the dedup did not launch each of {path} once")
+
+    # a. 30 steps through Trainer, uninterrupted
+    torch.cuda.reset_peak_memory_stats()
+    tr, run_a, timed_a = train_run(fns, cfg, data, ckpt_root / "a", TRAIN_STEPS, seed, dev)
+    hist = run_a["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    st = step_stats(hist)
+    params = tr.state["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    out["train"] = {
+        **st, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (st["ms_median"] / 1e3),
+        "peak_gb": gb(torch.cuda.max_memory_allocated()), "params": n_params,
+        "state_gb": gb(4 * 3 * n_params), "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+        "first5": first, "last5": last, "final_save": timed_a.events,
+        "final_ckpt_gb": gb(timed_a.step_bytes(TRAIN_STEPS))}
+    shutil.rmtree(ckpt_root / "a")
+    tw = out["train"]
+    log(f"{tag} a. {TRAIN_STEPS} steps of {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, remat {cfg.remat}) at B = {TRAIN_BATCH}, S = "
+        f"{TRAIN_SEQ}: {tw['ms_median']:.1f} ms a step (median; mean {tw['ms_mean']:.1f}, "
+        f"first {tw['first_ms']:.0f}), {tw['tokens_per_s']:.0f} tokens/s, peak "
+        f"{tw['peak_gb']:.2f} GB (fp32 params + m + v {tw['state_gb']:.2f} GB); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 5 {first:.4f}, last 5 {last:.4f}); "
+        f"the final blocking checkpoint {tw['final_ckpt_gb']:.2f} GB in "
+        f"{timed_a.events[-1]['s']:.1f} s; {card}")
+    check(all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) and h["grad_norm"] > 0 for h in hist),
+          f"{tag} a loss or grad_norm is not finite")
+    check(last < first, f"{tag} the loss did not decrease over {TRAIN_STEPS} steps")
+
+    # a. the trained model's store and kNN-LM decoding
+    tr.state.pop("opt")
+    tr.ckpt.wait()
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tally.discard()
+    batches = (synthetic_batch(cfg, 16, TRAIN_SEQ, seed=seed + 1000 + b, device=dev)
+               for b in range(TRAIN_STORE_SEQS // 16))
+    ds, harvest_s, build_s = harvest_store(fns, params, batches, cfg, dev)
+    build_launches = tally.counts()
+    tally.collect()
+    rec = RecordedStore(ds, tally)
+    prompts = {TRAIN_BATCH: synthetic_batch(cfg, TRAIN_BATCH, KNNLM_PROMPT, seed=seed + 2000,
+                                            device=dev)}
+    runs = decode_runs(fns, params, rec, tally, prompts, card, tag, gen=TRAIN_DECODE)
+    rec.close()
+    out["serve"] = {"keys": ds.engine.n_valid, "harvest_s": harvest_s, "build_s": build_s,
+                    "build_launches": build_launches,
+                    "runs": [r for r, *_ in runs.values()],
+                    "peak_gb": gb(torch.cuda.max_memory_allocated())}
+    out["launches"] = dict(tally.total)
+    tally.discard()
+    out["serve"]["exact"] = check_lookups(runs, ds.index, kernels, f"{tag} a.", gen=TRAIN_DECODE)
+    tally.discard()
+    log(f"{tag} a. from_corpus with the trained weights over {TRAIN_STORE_SEQS} x {TRAIN_SEQ} "
+        f"tokens: {ds.engine.n_valid} keys, harvest {harvest_s:.2f} s, build {build_s:.2f} s")
+    del ds, rec, runs, params
+    torch.cuda.empty_cache()
+
+    # b. restart: a checkpoint at RESTART_AT, a fresh Trainer resumes
+    tr1, run1, timed1 = train_run(fns, cfg, data, ckpt_root / "b", RESTART_AT, seed, dev,
+                                  ckpt_every=RESTART_AT)
+    ck_gb = gb(timed1.step_bytes(RESTART_AT))
+    same = [h["loss"] for h in run1["history"]] == losses[:RESTART_AT]
+    # where a step's time goes: one more step of this (discarded) run under
+    # the profiler
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(RESTART_AT).items()}
+    tw["device"] = device_busy(lambda: tr1.train_step(tr1.state, batch), tw["ms_median"], top=8)
+    log(f"{tag} a. one train step under the profiler kept the card busy "
+        f"{tw['device']['busy_ms']:.1f} ms in {tw['device']['kernels']} device events, "
+        f"{tw['device']['busy_share']:.3f} of the {tw['ms_median']:.1f} ms step; top: "
+        + "; ".join(f"{n[:48]} {ms_:.1f} ms" for n, ms_ in tw["device"]["top"]))
+    del tr1, batch
+    torch.cuda.empty_cache()
+    tr2, run2, timed2 = train_run(fns, cfg, data, ckpt_root / "b", RESTART_TO, seed, dev)
+    resumed = {h["step"]: h["loss"] for h in run2["history"]}
+    diff = max(abs(resumed[s] - losses[s - 1]) for s in resumed)
+    restore_s = [e["s"] for e in timed2.events if "restore" in e]
+    out["restart"] = {"ckpt_gb": ck_gb, "events_first": timed1.events,
+                      "events_resumed": timed2.events, "resumed_from": min(resumed) - 1,
+                      "max_loss_diff": diff, "first_steps_bit_equal": same,
+                      "losses": [resumed[s] for s in sorted(resumed)]}
+    log(f"{tag} b. checkpoint at step {RESTART_AT}: {ck_gb:.2f} GB; saves "
+        + "; ".join(f"{'blocking' if e.get('block') else 'async'} save of step {e['save']} "
+                    f"{e['s']:.2f} s" if "save" in e else f"wait for the async write "
+                    f"{e['s']:.2f} s" for e in timed1.events)
+        + f"; a fresh Trainer restored step {min(resumed) - 1} in "
+        f"{restore_s[0] if restore_s else float('nan'):.2f} s and ran to {RESTART_TO}: max "
+        f"|loss - uninterrupted| {diff:.3e} (tolerance {RESTART_LOSS_ATOL}); the first "
+        f"{RESTART_AT} steps' losses equal a's bit for bit: {same}; {card}")
+    check(min(resumed) == RESTART_AT + 1 and run2["final_step"] == RESTART_TO,
+          f"{tag} the second Trainer did not resume from step {RESTART_AT}")
+    check(diff <= RESTART_LOSS_ATOL, f"{tag} the resumed run's losses depart from a's")
+    del tr2
+    shutil.rmtree(ckpt_root / "b")
+    torch.cuda.empty_cache()
+
+    # c. gradients on the card against the CPU
+    c_cfg = cfg.replace(n_layers=GRAD_LAYERS, dtype="float32")
+    c_fns = model_fns(c_cfg)
+    on_card = c_fns.init(seed + 1, device=dev).requires_grad_(True)
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    batch = SyntheticLM(c_cfg.vocab, GRAD_SEQ, GRAD_BATCH, seed=seed + 1).batch(0)
+    t0 = time.perf_counter()
+    loss_g, g_card = grads_of(c_fns, c_cfg, on_card, {k: torch.as_tensor(v, device=dev)
+                                                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_c, g_cpu = grads_of(c_fns, c_cfg, on_cpu, batch)
+    t2 = time.perf_counter()
+    loss_t, g_true = grads_of_float64(c_cfg, on_cpu, batch)
+    t3 = time.perf_counter()
+
+    def leaf_rel(g_of):
+        rel = {n: ((g_of[n].cpu().double() - g).abs().max() / g.abs().max()).item()
+               for n, g in g_true.items()}
+        return rel, max(rel, key=rel.get)
+
+    rel, worst_leaf = leaf_rel(g_card)
+    worst = rel[worst_leaf]
+    rel32, worst32 = leaf_rel(g_cpu)
+    loss_rel = abs(float(loss_g) - float(loss_t)) / abs(float(loss_t))
+    loss_rel32 = abs(float(loss_c) - float(loss_t)) / abs(float(loss_t))
+    out["grad_check"] = {"layers": GRAD_LAYERS, "batch": [GRAD_BATCH, GRAD_SEQ],
+                         "loss_card": float(loss_g), "loss_cpu_float64": float(loss_t),
+                         "loss_rel": loss_rel, "worst_leaf_rel": worst, "worst_leaf": worst_leaf,
+                         "leaf_rel": rel, "loss_cpu_float32": float(loss_c),
+                         "cpu_float32_loss_rel": loss_rel32,
+                         "cpu_float32_worst_leaf_rel": rel32[worst32],
+                         "cpu_float32_worst_leaf": worst32,
+                         "card_vs_cpu_float32_loss_rel":
+                             abs(float(loss_g) - float(loss_c)) / abs(float(loss_c)),
+                         "cpu_threads": torch.get_num_threads(),
+                         "card_s": t1 - t0, "cpu_s": t2 - t1, "cpu_float64_s": t3 - t2}
+    log(f"{tag} c. {GRAD_LAYERS}-layer float32 copy at full width, B = {GRAD_BATCH}, S = "
+        f"{GRAD_SEQ}, against float64 on the CPU: loss card {float(loss_g):.6f}, float64 "
+        f"{float(loss_t):.6f} (relative {loss_rel:.2e}, tolerance {GRAD_LOSS_RTOL}); the worst "
+        f"leaf's max |grad diff| over its max |grad| {worst:.2e} ({worst_leaf}; tolerance "
+        f"{GRAD_RTOL}), the median leaf's {float(np.median(list(rel.values()))):.2e}; a float32 "
+        f"CPU run against float64: loss {loss_rel32:.2e}, worst leaf {rel32[worst32]:.2e} "
+        f"({worst32}); card {t1 - t0:.2f} s, CPU float32 {t2 - t1:.2f} s, float64 "
+        f"{t3 - t2:.2f} s on {torch.get_num_threads()} threads (first call, unwarmed)")
+    check(loss_rel <= GRAD_LOSS_RTOL and worst <= GRAD_RTOL,
+          f"{tag} the card's gradients depart from the CPU's float64 ones")
+    del on_card, on_cpu, g_card, g_cpu, g_true
+    torch.cuda.empty_cache()
+
+    # d. int8 compression at full width
+    state = init_state(fns, seed + 2, compress_grads=True, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(0).items()}
+    _, g = grads_of(fns, cfg, state["params"], batch)
+    groups = reference_paths(state["params"], cfg)
+    absmax = {}
+    for n, t in g.items():
+        absmax[groups[n]] = max(absmax.get(groups[n], 0.0), float(t.abs().max()))
+    del g
+    step_fn = make_train_step(fns, cfg, compress_grads=True)
+    state, m = step_fn(state, batch)
+    ratio = max(float(e.abs().max()) / (max(absmax[groups[n]], 1e-12) / 127.0)
+                for n, e in state["err"].items())
+    out["compression"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                          "max_err_over_scale": ratio, "bound": ERR_HALF_STEP,
+                          "scales": len(absmax)}
+    log(f"{tag} d. one full-width step with compress_grads: loss {float(m['loss']):.4f}, "
+        f"grad_norm {float(m['grad_norm']):.3f}; max |err| / scale over {len(state['err'])} "
+        f"leaves ({len(absmax)} scales, one per reference leaf) {ratio:.6f} (bound "
+        f"{ERR_HALF_STEP})")
+    check(np.isfinite(float(m["loss"])) and ratio <= ERR_HALF_STEP,
+          f"{tag} the error feedback exceeds the quantizer's half step")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # e. one train step of each family at full width and depth
+    out["families"] = {}
+    for i, arch in enumerate(FAMILY_ARCHS):
+        torch.cuda.reset_peak_memory_stats()
+        f_cfg = ARCHS[arch]
+        f_fns = model_fns(f_cfg)
+        seq = min(FAMILY_LEN, f_cfg.max_seq_len)
+        t0 = time.perf_counter()
+        state = init_state(f_fns, seed + 20 + i, device=dev)
+        batch = synthetic_batch(f_cfg, FAMILY_TRAIN_BATCH, seq, seed=seed + 30 + i, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _, g = grads_of(f_fns, f_cfg, state["params"], batch)
+        missing = [n for n, t in g.items() if t is None]
+        finite = all(t is not None and bool(torch.isfinite(t).all()) for t in g.values())
+        router = {n: float(t.abs().max()) for n, t in g.items()
+                  if n.endswith("moe.router") and t is not None}
+        del g
+        step_fn = make_train_step(f_fns, f_cfg, lr_schedule=functools.partial(
+            schedule.constant, peak_lr=TRAIN_LR))
+        ms, mets = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k: float(v) for k, v in m.items()})
+        r = out["families"][arch] = {
+            "seq": seq, "params_gb": gb(sum(p.numel() * 4 for p in state["params"].parameters())),
+            "init_s": init_s, "step_ms": ms, "losses": [x["loss"] for x in mets],
+            "grad_norms": [x["grad_norm"] for x in mets], "missing_grads": missing,
+            "grads_finite": finite, "router_grad_max": min(router.values()) if router else None,
+            "peak_gb": gb(torch.cuda.max_memory_allocated())}
+        log(f"{tag} e. {arch} ({f_cfg.n_layers} layers, d {f_cfg.d_model}, {r['params_gb']:.2f} "
+            f"GB of fp32 params) at B = {FAMILY_TRAIN_BATCH}, S = {seq}: steps "
+            f"{ms[0]:.0f} / {ms[1]:.0f} ms, loss {r['losses'][0]:.4f} -> {r['losses'][1]:.4f}, "
+            f"grad_norm {r['grad_norms'][0]:.3f}; every parameter a finite gradient: "
+            f"{finite and not missing}"
+            + (f"; the smallest max |router grad| over its layers {r['router_grad_max']:.3e}"
+               if router else "") + f"; peak {r['peak_gb']:.2f} GB; {card}")
+        check(not missing and finite and all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                                             for x in mets),
+              f"{tag} {arch}: a gradient is missing or not finite")
+        check(not router or r["router_grad_max"] > 0, f"{tag} {arch}: a router gets no gradient")
+        check(r["losses"][1] < r["losses"][0],
+              f"{tag} {arch}: a second step did not lower the loss")
+        del state, batch, step_fn
+        torch.cuda.empty_cache()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    for name in path:
+        check(out["launches"][name] > 0, f"phase 14's path never launched {name}")
+    log(f"{tag} phase 14 on {card}: launches {out['launches']}, {out['seconds']:.1f} s")
     return out
 
 
@@ -3091,6 +3616,12 @@ def main(argv=None) -> int:
                                                               block_bounds, merge_splits))
     families = report["families"]["launches"]
 
+    # 14. training at full width: dedup -> train -> serve, restart, the
+    # card's gradients against the CPU's, compression, the families
+    report["train"] = phase_train(args.seed + 14, card, (pruned_topk, block_bounds_select,
+                                                        block_bounds, merge_splits))
+    train = report["train"]["launches"]
+
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
         for name, old in runs.items():
@@ -3120,7 +3651,8 @@ def main(argv=None) -> int:
                                       "online_tree": online["tree"]["pruned_topk"],
                                       "serving": serving["pruned_topk"],
                                       "knn_lm": knn_lm["pruned_topk"],
-                                      "model_families": families["pruned_topk"]}
+                                      "model_families": families["pruned_topk"],
+                                      "train": train["pruned_topk"]}
     topk_entry["launches"] = sum(topk_entry["launches_by_path"].values())
     # the epilogue runs in every pruned_topk launch
     merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
@@ -3131,13 +3663,15 @@ def main(argv=None) -> int:
     bb_entry["launches_by_path"].update(
         online_tree=online["tree"]["block_bounds"],
         online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"],
-        knn_lm=knn_lm["block_bounds"], model_families=families["block_bounds"])
+        knn_lm=knn_lm["block_bounds"], model_families=families["block_bounds"],
+        train=train["block_bounds"])
     bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
     sel_entry["launches_by_path"] = {
         "main": sel_entry["launches"], "online_kernel": online["kernel"]["block_bounds_select"],
         "online_tree": online["tree"]["block_bounds_select"],
         "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"],
-        "model_families": families["block_bounds_select"]}
+        "model_families": families["block_bounds_select"],
+        "train": train["block_bounds_select"]}
     sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]

@@ -1,1 +1,1 @@
-"""Data layer (counterpart of :mod:`repro.data`); ``dedup`` is ported."""
+"""Data layer (counterpart of :mod:`repro.data`): ``dedup`` and ``pipeline``."""

@@ -23,19 +23,32 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import Tensor, nn
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["dense_init", "Norm", "norm_init", "norm_apply", "rope_freqs", "rope_apply",
-           "Attention", "attn_init", "flash_attention", "attn_apply", "MLP", "mlp_init",
-           "mlp_apply"]
+__all__ = ["checkpointed", "dense_init", "Norm", "norm_init", "norm_apply", "rope_freqs",
+           "rope_apply", "Attention", "attn_init", "flash_attention", "attn_apply", "MLP",
+           "mlp_init", "mlp_apply"]
 
 
 def _param(t: Tensor) -> nn.Parameter:
-    """A weight of the serving port: no gradient is kept (training is not
-    ported)."""
+    """A weight, made without a gradient: serving keeps none.  Training
+    turns gradients on for the whole model with ``requires_grad_()``
+    (:func:`repro_torch.train.train_step.init_state`)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def checkpointed(fn, on: bool, *args, **kw):
+    """``fn(*args, **kw)``, under ``torch.utils.checkpoint`` when ``on``:
+    the backward pass recomputes the activations inside ``fn`` instead of
+    keeping them (the reference's ``jax.checkpoint`` of a layer body).  The
+    models draw no random numbers, so no RNG state is saved."""
+    if not on:
+        return fn(*args, **kw)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +190,9 @@ def flash_attention(
     kv chunks inner, with the same tiles and the same update per tile.
     Each tile is one batched matmul per KV head over its ``g`` query heads
     (``[g·cq, Dh] @ [Dh, ck]``), so the repeated K/V are never written.
+    Every tile step is out of place, so autograd differentiates it (the
+    backward keeps each tile's masked scores and probabilities; a layer
+    under :func:`checkpointed` keeps them only while it is recomputed).
     """
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -212,17 +228,18 @@ def flash_attention(
         for j in range(nk):
             ks = slice(j * ck, (j + 1) * ck)
             kc, vc = kt[:, :, ks].float(), vt[:, :, ks].float()   # [B,KV,ck,Dh]
-            s = torch.matmul(qf, kc.transpose(-1, -2)).view(B, KV, g, cq, ck).mul_(scale)
+            s = torch.matmul(qf, kc.transpose(-1, -2)).view(B, KV, g, cq, ck) * scale
             mask = _tile_mask(q_pos, torch.arange(j * ck, (j + 1) * ck, device=dev),
                               causal, window)
             if kvv is not None:
                 mask = mask & kvv[:, None, None, None, ks]
-            s.masked_fill_(~mask, float("-inf"))
+            # one kernel: an out-of-place masked_fill is a copy and a fill
+            s = torch.where(mask, s, float("-inf"))
             m_new = torch.maximum(m_run, s.amax(-1))
             m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
             # masked entries are -inf, so exp leaves them 0 (the reference's
             # where(mask, p, 0)); so does a row that nothing has reached yet
-            p = s.sub_(m_safe[..., None]).exp_()
+            p = torch.exp(s - m_safe[..., None])
             corr = torch.where(torch.isneginf(m_run), 0.0, torch.exp(m_run - m_safe))
             l_run = l_run * corr + p.sum(-1)
             pv = torch.matmul(p.view(B, KV, g * cq, ck), vc).view(B, KV, g, cq, Dh)

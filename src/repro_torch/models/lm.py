@@ -20,10 +20,13 @@ Departures from the reference, all of them execution, not arithmetic:
 
 * The reference groups consecutive layers of one type into *runs*
   (:func:`_runs`) and ``lax.scan``s a run over stacked parameters
-  (``cfg.use_scan``), with ``jax.checkpoint`` around each layer
-  (``cfg.remat``): both are compile devices of XLA.  The port keeps one
-  module per layer in an ``nn.ModuleList`` and loops over it eagerly;
-  ``use_scan`` and ``remat`` are read by nothing here.
+  (``cfg.use_scan``), a compile device of XLA.  The port keeps one module
+  per layer in an ``nn.ModuleList`` and loops over it eagerly; ``use_scan``
+  is read only where the reference's pytree is carried across.
+  ``cfg.remat`` is read as the reference reads it: with gradients on and
+  no cache, each layer body runs under ``torch.utils.checkpoint``
+  (:func:`~repro_torch.models.layers.checkpointed`), so the backward pass
+  keeps each layer's input and recomputes the rest.
 * The cache is one entry per layer (:func:`lm_cache_init`), not one per
   run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
   written in place at ``cache_len``; the recurrent states (Mamba2's,
@@ -46,8 +49,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply, dense_init,
-                                       mlp_apply, norm_apply)
+from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply,
+                                       checkpointed, dense_init, mlp_apply, norm_apply)
 
 __all__ = ["Block", "SharedBlock", "LM", "lm_init", "lm_forward", "lm_head_apply",
            "lm_cache_init", "embed_hidden", "params_from_reference", "load_reference"]
@@ -219,7 +222,8 @@ def lm_forward(
     S' = Sv + S.  ``cache``/``cache_len`` select the decode path: the
     cache is one entry per layer (:func:`lm_cache_init`); the new cache is
     a new list (attention K/V written in place, recurrent states new).
-    ``aux_loss`` is the sum of the MoE layers' balance losses.
+    ``aux_loss`` is the sum of the MoE layers' balance losses.  With
+    ``cfg.remat``, gradients on and no cache, each layer is checkpointed.
     """
     tokens = torch.as_tensor(tokens, device=params.device)
     x = params.embed["table"][tokens].to(cfg.act_dtype)
@@ -228,14 +232,15 @@ def lm_forward(
     x0 = x
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: list | None = None if cache is None else []
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for li, btype in enumerate(cfg.layer_types):
         layer_c = None if cache is None else cache[li]
         if btype == "shared_attn":
-            x, nc = _shared_apply(params.shared, x, x0, cfg, cache=layer_c,
-                                  cache_len=cache_len)
+            x, nc = checkpointed(_shared_apply, remat, params.shared, x, x0, cfg,
+                                 cache=layer_c, cache_len=cache_len)
         else:
-            x, nc, aux = _block_apply(btype, params.blocks[li], x, cfg, cache=layer_c,
-                                      cache_len=cache_len)
+            x, nc, aux = checkpointed(_block_apply, remat, btype, params.blocks[li], x, cfg,
+                                      cache=layer_c, cache_len=cache_len)
             if aux is not None:
                 aux_total = aux_total + aux
         if new_cache is not None:
@@ -308,6 +313,43 @@ def _reference_leaves(params_np: dict, cfg: ModelConfig) -> dict:
                 leaves.update(_layer_leaves(run, j, stacked, f"blocks.{li}."))
             li += 1
     return leaves
+
+
+def _reference_paths(names, cfg: ModelConfig) -> dict:
+    """Each of the port's parameter ``names`` mapped to the reference's
+    ``/``-joined path of its leaf (the inverse of
+    :func:`_reference_leaves`): ``blocks.<layer>.<rest>`` to
+    ``blocks/<run>/<rest>`` in a scanned run (one stacked leaf for all its
+    layers) or ``blocks/<run>/<j>/<rest>`` in a list run, the top-level
+    trees with their dots as slashes."""
+    where = _layer_places(cfg)
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            ri, j = where[int(parts[1])]
+            parts = ["blocks", ri, *parts[2:]] if j is None else ["blocks", ri, j, *parts[2:]]
+        out[name] = "/".join(parts)
+    return out
+
+
+def _reference_stacked(names, cfg: ModelConfig) -> set:
+    """The ``names`` whose reference leaf stacks a scanned run's layers
+    (one dim more than the port's parameter)."""
+    where = _layer_places(cfg)
+    return {n for n in names
+            if n.split(".")[0] == "blocks" and where[int(n.split(".")[1])][1] is None}
+
+
+def _layer_places(cfg: ModelConfig) -> dict:
+    """{layer: (its run, its index in the run)}, as strings; the index is
+    None where the run is one stacked leaf (``lax.scan``)."""
+    where, li = {}, 0
+    for ri, (_, count) in enumerate(_runs(cfg)):
+        for j in range(count):
+            where[li] = (str(ri), None if count > 1 and cfg.use_scan else str(j))
+            li += 1
+    return where
 
 
 def params_from_reference(params_np: dict, cfg: ModelConfig, device=None) -> LM:

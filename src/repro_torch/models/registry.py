@@ -23,13 +23,18 @@ from repro_torch.models import vlm as vlm_mod
 from repro_torch.models import whisper as wh_mod
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ModelFns", "model_fns", "model_class", "params_from_reference", "synthetic_batch"]
+__all__ = ["ModelFns", "model_fns", "model_class", "reference_leaves", "reference_paths",
+           "reference_ndims",
+           "params_from_reference", "synthetic_batch"]
 
 #: each kind's module and the map of the reference's parameter pytree onto
-#: its parameter names
-_KINDS = {"lm": (lm_mod.LM, lm_mod._reference_leaves),
-          "vlm": (vlm_mod.VLM, lm_mod._reference_leaves),
-          "whisper": (wh_mod.Whisper, wh_mod._reference_leaves)}
+#: its parameter names (the leaves, their paths, the stacked ones)
+_KINDS = {"lm": (lm_mod.LM, lm_mod._reference_leaves, lm_mod._reference_paths,
+                 lm_mod._reference_stacked),
+          "vlm": (vlm_mod.VLM, lm_mod._reference_leaves, lm_mod._reference_paths,
+                  lm_mod._reference_stacked),
+          "whisper": (wh_mod.Whisper, wh_mod._reference_leaves, wh_mod._reference_paths,
+                      wh_mod._reference_stacked)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +58,22 @@ def reference_leaves(params_np: dict, cfg: ModelConfig) -> dict:
     """The reference's parameter pytree (numpy leaves) of ``cfg``'s kind as
     the port's ``named_parameters`` names."""
     return _KINDS[model_kind(cfg)][1](params_np, cfg)
+
+
+def reference_paths(model, cfg: ModelConfig) -> dict:
+    """Each of ``model``'s parameter names mapped to the reference's
+    ``/``-joined path of the leaf that :func:`reference_leaves` maps onto
+    it (a scanned run's stacked leaf serves all its layers)."""
+    return _KINDS[model_kind(cfg)][2]([n for n, _ in model.named_parameters()], cfg)
+
+
+def reference_ndims(model, cfg: ModelConfig) -> dict:
+    """Each of ``model``'s parameter names mapped to the number of dims of
+    the reference's leaf: one more than the parameter's where the leaf
+    stacks a scanned run's layers."""
+    own = dict(model.named_parameters())
+    stacked = _KINDS[model_kind(cfg)][3](list(own), cfg)
+    return {n: p.ndim + (n in stacked) for n, p in own.items()}
 
 
 def params_from_reference(params_np: dict, cfg: ModelConfig, device=None):

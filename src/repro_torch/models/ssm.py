@@ -123,10 +123,14 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
         dA = dtq * A[None, None, :]                         # [b,q,h] (negative)
         cum = torch.cumsum(dA, dim=1)
         # intra: y[t] = sum_{j<=t} exp(a_t - a_j) (C_t . B_j) dt_j x_j.  Above
-        # the diagonal exp(a_t - a_j) overflows to inf: a select drops it (a
-        # multiply by the mask would make inf * 0 = nan)
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])   # [b,q,j,h]
-        decay = torch.where(mask[None, :, :, None], decay, 0.0)
+        # the diagonal exp(a_t - a_j) can overflow to inf, so the exponent is
+        # -inf there: the decay is 0 and so is its gradient.  (The reference
+        # selects 0 after the exp, which gives the same values but a nan
+        # gradient, 0 * inf, once a chunk's decays overflow, as they do at
+        # full width.)
+        decay = torch.exp(torch.where(mask[None, :, :, None],
+                                      cum[:, :, None, :] - cum[:, None, :, :],
+                                      float("-inf")))               # [b,q,j,h]
         CB = torch.einsum("bqhn,bjhn->bqjh", Cq, Bq)
         y_intra = torch.einsum("bqjh,bjhp->bqhp", CB * decay * dtq[:, None], xq)
         # inter: y += C_t exp(a_t) H_prev

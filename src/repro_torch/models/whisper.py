@@ -19,8 +19,8 @@ from torch import Tensor, nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply, dense_init,
-                                       mlp_apply, norm_apply)
+from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply,
+                                       checkpointed, dense_init, mlp_apply, norm_apply)
 from repro_torch.models.lm import _flat, _layer_leaves
 
 __all__ = ["Whisper", "whisper_init", "encode", "whisper_forward", "whisper_cache_init",
@@ -122,10 +122,13 @@ def _cross_kv(p: DecLayer, enc_out: Tensor, cfg: ModelConfig):
 
 
 def encode(params: Whisper, frames, cfg: ModelConfig) -> Tensor:
-    """frames [B, Se, D] -> encoder output [B, Se, D]."""
+    """frames [B, Se, D] -> encoder output [B, Se, D].  With ``cfg.remat``
+    and gradients on, each layer is checkpointed (as the reference's
+    scanned body is)."""
     x = torch.as_tensor(frames, device=params.device).to(cfg.act_dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.enc:
-        x = _enc_block(lp, x, cfg)
+        x = checkpointed(_enc_block, remat, lp, x, cfg)
     return norm_apply(params.enc_norm, x, cfg)
 
 
@@ -134,12 +137,20 @@ def _embed(params: Whisper, tokens, cfg: ModelConfig) -> Tensor:
     return params.embed["table"][tokens].to(cfg.act_dtype)
 
 
+def _dec_layer(p: DecLayer, x: Tensor, enc_out: Tensor, cfg: ModelConfig) -> Tensor:
+    """One decoder layer of the teacher-forced pass, its cross K/V
+    included (the reference's checkpointed body)."""
+    return _dec_block(p, x, _cross_kv(p, enc_out, cfg), cfg)[0]
+
+
 def whisper_forward(params: Whisper, frames, tokens, cfg: ModelConfig):
-    """Teacher-forced pass -> (hidden [B, St, D], None, aux = 0)."""
+    """Teacher-forced pass -> (hidden [B, St, D], None, aux = 0).  With
+    ``cfg.remat`` and gradients on, each layer is checkpointed."""
     enc_out = encode(params, frames, cfg)
     x = _embed(params, tokens, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.dec:
-        x, _ = _dec_block(lp, x, _cross_kv(lp, enc_out, cfg), cfg)
+        x = checkpointed(_dec_layer, remat, lp, x, enc_out, cfg)
     x = norm_apply(params.final_norm, x, cfg)
     return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -186,3 +197,24 @@ def _reference_leaves(params_np: dict, cfg: ModelConfig) -> dict:
         for j in range(count):
             leaves.update(_layer_leaves(params_np[part], j, cfg.use_scan, f"{part}.{j}."))
     return leaves
+
+
+def _reference_paths(names, cfg: ModelConfig) -> dict:
+    """Each of the port's parameter ``names`` mapped to the reference's
+    ``/``-joined path of its leaf (the inverse of
+    :func:`_reference_leaves`): ``enc.<j>.<rest>`` to ``enc/<rest>`` under
+    ``lax.scan`` (one stacked leaf) or ``enc/<j>/<rest>``, and ``dec``
+    alike; the other trees with their dots as slashes."""
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] in ("enc", "dec") and cfg.use_scan:
+            parts = [parts[0], *parts[2:]]
+        out[name] = "/".join(parts)
+    return out
+
+
+def _reference_stacked(names, cfg: ModelConfig) -> set:
+    """The ``names`` whose reference leaf stacks the ``enc`` or ``dec``
+    run's layers (one dim more than the port's parameter)."""
+    return {n for n in names if n.split(".")[0] in ("enc", "dec") and cfg.use_scan}
