@@ -153,7 +153,18 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    every parameter a finite gradient, the MoE router's nonzero, and a
    second step on the same batch lowers the loss.  It prints ms a step,
    tokens/s, peak memory, the checkpoint's GB and save and restore
-   seconds, each beside the card's name and power limit.
+   seconds, each beside the card's name and power limit;
+15. the flat sharded search layer (run after phase 9, while phase 3's
+   engine and brute force are held): phase 3's clustered-64 corpus built
+   as 8 shards (147,940 rows, 1,156 blocks each) on a one-rank CUDA
+   DeviceMesh in this process through SearchEngine.build(db, mesh=...,
+   n_shards=8), searched at k = 10 and 100: every answer equal to phase
+   3's brute force and to phase 3's single-device engine (tie-aware within
+   1e-5); per call exactly 8 pruned_topk and 8 block_bounds_select
+   launches, block_bounds and merge_splits none, and no scan (counts
+   zeroed before the build).  It prints build s, p50 and QPS, the weighted
+   block_prune_frac beside the single-device engine's, and peak memory,
+   each beside the card's name and power limit.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -3112,6 +3123,146 @@ def merge_routes(_launch, merge_splits, ops, kw, perm):
     return old, times
 
 
+#: phase 15, the sharded search layer: phase 3's corpus split into this
+#: many shards, all on the one card (147,940 rows and 1,156 blocks a shard)
+SHARDED_SHARDS = 8
+
+
+def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
+    """Phase 15: the flat sharded search layer on the card.  Phase 3's
+    corpus (``synth(spec, seed)``) is built as SHARDED_SHARDS shards on a
+    one-rank CUDA ``DeviceMesh`` in this process (a NCCL group of one
+    through a file store under build/; no collective runs with one rank)
+    through ``SearchEngine.build(db, mesh=..., n_shards=...)``, and searched
+    at the spec's ks: a warm-up, REPS timed calls (CUDA events), one more
+    and one under the profiler.  ``kernels`` is (pruned_topk, block_bounds_select, block_bounds,
+    merge_splits), their counts zeroed before the build: every call must
+    launch the first two once per shard and the others never, and the scan
+    (``backends.scan_search``, counted for the phase) must not run.  Every
+    answer is held to phase 3's brute force (``brute``) and to phase 3's
+    single-device engine ``eng`` (tie-aware within 1e-5), which is timed
+    again here, and one call of each is profiled (``device_busy``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels.cosine_topk import default_splits
+    from repro_torch.search import backends
+
+    t_phase = time.perf_counter()
+    pruned_topk, select = kernels[0], kernels[1]
+    db_np, _ = synth(spec, seed)
+    store = ROOT / "build" / "sharded_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    scans = []
+    scan_search = backends.scan_search
+
+    def counted_scan(*a, **kw):
+        scans.append(1)
+        return scan_search(*a, **kw)
+
+    out, results = {"shards": SHARDED_SHARDS, "card": card}, {}
+    for kern in kernels:
+        kern.launches = 0
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    backends.scan_search = counted_scan
+    try:
+        torch.cuda.set_device(0)
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("shard",))
+        torch.cuda.synchronize()
+        out["resident_before_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sh = SearchEngine.build(db_np, mesh=mesh, n_shards=SHARDED_SHARDS, n_pivots=16,
+                                block_size=128)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["index_gb"] = sum(t.numel() * t.element_size() for t in sh.index
+                              if t is not None) / 1e9
+        out["rows_per_shard"] = -(-spec["n"] // SHARDED_SHARDS)
+        out["padded_rows_per_shard"] = int(sh.index.db.shape[1])
+        out["n_blocks_per_shard"] = sh.n_blocks
+        check(sh.backend_name == "sharded" and sh.index.db.shape[0] == SHARDED_SHARDS
+              and sh.n_valid == spec["n"],
+              f"sharded engine: {sh.backend_name}, {tuple(sh.index.db.shape)}, "
+              f"{sh.n_valid} valid rows")
+        calls = 0
+        for k in spec["ks"]:
+            before = [kern.launches for kern in kernels]
+            sh.search(q, k)                                # warm-up
+            ms = cuda_ms(lambda: sh.search(q, k), REPS)
+            sims, ids, st = sh.search(q, k)
+            p50 = float(np.median(ms))
+            profile = device_busy(lambda: sh.search(q, k), p50, top=6)
+            n_calls = REPS + 3
+            calls += n_calls
+            seen = {kern.__name__: kern.launches - b for kern, b in zip(kernels, before)}
+            want = {pruned_topk.__name__: SHARDED_SHARDS * n_calls,
+                    select.__name__: SHARDED_SHARDS * n_calls}
+            check(all(seen[name] == want.get(name, 0) for name in seen),
+                  f"sharded k={k}: launches {seen} in {n_calls} calls of "
+                  f"{SHARDED_SHARDS} shards")
+            results[k] = (sims, ids)
+            out[f"k{k}"] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3), "ms": ms,
+                            "block_prune_frac": float(st.block_prune_frac),
+                            "tile_computed_frac": float(st.tile_computed_frac),
+                            "launches": seen, "calls": n_calls, "profile": profile}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["launches"] = {kern.__name__: kern.launches for kern in kernels}
+        out["scan_calls"] = len(scans)
+        out["search_calls"] = calls
+        check(not scans, f"the sharded search ran the scan {len(scans)} times")
+    finally:
+        backends.scan_search = scan_search
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    # every answer against phase 3's brute force and single-device engine;
+    # that engine timed and profiled again here, beside the shards
+    m, d = q.shape
+    out["splits"] = {"per_shard": default_splits(
+        m, out["padded_rows_per_shard"], d, 16, bm=sh.bm, bn=128, device=q.device),
+        "single": default_splits(m, eng.index.db.shape[0], d, 16, bm=eng.bm, bn=128,
+                                 device=q.device)}
+    for k, (sims, ids) in results.items():
+        name = f"sharded k{k}"
+        out[f"k{k}"]["max_abs_err_vs_brute"] = exactness(spec, name, k, sims, ids, brute)[0]
+        eng.search(q, k)                                   # warm-up
+        single_ms = cuda_ms(lambda: eng.search(q, k), REPS)
+        single_p50 = float(np.median(single_ms))
+        out[f"k{k}"].update(single_p50_ms=single_p50, single_ms=single_ms,
+                            single_profile=device_busy(lambda: eng.search(q, k), single_p50,
+                                                       top=6))
+        s1, i1, _ = eng.search(q, k)
+        s1, i1, s_g, i_g = (x.cpu().numpy() for x in (s1, i1, sims, ids))
+        err = float(np.abs(s_g - s1).max())
+        bad = tie_aware_mismatches(s_g, i_g, s1, i1, 1e-5)
+        out[f"k{k}"].update(max_abs_err_vs_single=err, rows_differing_vs_single=bad)
+        log(f"[sharded] {name} vs the single-device engine: max |sim diff| {err:.3e}, "
+            f"rows differing beyond near-ties: {bad}")
+        check(err <= 1e-5 and bad == 0, f"{name} differs from the single-device engine")
+    out["seconds"] = time.perf_counter() - t_phase
+    said = "; ".join(
+        f"k = {k}: p50 {r['p50_ms']:.3f} ms (single device {r['single_p50_ms']:.3f}), "
+        f"QPS {r['qps']:.1f}, block_prune_frac {r['block_prune_frac']:.4f}, card busy "
+        f"{r['profile']['busy_ms']:.3f} ms ({r['single_profile']['busy_ms']:.3f})"
+        for k, r in ((k, out[f"k{k}"]) for k in spec["ks"]))
+    for k in spec["ks"]:
+        for who in ("profile", "single_profile"):
+            top = [(name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                    .split("(")[0][:48], round(ms, 3))
+                   for name, ms in out[f"k{k}"][who]["top"]]
+            log(f"[sharded] k = {k}, {'8 shards' if who == 'profile' else 'single device'}: "
+                f"top device events (ms) {top}")
+    log(f"[sharded] phase 15 on {card}: {SHARDED_SHARDS} shards of "
+        f"{out['rows_per_shard']:,} rows ({out['n_blocks_per_shard']:,} blocks) on a "
+        f"one-rank CUDA mesh; build {out['build_s']:.2f} s; {said}; peak "
+        f"{out['peak_gb']:.2f} GB ({out['resident_before_gb']:.2f} GB resident before, "
+        f"the index {out['index_gb']:.2f} GB); launches {out['launches']} in "
+        f"{out['search_calls']} calls, scan calls {out['scan_calls']}; splits "
+        f"{out['splits']}; {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3589,6 +3740,17 @@ def main(argv=None) -> int:
     del eng256, q256, brute256
     torch.cuda.empty_cache()
 
+    # 15. the sharded search layer on phase 3's corpus, held to phase 3's
+    # brute force and engine while they are at hand
+    report["sharded"] = phase_sharded(
+        CLUSTERED64, args.seed, eng64, q64, brute64, SearchEngine,
+        (pruned_topk, block_bounds_select, block_bounds, merge_splits), card)
+    sharded = report["sharded"]["launches"]
+    log(f"[prune] sharded k10: block_prune_frac "
+        f"{report['sharded']['k10']['block_prune_frac']:.4f} (single-device engine: "
+        f"{report['clustered64']['k10']['block_prune_frac']:.4f})")
+    torch.cuda.empty_cache()
+
     # 10. online mutation at full size on copies of phase 3's index
     report["online"], online_eng, live = phase_online(
         eng64, q64, brute64, args.seed, args.seed + 5, st_kernels,
@@ -3646,6 +3808,7 @@ def main(argv=None) -> int:
     bb_entry["tree_node_tables"] = phase7["node_tables"]
     online, serving = report["online"]["launches"], report["serving"]["launches"]
     topk_entry["launches_by_path"] = {"main": topk_entry["launches"],
+                                      "sharded": sharded["pruned_topk"],
                                       "tree_kernel_leaves": gather_entry["launches"],
                                       "online_kernel": online["kernel"]["pruned_topk"],
                                       "online_tree": online["tree"]["pruned_topk"],
@@ -3663,11 +3826,13 @@ def main(argv=None) -> int:
     bb_entry["launches_by_path"].update(
         online_tree=online["tree"]["block_bounds"],
         online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"],
+        sharded=sharded["block_bounds"],
         knn_lm=knn_lm["block_bounds"], model_families=families["block_bounds"],
         train=train["block_bounds"])
     bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
     sel_entry["launches_by_path"] = {
-        "main": sel_entry["launches"], "online_kernel": online["kernel"]["block_bounds_select"],
+        "main": sel_entry["launches"], "sharded": sharded["block_bounds_select"],
+        "online_kernel": online["kernel"]["block_bounds_select"],
         "online_tree": online["tree"]["block_bounds_select"],
         "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"],
         "model_families": families["block_bounds_select"],

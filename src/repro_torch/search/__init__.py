@@ -3,7 +3,8 @@
   engine   — :class:`SearchEngine` (build, query prep, τ warm-start,
              best-first order, id mapping, stats); ``.online()`` hands out
              the engine's :class:`MutableIndex` mutation handle
-  backends — registry + the ``scan``, ``kernel`` and ``brute`` inner loops
+  backends — registry + the ``scan``, ``kernel``, ``sharded`` and ``brute``
+             inner loops
   tree     — the pivot-tree backend (``backend="tree"``): transitive Eq. 13
              descent over an array-encoded balanced tree, then the scan
              or the kernel leaf stage (``leaf_eval``)

@@ -14,6 +14,9 @@ and registers itself under a name with :func:`register_backend`:
               unnecessary are skipped), fed by the ``block_bounds_select``
               kernel
   ``brute``   full matmul + top-k (baseline / tiny datastores)
+  ``sharded`` a shard-stacked index: each shard's stage above for its
+              device (``kernel`` on CUDA, ``scan`` on the CPU), then a
+              top-k merge over the mesh (:mod:`repro_torch.core.distributed`)
 
 The shared helpers (query prep, τ warm-start seeding, best-first tile
 order) follow the reference line by line; every ``argsort`` is stable, as
@@ -432,4 +435,35 @@ class BruteBackend:
         raw = {"block_prune_frac": 0.0}
         if element_stats:
             raw["elem_prune_frac"] = 0.0
+        return s, ids, raw
+
+
+@register_backend("sharded")
+class ShardedBackend:
+    """Per-shard search plus the all-gather top-k merge, over the engine's
+    shard-stacked index and mesh (``mesh=None``: every shard in this
+    process).  Every rank of the mesh passes the same queries, as in the
+    reference's contract; they are not gathered.  On CUDA each shard runs
+    the hand-written kernels (no fallback), on the CPU the scan loop, and
+    the stats are summed over every shard (``tile_computed_frac`` on
+    CUDA).  The reference's per-shard trees (``tree_shards``) are not
+    ported (ROADMAP Queue 1)."""
+
+    name = "sharded"
+
+    def run(self, eng, queries, k, *, prune=True, element_stats=False):
+        from repro_torch.core.distributed import make_sharded_search
+
+        fn = make_sharded_search(
+            eng.mesh, eng.axis_names, with_stats=True, prune=prune,
+            warm_start=eng.warm_start, best_first=eng.best_first,
+            warm_start_blocks=eng.warm_start_blocks, element_stats=element_stats,
+            margin=eng.margin, n_pivots=eng.n_pivots, bm=eng.bm, bn=eng.bn,
+            sort_queries=eng.sort_queries)
+        s, ids, frac, efrac = fn(eng.index, queries, k)
+        raw = {"block_prune_frac": frac}
+        if eng.index.db.device.type == "cuda":
+            raw["tile_computed_frac"] = 1.0 - frac
+        if element_stats:
+            raw["elem_prune_frac"] = efrac
         return s, ids, raw

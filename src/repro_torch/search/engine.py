@@ -8,15 +8,19 @@ Counterpart of :mod:`repro.search.engine`::
 τ warm-start and best-first tile ordering are engine policy (on by
 default); they change how fast τ rises, never the result set, which stays
 the brute-force one.  Ported backends: ``kernel``, ``scan``, ``tree`` (with
-its scan and kernel leaf stages) and ``brute``; ``engine.online()`` hands
-out the :class:`~repro_torch.core.online.MutableIndex` that inserts,
-deletes and rebuilds under a live engine.
+its scan and kernel leaf stages), ``brute`` and ``sharded``
+(``SearchEngine.build(db, mesh=...)``: the rows split into shards over a
+``torch.distributed`` device mesh, :mod:`repro_torch.core.distributed`);
+``engine.online()`` hands out the
+:class:`~repro_torch.core.online.MutableIndex` that inserts, deletes and
+rebuilds under a live engine (not on a sharded engine yet).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.index import BlockIndex, build_index
 from repro_torch.device import resolve_device
@@ -35,18 +39,17 @@ _TREE_MIN_BLOCKS = 256
 _LEAF_EVALS = ("scan", "kernel", "auto")
 
 
-def auto_backend(index: BlockIndex) -> str:
-    """``brute`` for tiny datastores (≤ 256 padded rows).  Past that, on a
+def auto_backend(index: BlockIndex, mesh=None) -> str:
+    """``sharded`` for a shard-stacked index or when a mesh is given;
+    ``brute`` for tiny datastores (≤ 256 padded rows).  Past that, on a
     CUDA index ``kernel`` when ``d ≤ 4096``, else ``brute``; on a CPU index
     the reference's rule off the TPU: ``tree`` from 256 blocks, else
-    ``scan``.  A shard-stacked index raises: the sharded backend is not
-    ported.
+    ``scan``.
 
     The scan and tree follow the reference again since their bound is
     sound near ±1 (``core/index.py:interval_upper_bound``)."""
-    if index.db.ndim == 3:
-        raise ValueError("shard-stacked indexes need the sharded backend, "
-                         "which repro_torch does not have yet")
+    if index.db.ndim == 3 or mesh is not None:
+        return "sharded"
     n_pad, d = index.db.shape
     if n_pad <= _BRUTE_MAX_ROWS:
         return "brute"
@@ -60,8 +63,17 @@ class SearchEngine:
 
     Args (the reference's knobs and defaults):
       index: the block index; moved to ``device`` if it lies elsewhere.
-      backend: ``"kernel"``, ``"scan"``, ``"tree"``, ``"brute"`` or
-        ``"auto"`` (default, :func:`auto_backend`).
+      backend: ``"kernel"``, ``"scan"``, ``"tree"``, ``"brute"``,
+        ``"sharded"`` or ``"auto"`` (default, :func:`auto_backend`).
+      mesh / axis_names: the ``torch.distributed`` ``DeviceMesh`` a
+        shard-stacked index (this rank's shards, ``[L, ...]``) is spread
+        over, and the dims it shards along (default all); ``mesh=None``
+        with a stacked index searches every shard in this process.
+      tree_shards: the reference's per-shard pivot trees.  Not ported:
+        ``True`` raises ``NotImplementedError`` (ROADMAP Queue 1); ``None``
+        (default), which the reference turns on from 256 blocks a shard,
+        and ``False`` search the shards flat, with the same results and
+        no ``tree_prune_frac``.
       warm_start: seed each query's τ by exact-scoring its best-bound tiles.
       warm_start_blocks: widen that prescan (``None``: the ``ceil(k / bn)``
         floor).
@@ -89,10 +101,13 @@ class SearchEngine:
         index: BlockIndex,
         *,
         backend: str = "auto",
+        mesh=None,
+        axis_names=None,
         warm_start: bool = True,
         warm_start_blocks: int | None = None,
         best_first: bool | None = None,
         element_stats: bool = False,
+        tree_shards: bool | None = None,
         n_pivots: int | None = None,
         margin: float = 4e-7,
         leaf_eval: str = "auto",
@@ -105,10 +120,30 @@ class SearchEngine:
         if index.db.device != self.device:
             index = index.to(self.device)
         self.index = index
-        if index.db.ndim == 3:
-            raise ValueError("shard-stacked indexes need the sharded backend, "
-                             "which repro_torch does not have yet")
-        self.backend_name = auto_backend(index) if backend == "auto" else backend
+        self.mesh = mesh
+        self.axis_names = axis_names
+        self.backend_name = (auto_backend(index, mesh) if backend == "auto"
+                             else backend)
+        # the reference's two guards: a flat index cannot serve the sharded
+        # backend, and a stacked one is served by it alone
+        if self.backend_name == "sharded" and index.db.ndim != 3:
+            raise ValueError(
+                "the 'sharded' backend needs a shard-stacked BlockIndex "
+                "(leading [S, ...] shard axis); this index is flat 2D. Build "
+                "one with SearchEngine.build(db, mesh=...) or repro_torch.core."
+                "distributed.build_sharded_index(...), or drop mesh= / pass "
+                "backend='scan' to search the flat index.")
+        if index.db.ndim == 3 and self.backend_name != "sharded":
+            raise ValueError(
+                f"a shard-stacked BlockIndex is served by the 'sharded' backend "
+                f"only (got backend={self.backend_name!r}); pass mesh= (and "
+                f"backend='auto') to search it.")
+        if tree_shards and self.backend_name == "sharded":
+            raise NotImplementedError(
+                "tree_shards=True: the per-shard pivot trees are not ported "
+                "(ROADMAP Queue 1); tree_shards=None or False searches the "
+                "shards flat")
+        self.tree_shards = tree_shards
         self.backend = _bk.get_backend(self.backend_name)
         self.warm_start = warm_start
         self.warm_start_blocks = (warm_start_blocks if warm_start_blocks is not None
@@ -134,10 +169,20 @@ class SearchEngine:
         self.bm = bm
         self.bn = bn
         self.sort_queries = sort_queries
-        self.n_valid = int(index.valid.sum())
-        self.n_blocks = index.n_blocks
-        #: padded row slots: the most candidates a search can return
-        self.n_slots = int(index.db.shape[0])
+        self.n_blocks = int(index.dp_min.shape[-2])     # per shard
+        n_valid, n_slots = index.valid.sum(), int(index.db.shape[-2])
+        if index.db.ndim == 3:
+            # every shard of every rank of the mesh's group
+            from repro_torch.core.distributed import shard_group
+            group = shard_group(mesh, axis_names)
+            n_slots *= index.db.shape[0] * (1 if group is None
+                                            else dist.get_world_size(group))
+            if group is not None:
+                dist.all_reduce(n_valid, group=group)
+        self.n_valid = int(n_valid)
+        #: padded row slots across all shards: the most candidates a search
+        #: can return
+        self.n_slots = n_slots
 
     @classmethod
     def build(
@@ -149,6 +194,10 @@ class SearchEngine:
         pivot_method: str = "maxmin",
         reorder: bool = True,
         seed: int = 0,
+        n_shards: int | None = None,
+        mesh=None,
+        distributed: bool = False,
+        global_rows: int | None = None,
         bound_pivots: int | None = None,
         device=None,
         **engine_kw: Any,
@@ -157,13 +206,54 @@ class SearchEngine:
 
         ``n_pivots`` is the index pivot count; ``bound_pivots`` the engine's
         search-time joint-bound depth (``n_pivots`` knob).
+
+        Pass ``mesh`` (and optionally ``n_shards``, default one shard per
+        rank of the mesh's flattened ``axis_names``) to build a sharded
+        datastore served by the ``sharded`` backend.  Each rank builds only
+        its own shards, from its rows of ``db``, on its device; the mesh's
+        device type must be ``device``'s.  ``distributed=True`` (needs
+        ``mesh``) makes ``db`` only this rank's slice of the datastore (the
+        rows its shards cover, :func:`~repro_torch.core.distributed.
+        local_shard_rows`) and ``global_rows`` the total row count across
+        all ranks (defaults to ``len(db)`` only with one process).  Either
+        way each rank's index equals its slice of ``build_sharded_index(
+        full_db, n_shards)`` (``reorder`` and ``seed`` apply to flat builds
+        only, as in the reference).
         """
         if bound_pivots is not None:
             engine_kw["n_pivots"] = bound_pivots
-        idx = build_index(db, n_pivots=n_pivots, block_size=block_size,
-                          pivot_method=pivot_method, reorder=reorder,
-                          seed=seed, device=device)
-        return cls(idx, device=device, **engine_kw)
+        if distributed and mesh is None:
+            raise ValueError("SearchEngine.build(distributed=True) needs mesh= (the "
+                             "mesh the datastore shards across)")
+        if mesh is None:
+            idx = build_index(db, n_pivots=n_pivots, block_size=block_size,
+                              pivot_method=pivot_method, reorder=reorder,
+                              seed=seed, device=device)
+            return cls(idx, device=device, **engine_kw)
+        from repro_torch.core.distributed import (build_sharded_index_local,
+                                                  local_shard_rows)
+        dev = resolve_device(device)
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device_type!r} but the engine's "
+                             f"device is {str(dev)!r}")
+        axis_names = engine_kw.get("axis_names")
+        if distributed:
+            if global_rows is None:
+                if dist.is_initialized() and dist.get_world_size() > 1:
+                    raise ValueError(
+                        "SearchEngine.build(distributed=True) with several "
+                        "processes needs global_rows= (db holds only this rank's "
+                        "slice)")
+                global_rows = len(db)
+        else:
+            global_rows = len(db)
+            _, owned = local_shard_rows(global_rows, mesh, axis_names, n_shards=n_shards)
+            db = db[owned[0][1]:owned[-1][2]]
+        idx = build_sharded_index_local(
+            db, mesh, global_rows=global_rows, axis_names=axis_names,
+            n_shards=n_shards, n_pivots=n_pivots, block_size=block_size,
+            pivot_method=pivot_method)
+        return cls(idx, mesh=mesh, device=device, **engine_kw)
 
     def online(self, **kw):
         """The engine's :class:`~repro_torch.core.online.MutableIndex`
@@ -172,7 +262,13 @@ class SearchEngine:
         Keyword args (``reoptimize_threshold``, ``auto_reoptimize``) are
         taken on the first call only.  The handle installs its own copy of
         the index, which it then writes in place, so an index this engine
-        shares with others is never changed under them."""
+        shares with others is never changed under them.  A sharded engine
+        raises ``NotImplementedError``: the reference's
+        ``ShardedMutableIndex`` is not ported (ROADMAP Queue 1)."""
+        if self.index.db.ndim == 3:
+            raise NotImplementedError(
+                "online mutation of a sharded engine (ShardedMutableIndex) is not "
+                "ported yet (ROADMAP Queue 1)")
         if self._online is None:
             from repro_torch.core.online import MutableIndex
             self._online = MutableIndex(self, **kw)

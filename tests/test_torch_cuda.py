@@ -696,6 +696,50 @@ def test_engine_search_launches_no_merge_splits(cuda):
                            s_b.astype(np.float32), i_b.astype(np.int32), tol=1e-5)
 
 
+@pytest.mark.cuda
+def test_sharded_engine_on_cuda_runs_the_kernels_per_shard(cuda, tmp_path):
+    """SearchEngine.build(db, mesh=...) on a one-rank CUDA mesh holding 4
+    shards: each search call launches pruned_topk and block_bounds_select
+    once per shard, block_bounds never (no scan), and equals brute force;
+    a 4-shard index in this process without a mesh gives the same."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import build_sharded_index
+    from repro_torch.search import SearchEngine
+
+    rng = np.random.default_rng(23)
+    db = clustered(rng, 20_000, 32, n_centers=8, noise=0.05)
+    q = db[rng.integers(0, 20_000, 1_000)] + 0.03 * rng.normal(size=(1_000, 32))
+    qn = cref.normalize(q).astype(np.float32)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("shard",))
+        eng = SearchEngine.build(db, mesh=mesh, n_shards=4, n_pivots=16, block_size=128)
+        plain = SearchEngine(build_sharded_index(db, 4, n_pivots=16, block_size=128),
+                             device=cuda)
+        assert eng.backend_name == "sharded" and eng.index.db.device.type == "cuda"
+        for k in (1, 10, 100):
+            before = (pruned_topk.launches, block_bounds_select.launches,
+                      block_bounds.launches)
+            sims, ids, st = eng.search(qn, k)
+            after = (pruned_topk.launches, block_bounds_select.launches,
+                     block_bounds.launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 0)
+            s_b, i_b = cref.brute_force_knn(qn, db, k)
+            np.testing.assert_allclose(sims.cpu().numpy(), s_b, atol=1e-5)
+            assert_topk_sets_close(sims.cpu().numpy(), ids.cpu().numpy(),
+                                   s_b.astype(np.float32), i_b.astype(np.int32), tol=1e-5)
+            assert 0.0 < float(st.block_prune_frac) < 1.0
+            assert float(st.tile_computed_frac) == 1.0 - float(st.block_prune_frac)
+            s2, i2, _ = plain.search(qn, k)
+            assert torch.equal(s2, sims) and torch.equal(i2, ids)
+    finally:
+        dist.destroy_process_group()
+
+
 def descent_near_decisions(eng, qn, qp, k) -> int:
     """(query, node) decisions of the tree engine's descent whose gap
     (bound + margin - τ₀) lies within 2·margin: where the descent of two

@@ -230,12 +230,13 @@ def test_auto_backend_and_defaults():
     with pytest.raises(ValueError, match="leaf_eval"):
         SearchEngine(big, backend="tree", leaf_eval="pallas", device="cpu")
     assert SearchEngine(big, backend="tree", device="cpu").leaf_eval == "auto"
+    # a shard-stacked index is the sharded backend's, and only its (the
+    # reference's two guards)
     stacked = small._replace(db=small.db[None])
+    assert auto_backend(stacked) == "sharded"
     with pytest.raises(ValueError, match="sharded"):
-        auto_backend(stacked)
-    with pytest.raises(ValueError, match="sharded"):
-        SearchEngine(stacked, device="cpu")
-    with pytest.raises(ValueError, match="unknown search backend"):
+        SearchEngine(stacked, backend="scan", device="cpu")
+    with pytest.raises(ValueError, match="shard-stacked"):
         SearchEngine(big, backend="sharded", device="cpu")
     assert t_defaults.REGIME_WIDTH_THRESHOLD == j_defaults.REGIME_WIDTH_THRESHOLD
     for knob, v in t_defaults.FALLBACK_DEFAULTS.items():
