@@ -154,17 +154,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    second step on the same batch lowers the loss.  It prints ms a step,
    tokens/s, peak memory, the checkpoint's GB and save and restore
    seconds, each beside the card's name and power limit;
-15. the flat sharded search layer (run after phase 9, while phase 3's
-   engine and brute force are held): phase 3's clustered-64 corpus built
-   as 8 shards (147,940 rows, 1,156 blocks each) on a one-rank CUDA
-   DeviceMesh in this process through SearchEngine.build(db, mesh=...,
-   n_shards=8), searched at k = 10 and 100: every answer equal to phase
-   3's brute force and to phase 3's single-device engine (tie-aware within
-   1e-5); per call exactly 8 pruned_topk and 8 block_bounds_select
-   launches, block_bounds and merge_splits none, and no scan (counts
-   zeroed before the build).  It prints build s, p50 and QPS, the weighted
-   block_prune_frac beside the single-device engine's, and peak memory,
-   each beside the card's name and power limit.
+15. the sharded search layer (run after phase 9, while phase 3's engine
+   and brute force are held): phase 3's clustered-64 corpus built as 8
+   shards (147,940 rows, 1,156 blocks each) on a one-rank CUDA DeviceMesh
+   in this process through SearchEngine.build(db, mesh=..., n_shards=8),
+   counts zeroed before the build and no scan in the phase.  a. flat
+   (tree_shards=False) at k = 10 and 100: per call exactly 8 pruned_topk
+   and 8 block_bounds_select launches, block_bounds and merge_splits none;
+   b. the shard trees (an engine on the same index, tree_shards left to
+   the auto rule, which must turn them on) at k = 10 and 100: per call 8
+   pruned_topk (gathered_topk's) and 8 x (levels + 1) block_bounds
+   launches, the levels read off the shard trees; every answer of a and b
+   equal to phase 3's brute force and single-device engine (tie-aware
+   within 1e-5); c. the tree engine's online handle: inserts of 16 rows,
+   deletes of 4, an insert that appends a block to every shard and a
+   reoptimize, each search after them equal to the brute force over the
+   live rows.  It prints build s, p50 and QPS, the weighted prune
+   fractions, the kept blocks per shard, the profile's busy ms by kernel,
+   insert and delete us and peak memory, each beside the card's name and
+   power limit.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -879,7 +887,7 @@ class LiveRows:
     def __init__(self, index, capacity):
         valid = index.valid
         n = int(valid.sum())
-        self.rows = index.db.new_zeros((capacity, index.db.shape[1]))
+        self.rows = index.db.new_zeros((capacity, index.db.shape[-1]))
         self.rows[index.row_ids[valid].long()] = index.db[valid]
         self.alive = torch.zeros(capacity, dtype=torch.bool, device=index.device)
         self.alive[:n] = True
@@ -3126,46 +3134,185 @@ def merge_routes(_launch, merge_splits, ops, kw, perm):
 #: phase 15, the sharded search layer: phase 3's corpus split into this
 #: many shards, all on the one card (147,940 rows and 1,156 blocks a shard)
 SHARDED_SHARDS = 8
+#: phase 15c: rows a shape-stable insert takes, ids a delete takes, rounds
+#: of the two, and the queries each mutation's search is held to the live
+#: brute force with
+SHARDED_INSERT, SHARDED_DELETE, SHARDED_ROUNDS, SHARDED_QUERIES = 16, 4, 3, 1000
+
+
+def sharded_searches(label, sh, q, spec, kernels, want_per_call, scans, kept=None):
+    """Phase 15a / 15b at each k of the spec on the sharded engine ``sh``: a
+    warm-up, REPS timed calls (CUDA events), one more and one under the
+    profiler, every launch of ``kernels`` counted over them and held to
+    ``want_per_call(k, stats)`` per call, and no scan (``scans`` counts
+    them).  ``kept`` (a list the tree's kernel leaf stage appends each
+    shard's kept blocks to) gives the last call's kept blocks per shard.
+    Returns ({k: report}, {k: (sims, ids)})."""
+    out, results = {}, {}
+    for k in spec["ks"]:
+        before = [kern.launches for kern in kernels]
+        n_scans = len(scans)
+        sh.search(q, k)                                    # warm-up
+        ms = cuda_ms(lambda: sh.search(q, k), REPS)
+        if kept is not None:
+            kept.clear()
+        sims, ids, st = sh.search(q, k)
+        n_kept = list(kept) if kept is not None else None
+        p50 = float(np.median(ms))
+        profile = device_busy(lambda: sh.search(q, k), p50, top=6)
+        n_calls = REPS + 3
+        seen = {kern.__name__: kern.launches - b for kern, b in zip(kernels, before)}
+        want = {name: n * n_calls for name, n in want_per_call(k, st).items()}
+        check(all(seen[name] == want.get(name, 0) for name in seen),
+              f"sharded {label} k={k}: launches {seen} in {n_calls} calls, want {want}")
+        check(len(scans) == n_scans, f"sharded {label} k={k}: the scan ran")
+        results[k] = (sims, ids)
+        r = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3), "ms": ms,
+             "block_prune_frac": float(st.block_prune_frac),
+             "tile_computed_frac": float(st.tile_computed_frac),
+             "launches": seen, "calls": n_calls, "profile": profile}
+        if st.tree_prune_frac is not None:
+            r.update(tree_prune_frac=float(st.tree_prune_frac),
+                     tree_node_eval_frac=float(st.tree_node_eval_frac),
+                     tree_levels=st.extras["tree_levels"], kept_blocks=n_kept)
+        out[k] = r
+    return out, results
+
+
+def sharded_online(tr, q, spec, seed, kernels, levels_of):
+    """Phase 15c: the tree engine's ShardedMutableIndex (its own copy of
+    the index) through SHARDED_ROUNDS rounds of {insert SHARDED_INSERT
+    mixture rows, delete SHARDED_DELETE live ids}, one insert of one row
+    more than every free slot (one block appended to every shard), and one
+    reoptimize.  After every mutation the search at k = 10 of the first
+    SHARDED_QUERIES queries is held to LiveRows.matches, with 8 pruned_topk
+    and 8 x (levels_of(stats) + 1) block_bounds launches; after the first
+    insert the widened shard trees equal build_shard_trees bit for bit."""
+    from repro_torch.search import build_shard_trees
+
+    pruned_topk, select, block_bounds = kernels[0], kernels[1], kernels[2]
+    t0 = time.perf_counter()
+    h = tr.online(auto_reoptimize=False)
+    handle_s = time.perf_counter() - t0
+    live = LiveRows(tr.index, spec["n"] + 10_000)
+    rng = np.random.default_rng(seed + 15)
+    centres = mixture_centres(spec, seed)
+    qs = q[:SHARDED_QUERIES]
+    out = {"handle_s": handle_s, "insert_us": [], "delete_us": [], "steps": []}
+
+    def timed(op, *arg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = getattr(h, op)(*arg)
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t) * 1e6
+
+    def search(label):
+        for kern in kernels:
+            kern.launches = 0
+        sims, ids, st = tr.search(qs, 10)
+        torch.cuda.synchronize()
+        seen = {kern.__name__: kern.launches for kern in kernels}
+        want = {pruned_topk.__name__: SHARDED_SHARDS,
+                block_bounds.__name__: SHARDED_SHARDS * (levels_of(st) + 1)}
+        check(all(seen[name] == want.get(name, 0) for name in seen),
+              f"sharded online {label}: launches {seen}, want {want}")
+        ok, err_b, err_t = live.matches(qs, sims, ids, 10)
+        check(ok, f"sharded online {label}: not the brute force over the live rows "
+                  f"(max |sim - brute| {err_b:.3e}, |sim - true| {err_t:.3e})")
+        out["steps"].append({"step": label, "max_err_vs_brute": err_b, "launches": seen,
+                             "n_live": h.n_live, "n_blocks": tr.n_blocks,
+                             "index_epoch": tr.index_epoch,
+                             "tree_prune_frac": float(st.tree_prune_frac),
+                             "block_prune_frac": float(st.block_prune_frac)})
+
+    search("start")
+    for r in range(SHARDED_ROUNDS):
+        rows = mixture_draw(rng, centres, SHARDED_INSERT, spec["noise"])
+        ids, us = timed("insert", rows)
+        out["insert_us"].append(us)
+        live.insert(ids, rows)
+        check(tr.index_epoch == 0, "a 16-row sharded insert changed the shape")
+        if r == 0:
+            same = all(torch.equal(a, b) for a, b in zip(tr._shard_tree,
+                                                          build_shard_trees(tr.index)))
+            out["widened_equals_rebuilt"] = same
+            check(same, "the widened shard trees differ from build_shard_trees")
+        search(f"insert {r}")
+        dead = rng.choice(live.live_ids(), SHARDED_DELETE, replace=False).tolist()
+        _, us = timed("delete", dead)
+        out["delete_us"].append(us)
+        live.delete(dead)
+        search(f"delete {r}")
+    free = sum(len(f) for f in h._free)
+    rows = mixture_draw(rng, centres, free + 1, spec["noise"])
+    ids, us = timed("insert", rows)
+    out["grow_insert"] = {"rows": free + 1, "us": us}
+    live.insert(ids, rows)
+    check(tr.index_epoch == 1 and tr.n_blocks == out["steps"][0]["n_blocks"] + 1,
+          f"the insert past every tail left epoch {tr.index_epoch}, {tr.n_blocks} blocks")
+    search("grow")
+    _, us = timed("reoptimize")
+    out["reoptimize_s"] = us / 1e6
+    search("reoptimize")
+    out["placed_per_shard"] = np.bincount([s for s, _ in h._id_pos.values()],
+                                          minlength=SHARDED_SHARDS).tolist()
+    return out
 
 
 def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
-    """Phase 15: the flat sharded search layer on the card.  Phase 3's
-    corpus (``synth(spec, seed)``) is built as SHARDED_SHARDS shards on a
-    one-rank CUDA ``DeviceMesh`` in this process (a NCCL group of one
-    through a file store under build/; no collective runs with one rank)
-    through ``SearchEngine.build(db, mesh=..., n_shards=...)``, and searched
-    at the spec's ks: a warm-up, REPS timed calls (CUDA events), one more
-    and one under the profiler.  ``kernels`` is (pruned_topk, block_bounds_select, block_bounds,
-    merge_splits), their counts zeroed before the build: every call must
-    launch the first two once per shard and the others never, and the scan
-    (``backends.scan_search``, counted for the phase) must not run.  Every
-    answer is held to phase 3's brute force (``brute``) and to phase 3's
-    single-device engine ``eng`` (tie-aware within 1e-5), which is timed
-    again here, and one call of each is profiled (``device_busy``)."""
+    """Phase 15: the sharded search layer on the card.  Phase 3's corpus
+    (``synth(spec, seed)``) is built as SHARDED_SHARDS shards on a one-rank
+    CUDA ``DeviceMesh`` in this process (a NCCL group of one through a file
+    store under build/; no collective runs with one rank) through
+    ``SearchEngine.build(db, mesh=..., n_shards=...)``.  ``kernels`` is
+    (pruned_topk, block_bounds_select, block_bounds, merge_splits), their
+    counts zeroed before the build; the scan (``backends.scan_search``) is
+    counted for the phase and must not run.
+
+    a. flat (``tree_shards=False``): every call launches pruned_topk and
+       block_bounds_select once per shard and the others never;
+    b. the shard trees, an engine on the same index with ``tree_shards``
+       left to the auto rule (trees from 256 blocks a shard): every call
+       launches per shard one pruned_topk (the kernel leaf stage's
+       gathered_topk) and the descent's levels + 1 block_bounds (the
+       levels read off the shard trees' heap), no select kernel;
+    c. the tree engine's online handle (sharded_online).
+
+    15a and 15b run at the spec's ks (sharded_searches), every answer held
+    to phase 3's brute force (``brute``) and to phase 3's single-device
+    engine ``eng`` (tie-aware within 1e-5), which is timed and profiled
+    again here."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.kernels.cosine_topk import default_splits
     from repro_torch.search import backends
+    from repro_torch.search import tree as t_tree
 
     t_phase = time.perf_counter()
-    pruned_topk, select = kernels[0], kernels[1]
+    pruned_topk, select, block_bounds = kernels[0], kernels[1], kernels[2]
     db_np, _ = synth(spec, seed)
     store = ROOT / "build" / "sharded_store"
     store.parent.mkdir(parents=True, exist_ok=True)
     store.unlink(missing_ok=True)
-    scans = []
-    scan_search = backends.scan_search
+    scans, kept = [], []
+    scan_search, tree_kernel_search = backends.scan_search, t_tree.tree_kernel_search
 
     def counted_scan(*a, **kw):
         scans.append(1)
         return scan_search(*a, **kw)
 
-    out, results = {"shards": SHARDED_SHARDS, "card": card}, {}
+    def recorded_leaves(*a, **kw):
+        res = tree_kernel_search(*a, **kw)
+        kept.append(int(res[-1].numel()))
+        return res
+
+    out = {"shards": SHARDED_SHARDS, "card": card}
     for kern in kernels:
         kern.launches = 0
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
-    backends.scan_search = counted_scan
+    backends.scan_search, t_tree.tree_kernel_search = counted_scan, recorded_leaves
     try:
         torch.cuda.set_device(0)
         mesh = DeviceMesh("cuda", [0], mesh_dim_names=("shard",))
@@ -3174,7 +3321,7 @@ def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sh = SearchEngine.build(db_np, mesh=mesh, n_shards=SHARDED_SHARDS, n_pivots=16,
-                                block_size=128)
+                                block_size=128, tree_shards=False)
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
         out["index_gb"] = sum(t.numel() * t.element_size() for t in sh.index
@@ -3183,37 +3330,50 @@ def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
         out["padded_rows_per_shard"] = int(sh.index.db.shape[1])
         out["n_blocks_per_shard"] = sh.n_blocks
         check(sh.backend_name == "sharded" and sh.index.db.shape[0] == SHARDED_SHARDS
-              and sh.n_valid == spec["n"],
+              and sh.n_valid == spec["n"] and not sh._tree_shards_enabled,
               f"sharded engine: {sh.backend_name}, {tuple(sh.index.db.shape)}, "
-              f"{sh.n_valid} valid rows")
-        calls = 0
-        for k in spec["ks"]:
-            before = [kern.launches for kern in kernels]
-            sh.search(q, k)                                # warm-up
-            ms = cuda_ms(lambda: sh.search(q, k), REPS)
-            sims, ids, st = sh.search(q, k)
-            p50 = float(np.median(ms))
-            profile = device_busy(lambda: sh.search(q, k), p50, top=6)
-            n_calls = REPS + 3
-            calls += n_calls
-            seen = {kern.__name__: kern.launches - b for kern, b in zip(kernels, before)}
-            want = {pruned_topk.__name__: SHARDED_SHARDS * n_calls,
-                    select.__name__: SHARDED_SHARDS * n_calls}
-            check(all(seen[name] == want.get(name, 0) for name in seen),
-                  f"sharded k={k}: launches {seen} in {n_calls} calls of "
-                  f"{SHARDED_SHARDS} shards")
-            results[k] = (sims, ids)
-            out[f"k{k}"] = {"p50_ms": p50, "qps": spec["m"] / (p50 / 1e3), "ms": ms,
-                            "block_prune_frac": float(st.block_prune_frac),
-                            "tile_computed_frac": float(st.tile_computed_frac),
-                            "launches": seen, "calls": n_calls, "profile": profile}
+              f"{sh.n_valid} valid rows, shard trees {sh._tree_shards_enabled}")
+        flat_calls = {pruned_topk.__name__: SHARDED_SHARDS, select.__name__: SHARDED_SHARDS}
+        out["flat"], results = sharded_searches("flat", sh, q, spec, kernels,
+                                                lambda k, st: flat_calls, scans)
+
+        # b. the shard trees by the auto rule, on the same index
+        tr = SearchEngine(sh.index, mesh=mesh)
+        check(tr.tree_shards is None and tr._tree_shards_enabled,
+              f"the auto rule left the shard trees off at {tr.n_blocks} blocks a shard")
+        t0 = time.perf_counter()
+        tree = backends.get_backend("sharded")._shard_tree(tr)
+        torch.cuda.synchronize()
+        out["tree_build_s"] = time.perf_counter() - t0
+        levels = (tree.node_valid.shape[1] // 2).bit_length() - 1
+        out["tree_levels"] = levels
+
+        def tree_calls(k, st):
+            check(st.extras["tree_levels"] == levels, "the shard trees' depth changed")
+            return {pruned_topk.__name__: SHARDED_SHARDS,
+                    block_bounds.__name__: SHARDED_SHARDS * (levels + 1)}
+
+        out["trees"], tree_results = sharded_searches("trees", tr, q, spec, kernels,
+                                                      tree_calls, scans, kept)
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["launches"] = {kern.__name__: kern.launches for kern in kernels}
+        ab = {kern.__name__: kern.launches for kern in kernels}
+
+        # c. mutation through the tree engine's handle
+        out["online"] = sharded_online(tr, q, spec, seed, kernels,
+                                       lambda st: st.extras["tree_levels"])
+        out["launches"] = {name: ab[name] + sum(s["launches"].get(name, 0)
+                                                for s in out["online"]["steps"])
+                           for name in ab}
+        # the shard trees' pruned_topk launches are gathered_topk's (15b, 15c)
+        out["gathered_launches"] = (
+            sum(r["launches"][pruned_topk.__name__] for r in out["trees"].values())
+            + sum(s["launches"][pruned_topk.__name__] for s in out["online"]["steps"]))
         out["scan_calls"] = len(scans)
-        out["search_calls"] = calls
+        out["search_calls"] = sum(r["calls"] for part in ("flat", "trees")
+                                  for r in out[part].values()) + len(out["online"]["steps"])
         check(not scans, f"the sharded search ran the scan {len(scans)} times")
     finally:
-        backends.scan_search = scan_search
+        backends.scan_search, t_tree.tree_kernel_search = scan_search, tree_kernel_search
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
     # every answer against phase 3's brute force and single-device engine;
@@ -3223,43 +3383,67 @@ def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
         m, out["padded_rows_per_shard"], d, 16, bm=sh.bm, bn=128, device=q.device),
         "single": default_splits(m, eng.index.db.shape[0], d, 16, bm=eng.bm, bn=128,
                                  device=q.device)}
-    for k, (sims, ids) in results.items():
-        name = f"sharded k{k}"
-        out[f"k{k}"]["max_abs_err_vs_brute"] = exactness(spec, name, k, sims, ids, brute)[0]
+    for k in spec["ks"]:
         eng.search(q, k)                                   # warm-up
         single_ms = cuda_ms(lambda: eng.search(q, k), REPS)
         single_p50 = float(np.median(single_ms))
-        out[f"k{k}"].update(single_p50_ms=single_p50, single_ms=single_ms,
-                            single_profile=device_busy(lambda: eng.search(q, k), single_p50,
-                                                       top=6))
+        out[f"single_k{k}"] = {"p50_ms": single_p50, "ms": single_ms,
+                               "profile": device_busy(lambda: eng.search(q, k), single_p50,
+                                                      top=6)}
         s1, i1, _ = eng.search(q, k)
-        s1, i1, s_g, i_g = (x.cpu().numpy() for x in (s1, i1, sims, ids))
-        err = float(np.abs(s_g - s1).max())
-        bad = tie_aware_mismatches(s_g, i_g, s1, i1, 1e-5)
-        out[f"k{k}"].update(max_abs_err_vs_single=err, rows_differing_vs_single=bad)
-        log(f"[sharded] {name} vs the single-device engine: max |sim diff| {err:.3e}, "
-            f"rows differing beyond near-ties: {bad}")
-        check(err <= 1e-5 and bad == 0, f"{name} differs from the single-device engine")
+        s1, i1 = s1.cpu().numpy(), i1.cpu().numpy()
+        for part, res in (("flat", results), ("trees", tree_results)):
+            name = f"sharded {part} k{k}"
+            sims, ids = res[k]
+            r = out[part][k]
+            r["max_abs_err_vs_brute"] = exactness(spec, name, k, sims, ids, brute)[0]
+            s_g, i_g = sims.cpu().numpy(), ids.cpu().numpy()
+            err = float(np.abs(s_g - s1).max())
+            bad = tie_aware_mismatches(s_g, i_g, s1, i1, 1e-5)
+            r.update(max_abs_err_vs_single=err, rows_differing_vs_single=bad)
+            log(f"[sharded] {name} vs the single-device engine: max |sim diff| {err:.3e}, "
+                f"rows differing beyond near-ties: {bad}")
+            check(err <= 1e-5 and bad == 0, f"{name} differs from the single-device engine")
+    del results, tree_results
     out["seconds"] = time.perf_counter() - t_phase
-    said = "; ".join(
-        f"k = {k}: p50 {r['p50_ms']:.3f} ms (single device {r['single_p50_ms']:.3f}), "
-        f"QPS {r['qps']:.1f}, block_prune_frac {r['block_prune_frac']:.4f}, card busy "
-        f"{r['profile']['busy_ms']:.3f} ms ({r['single_profile']['busy_ms']:.3f})"
-        for k, r in ((k, out[f"k{k}"]) for k in spec["ks"]))
+
+    def top(profile):
+        return [(name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                 .split("(")[0][:48], round(ms, 3)) for name, ms in profile["top"]]
+
     for k in spec["ks"]:
-        for who in ("profile", "single_profile"):
-            top = [(name.replace("(anonymous namespace)::", "").removeprefix("void ")
-                    .split("(")[0][:48], round(ms, 3))
-                   for name, ms in out[f"k{k}"][who]["top"]]
-            log(f"[sharded] k = {k}, {'8 shards' if who == 'profile' else 'single device'}: "
-                f"top device events (ms) {top}")
+        single = out[f"single_k{k}"]
+        for part in ("flat", "trees"):
+            r = out[part][k]
+            tree_said = ("" if part == "flat" else
+                         f", tree_prune_frac {r['tree_prune_frac']:.4f}, tree_node_eval_frac "
+                         f"{r['tree_node_eval_frac']:.4f}, kept blocks per shard "
+                         f"{r['kept_blocks']} of {out['n_blocks_per_shard']}")
+            log(f"[sharded] 15{'a' if part == 'flat' else 'b'} {part} k = {k} on {card}: "
+                f"p50 {r['p50_ms']:.3f} ms (single device {single['p50_ms']:.3f}), QPS "
+                f"{r['qps']:.1f}, block_prune_frac {r['block_prune_frac']:.4f}{tree_said}; "
+                f"card busy {r['profile']['busy_ms']:.3f} ms "
+                f"({single['profile']['busy_ms']:.3f}); launches {r['launches']} in "
+                f"{r['calls']} calls")
+            log(f"[sharded] 15{'a' if part == 'flat' else 'b'} {part} k = {k}: top device "
+                f"events (ms) {top(r['profile'])}")
+        log(f"[sharded] single device k = {k}: top device events (ms) {top(single['profile'])}")
+    on = out["online"]
+    log(f"[sharded] 15c online on {card}: handle {on['handle_s']:.3f} s; insert of "
+        f"{SHARDED_INSERT} rows {[round(u, 1) for u in on['insert_us']]} us, delete of "
+        f"{SHARDED_DELETE} {[round(u, 1) for u in on['delete_us']]} us; insert of "
+        f"{on['grow_insert']['rows']} rows past every tail {on['grow_insert']['us']:.1f} us; "
+        f"reoptimize {on['reoptimize_s']:.3f} s; every search exact against the live rows "
+        f"(max |diff| {max(s['max_err_vs_brute'] for s in on['steps']):.2e}); rows per shard "
+        f"{on['placed_per_shard']}")
     log(f"[sharded] phase 15 on {card}: {SHARDED_SHARDS} shards of "
-        f"{out['rows_per_shard']:,} rows ({out['n_blocks_per_shard']:,} blocks) on a "
-        f"one-rank CUDA mesh; build {out['build_s']:.2f} s; {said}; peak "
-        f"{out['peak_gb']:.2f} GB ({out['resident_before_gb']:.2f} GB resident before, "
-        f"the index {out['index_gb']:.2f} GB); launches {out['launches']} in "
-        f"{out['search_calls']} calls, scan calls {out['scan_calls']}; splits "
-        f"{out['splits']}; {out['seconds']:.1f} s")
+        f"{out['rows_per_shard']:,} rows ({out['n_blocks_per_shard']:,} blocks, shard trees "
+        f"of {out['tree_levels']} levels built in {out['tree_build_s']:.3f} s) on a one-rank "
+        f"CUDA mesh; build {out['build_s']:.2f} s; peak {out['peak_gb']:.2f} GB "
+        f"({out['resident_before_gb']:.2f} GB resident before, the index "
+        f"{out['index_gb']:.2f} GB); launches {out['launches']} in {out['search_calls']} "
+        f"calls, scan calls {out['scan_calls']}; splits {out['splits']}; "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -3747,8 +3931,9 @@ def main(argv=None) -> int:
         (pruned_topk, block_bounds_select, block_bounds, merge_splits), card)
     sharded = report["sharded"]["launches"]
     log(f"[prune] sharded k10: block_prune_frac "
-        f"{report['sharded']['k10']['block_prune_frac']:.4f} (single-device engine: "
-        f"{report['clustered64']['k10']['block_prune_frac']:.4f})")
+        f"{report['sharded']['flat'][10]['block_prune_frac']:.4f} flat, "
+        f"{report['sharded']['trees'][10]['block_prune_frac']:.4f} with the shard trees "
+        f"(single-device engine: {report['clustered64']['k10']['block_prune_frac']:.4f})")
     torch.cuda.empty_cache()
 
     # 10. online mutation at full size on copies of phase 3's index
@@ -3821,7 +4006,8 @@ def main(argv=None) -> int:
     merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
     merge_entry["launches"] = topk_entry["launches"]
     gather_entry["launches_by_path"] = {"tree_kernel_leaves": gather_entry["launches"],
-                                        "online_tree": online["tree"]["pruned_topk"]}
+                                        "online_tree": online["tree"]["pruned_topk"],
+                                        "sharded": report["sharded"]["gathered_launches"]}
     gather_entry["launches"] = sum(gather_entry["launches_by_path"].values())
     bb_entry["launches_by_path"].update(
         online_tree=online["tree"]["block_bounds"],

@@ -31,6 +31,25 @@ per shard, each against its own local τ.  Exact: every shard returns its
 true local top-k, and the union of the local top-k sets holds the global
 top-k.
 
+**Shard trees** (the ``tree=`` branch, the reference's DESIGN.md §3.6):
+with one pivot tree per shard
+(:class:`~repro_torch.search.tree.ShardTreeArrays`), each shard first runs
+the transitive Eq. 13 descent over its own tree, against ONE global τ per
+query: the k-th best of every shard's beam candidates on every rank
+(:func:`~repro_torch.dist.collectives.global_tau_merge`, a second tiny
+collective).  Then each shard's leaf stage searches its surviving leaves:
+on CUDA the tree backend's kernel leaf stage (``gathered_topk`` over
+``pruned_topk``, seeded with τ; the scan leaf stage where ``k`` exceeds
+the block size, as the single-device tree backend rules), on the CPU the
+scan loop, as the reference.  Exact: τ is the k-th best of real scored
+rows, so a cut subtree holds no global top-k member.
+
+**Online mutation** (the reference's DESIGN.md §3.10):
+:class:`~repro_torch.core.online.ShardedMutableIndex` places each new row
+by a pure function of host mirrors that every rank holds alike (built
+from :func:`replicated_row_ids`), and :class:`ShardedMutationOps` writes
+each rank's own shards.
+
 **Multi-process** (the reference's DESIGN.md §3.7):
 :func:`build_sharded_index_local` builds only this rank's shards, from the
 rows it owns (:func:`local_shard_rows`), so no rank holds the whole
@@ -38,11 +57,6 @@ datastore; it is bit-identical to the matching slices of
 :func:`build_sharded_index` on the same device type, since both call
 :func:`_build_shard_part`.  Search needs nothing more: the merge and the
 stats' sums are collectives over the group of the flattened axes.
-
-Not ported yet (ROADMAP Queue 1): the per-shard pivot trees and the
-global-τ descent (the reference's ``tree=`` argument), and sharded
-mutation (``ShardedMutationOps``, ``make_sharded_mutation``,
-``replicated_row_ids``).
 """
 from __future__ import annotations
 
@@ -54,14 +68,17 @@ import torch.distributed as dist
 from torch import Tensor
 
 from repro_torch.core.index import (BlockIndex, build_index, index_from_reference,
-                                    sound_intervals)
-from repro_torch.dist.collectives import topk_allgather_merge
+                                    reorder_perm, sound_intervals)
+from repro_torch.core.online import append_blocks, write_rows
+from repro_torch.dist.collectives import (gather_shards, global_tau_merge,
+                                          topk_allgather_merge)
 from repro_torch.kernels.cosine_topk import DEFAULT_BM
 
 __all__ = ["build_sharded_index", "build_sharded_index_local", "local_shard_rows",
            "make_sharded_search", "sharded_search_local", "place_sharded_index",
            "sharded_index_from_reference", "local_shard", "shard_group",
-           "shard_layout"]
+           "shard_layout", "runs_kernel", "replicated_row_ids", "ShardedMutationOps",
+           "make_sharded_mutation"]
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +303,14 @@ def place_sharded_index(index: BlockIndex, mesh, axis_names=None) -> BlockIndex:
 # search
 # ---------------------------------------------------------------------------
 
+def runs_kernel(index: BlockIndex, k: int, tree=None) -> bool:
+    """Whether each shard's stage of a search at ``k`` runs the fused
+    kernel: on CUDA, save the tree branch's scan leaf stage past the block
+    size (the single-device tree backend's rule)."""
+    return index.db.device.type == "cuda" and (
+        tree is None or k <= index.db.shape[-2] // index.dp_min.shape[-2])
+
+
 def sharded_search_local(index: BlockIndex, queries, k: int, group=None, *,
                          prune: bool = True, warm_start: bool = False,
                          best_first: bool = False,
@@ -293,7 +318,7 @@ def sharded_search_local(index: BlockIndex, queries, k: int, group=None, *,
                          element_stats: bool = False, with_stats: bool = False,
                          margin: float = 4e-7, n_pivots: int = 0,
                          bm: int = DEFAULT_BM, bn: int | None = None,
-                         sort_queries: bool = True):
+                         sort_queries: bool = True, tree=None):
     """Search this rank's shards, then merge over ``group``.
 
     ``index`` is this rank's stacked ``[L, ...]`` index; every rank of the
@@ -303,61 +328,116 @@ def sharded_search_local(index: BlockIndex, queries, k: int, group=None, *,
     ``bm``, ``bn`` and ``sort_queries`` are the kernel's tile options) at
     ``min(k, its padded rows)``, padded back to ``k`` with ``(-inf, -1)``.
 
+    ``tree`` (this rank's :class:`~repro_torch.search.tree.ShardTreeArrays`,
+    ``[L, ...]``; needs ``prune``) takes the tree branch in two passes over
+    the shards.  Pass 1 prepares each shard's queries and takes its beam
+    candidates (with ``warm_start``); one :func:`global_tau_merge` over
+    every shard of every rank turns them into the global τ.  Pass 2
+    descends each shard's tree against it, reseeds from the shard's own
+    flat prescan (the max of the two), applies the joint cap with
+    ``n_pivots > 0``, and runs the leaf stage at ``k``.
+
     Returns ``(sims [m, k], ids [m, k])`` global row ids, the same on every
     rank; with ``with_stats`` also ``(block_prune_frac, elem_prune_frac)``,
-    each a 0-dim float64 tensor: summed counts over summed denominators
-    across every shard of every rank (the (query tile, kernel tile) pairs
-    skipped on CUDA, the (query, block) pairs on the CPU; the (query, valid
-    row) pairs whose own bound fell below τ), so unevenly filled shards
-    weigh correctly.
+    and on the tree branch ``(tree_prune_frac, tree_node_eval_frac)`` after
+    them, each a 0-dim float64 tensor: summed counts over summed
+    denominators across every shard of every rank, so unevenly filled
+    shards weigh correctly.  Their units are the reference's: the (query
+    tile, kernel tile) pairs the kernel skipped on CUDA, the (query, block)
+    pairs the scan skipped on the CPU; the (query, valid row) pairs whose
+    own bound fell below τ; the (query, block) pairs the descent cut; the
+    (query, node) bounds the descent evaluated over the valid nodes.
     """
     from repro_torch.search.backends import (kernel_search, map_row_ids,
-                                             prep_queries, scan_search)
+                                             prep_queries, prescan_blocks, scan_search)
+    from repro_torch.search import tree as _tree
 
     dev = index.db.device
-    on_card = dev.type == "cuda"
+    use_kernel = runs_kernel(index, k, tree)
+    shards = [local_shard(index, i) for i in range(index.db.shape[0])]
+    preps = [prep_queries(local, queries) for local in shards]
+    m = preps[0][0].shape[0]
+    # pruned units, units, pruned (query, row) pairs, valid rows; on the tree
+    # branch the descent's cut (query, block) pairs, the shards' blocks, its
+    # (query, node) evaluations and the valid nodes
+    counts = torch.zeros(8, dtype=torch.int64, device=dev)
     sims, ids = [], []
-    # pruned units, units, pruned (query, row) pairs, valid rows
-    counts = torch.zeros(4, dtype=torch.int64, device=dev)
-    for i in range(index.db.shape[0]):
-        local = local_shard(index, i)
-        qn, qp = prep_queries(local, queries)
-        kk = min(k, local.db.shape[0])
-        if on_card:
-            s, pos, computed, elem = kernel_search(
-                local, qn, qp, kk, bm=bm, bn=bn, prune=prune, sort_queries=sort_queries,
-                warm_start=warm_start, best_first=best_first, margin=margin,
-                element_stats=element_stats, warm_start_blocks=warm_start_blocks,
-                n_pivots=n_pivots)
-            counts[0] += computed.numel() - computed.sum()
-            counts[1] += computed.numel()
-            if element_stats:
-                counts[2] += elem.sum()
-        else:
-            s, pos, blk_pruned, elem_pruned = scan_search(
-                local, qn, qp, kk, prune=prune, margin=margin, warm_start=warm_start,
-                best_first=best_first, element_stats=element_stats,
-                warm_start_blocks=warm_start_blocks, n_pivots=n_pivots)
-            counts[0] += blk_pruned
-            counts[1] += qn.shape[0] * local.n_blocks
-            counts[2] += elem_pruned
-        counts[3] += local.valid.sum()
-        g = map_row_ids(local.row_ids, pos)
-        if kk < k:
-            m = s.shape[0]
-            s = torch.cat([s, s.new_full((m, k - kk), float("-inf"))], 1)
-            g = torch.cat([g, g.new_full((m, k - kk), -1)], 1)
-        sims.append(s)
-        ids.append(g)
+    if tree is not None:
+        if not prune:
+            raise ValueError("the shard trees' descent needs prune=True")
+        trees = [tree.shard(local, i) for i, local in enumerate(shards)]
+        tau = None
+        if warm_start:
+            cands = [_tree.tree_warm_start_topk(
+                t, qn, qp, k, prescan_blocks(k, t.block_size, t.n_blocks, warm_start_blocks))
+                for t, (qn, qp) in zip(trees, preps)]
+            tau = global_tau_merge(torch.stack([c[0] for c in cands]),
+                                   torch.stack([c[1] for c in cands]), k, group)
+        opts = dict(margin=margin, warm_start=warm_start,
+                    warm_start_blocks=warm_start_blocks, n_pivots=n_pivots,
+                    best_first=best_first, element_stats=element_stats, tau_seed=tau)
+        for t, (qn, qp) in zip(trees, preps):
+            if use_kernel:
+                s, pos, computed, elem, cut, evals, _ = _tree.tree_kernel_search(
+                    t, qn, qp, k, bm=bm, sort_queries=sort_queries, **opts)
+                units = computed.shape[0] * t.n_blocks
+                counts[0] += units - computed.sum()
+                counts[1] += units
+                if element_stats:
+                    counts[2] += elem
+            else:
+                s, pos, blk_pruned, elem_pruned, cut, evals = _tree.tree_search(
+                    t, qn, qp, k, **opts)
+                counts[0] += blk_pruned
+                counts[1] += m * t.n_blocks
+                counts[2] += elem_pruned
+            counts[3] += t.index.valid.sum()
+            counts[4] += cut
+            counts[5] += t.n_blocks
+            counts[6] += evals
+            counts[7] += t.node_valid.sum()
+            sims.append(s)
+            ids.append(map_row_ids(t.index.row_ids, pos))
+    else:
+        for local, (qn, qp) in zip(shards, preps):
+            kk = min(k, local.db.shape[0])
+            if use_kernel:
+                s, pos, computed, elem = kernel_search(
+                    local, qn, qp, kk, bm=bm, bn=bn, prune=prune, sort_queries=sort_queries,
+                    warm_start=warm_start, best_first=best_first, margin=margin,
+                    element_stats=element_stats, warm_start_blocks=warm_start_blocks,
+                    n_pivots=n_pivots)
+                counts[0] += computed.numel() - computed.sum()
+                counts[1] += computed.numel()
+                if element_stats:
+                    counts[2] += elem.sum()
+            else:
+                s, pos, blk_pruned, elem_pruned = scan_search(
+                    local, qn, qp, kk, prune=prune, margin=margin, warm_start=warm_start,
+                    best_first=best_first, element_stats=element_stats,
+                    warm_start_blocks=warm_start_blocks, n_pivots=n_pivots)
+                counts[0] += blk_pruned
+                counts[1] += m * local.n_blocks
+                counts[2] += elem_pruned
+            counts[3] += local.valid.sum()
+            g = map_row_ids(local.row_ids, pos)
+            if kk < k:
+                s = torch.cat([s, s.new_full((m, k - kk), float("-inf"))], 1)
+                g = torch.cat([g, g.new_full((m, k - kk), -1)], 1)
+            sims.append(s)
+            ids.append(g)
     merged = topk_allgather_merge(torch.stack(sims), torch.stack(ids), k, group)
     if not with_stats:
         return merged
     if group is not None:
         dist.all_reduce(counts, group=group)
-    m = sims[0].shape[0]
     frac = counts[0].double() / counts[1]
     efrac = counts[2].double() / (m * counts[3]).clamp(min=1)
-    return merged + (frac, efrac)
+    if tree is None:
+        return merged + (frac, efrac)
+    tfrac = counts[4].double() / (m * counts[5])
+    evfrac = counts[6].double() / (m * counts[7]).clamp(min=1)
+    return merged + (frac, efrac, tfrac, evfrac)
 
 
 def make_sharded_search(mesh=None, axis_names=None, *, prune: bool = True,
@@ -367,18 +447,137 @@ def make_sharded_search(mesh=None, axis_names=None, *, prune: bool = True,
                         margin: float = 4e-7, n_pivots: int = 0,
                         bm: int = DEFAULT_BM, bn: int | None = None,
                         sort_queries: bool = True):
-    """An ``(index, queries, k) -> (sims, gids[, block_prune_frac,
-    elem_prune_frac])`` closure over :func:`sharded_search_local`, merging
-    over the group of ``mesh``'s flattened ``axis_names`` (default all of
-    them; ``mesh=None``: this process alone).  Results are the same on
-    every rank of the group."""
+    """An ``(index, queries, k, tree=None) -> (sims, gids[, block_prune_frac,
+    elem_prune_frac[, tree_prune_frac, tree_node_eval_frac]])`` closure over
+    :func:`sharded_search_local`, merging over the group of ``mesh``'s
+    flattened ``axis_names`` (default all of them; ``mesh=None``: this
+    process alone).  Pass ``tree`` (this rank's shard trees) for the tree
+    branch.  Results are the same on every rank of the group."""
     group = shard_group(mesh, axis_names)
 
-    def run(index: BlockIndex, queries, k: int):
+    def run(index: BlockIndex, queries, k: int, tree=None):
         return sharded_search_local(
             index, queries, k, group, prune=prune, warm_start=warm_start,
             best_first=best_first, warm_start_blocks=warm_start_blocks,
             element_stats=element_stats, with_stats=with_stats, margin=margin,
-            n_pivots=n_pivots, bm=bm, bn=bn, sort_queries=sort_queries)
+            n_pivots=n_pivots, bm=bm, bn=bn, sort_queries=sort_queries, tree=tree)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# online mutation
+# ---------------------------------------------------------------------------
+
+def replicated_row_ids(index: BlockIndex, mesh=None, axis_names=None) -> np.ndarray:
+    """Host copy ``[S, n_pad]`` of every shard's ``row_ids``: this rank's
+    ``[L, n_pad]`` all-gathered over the group of ``mesh``'s flattened
+    ``axis_names`` (a plain copy without a mesh or with one rank).  The
+    sharded online handle's one collective, when it is made and after each
+    ``reoptimize``; every rank derives the same id -> (shard, slot) map and
+    free lists from it."""
+    return gather_shards(index.row_ids, shard_group(mesh, axis_names)).cpu().numpy()
+
+
+class ShardedMutationOps:
+    """The device writes of one sharded online handle, on this rank's
+    shards, in place.
+
+    Every operand is the host copy that all ranks hold alike: ``[S, R]``
+    per-shard entries over all ``S`` shards, padded to a uniform width
+    ``R`` with ``mask`` False.  Each op reads the rows of this rank's ``L``
+    shards, ``[position·L, (position+1)·L)``, and writes only them, so no
+    op needs a collective.  A loop over the local shards, each through the
+    flat handle's own writes, takes the place of the reference's ``vmap``.
+    """
+
+    def __init__(self, mesh=None, axis_names=None):
+        self.n_ranks, self.position = shard_layout(mesh, axis_names)
+
+    def _mine(self, index: BlockIndex, *operands):
+        n_local = index.db.shape[0]
+        rows = slice(self.position * n_local, (self.position + 1) * n_local)
+        return [np.asarray(x)[rows] for x in operands]
+
+    def insert(self, index: BlockIndex, slots, mask, rows, ids):
+        """Write the masked entries: ``slots`` / ``ids [S, R]`` int,
+        ``rows [S, R, d]`` float64 unit rows.  Each shard's rows go through
+        :func:`~repro_torch.core.online.write_rows` (its ``dp``, the blocks'
+        ``dp_min/dp_max`` and sound ``dp_lo/dp_hi``, the joint tables).
+        Returns ``(index, widening)``: ``widening = (blocks [L, R], lo, hi
+        [L, R, P], mask [L, R])`` on the index's device, the operands of
+        :meth:`widen`."""
+        slots, mask, rows, ids = self._mine(index, slots, mask, rows, ids)
+        dev = index.db.device
+        n_local, width = mask.shape
+        p = index.pivots.shape[-2]
+        bs = index.db.shape[1] // index.dp_min.shape[1]
+        lo = torch.full((n_local, width, p), float("inf"), device=dev)
+        hi = torch.full((n_local, width, p), float("-inf"), device=dev)
+        for i in range(n_local):
+            sel = np.flatnonzero(mask[i])
+            if sel.size:
+                _, lo_i, hi_i = write_rows(local_shard(index, i), slots[i, sel],
+                                           rows[i, sel], ids[i, sel].tolist())
+                at = torch.from_numpy(sel).to(dev)
+                lo[i, at], hi[i, at] = lo_i, hi_i
+        widening = (torch.from_numpy(slots // bs).to(dev), lo, hi,
+                    torch.from_numpy(mask).to(dev))
+        return index, widening
+
+    def delete(self, index: BlockIndex, slots, mask) -> BlockIndex:
+        """Tombstone the masked ``slots [S, R]``: ``valid`` off,
+        ``row_ids`` -1."""
+        slots, mask = self._mine(index, slots, mask)
+        shard, j = np.nonzero(mask)
+        at = torch.from_numpy(shard * index.db.shape[1] + slots[shard, j]).to(index.db.device)
+        index.valid.view(-1)[at] = False
+        index.row_ids.view(-1)[at] = -1
+        return index
+
+    @staticmethod
+    def grow(index: BlockIndex, n_add: int) -> BlockIndex:
+        """Append ``n_add`` all-padding blocks to every local shard (new
+        tensors; :func:`~repro_torch.core.online.append_blocks`)."""
+        return append_blocks(index, n_add)
+
+    @staticmethod
+    def repack(index: BlockIndex, n_pad_new: int) -> BlockIndex:
+        """Each local shard repacked under its own pivots (new tensors):
+        its rows in ``build_index``'s reorder (nearest pivot, then
+        similarity to it, descending; tombstones and padding last), cut to
+        ``n_pad_new`` rows, and every interval recomputed from the live rows
+        alone, ``dp_min/dp_max`` over their float32 ``dp`` and ``dp_lo/dp_hi``
+        by :func:`~repro_torch.core.index.sound_intervals`.  No row moves
+        across shards and no pivot is reselected."""
+        parts = []
+        for i in range(index.db.shape[0]):
+            loc = local_shard(index, i)
+            p, bs = loc.n_pivots, loc.block_size
+            perm = reorder_perm(loc.dp, loc.valid, p)[:n_pad_new]
+            db, dp, valid = loc.db[perm], loc.dp[perm], loc.valid[perm]
+            nb = n_pad_new // bs
+            rows = valid[:, None]
+            dp_min = torch.where(rows, dp, float("inf")).reshape(nb, bs, p).amin(1)
+            dp_max = torch.where(rows, dp, float("-inf")).reshape(nb, bs, p).amax(1)
+            lo, hi = sound_intervals(db, loc.pivots, valid, dp_min, dp_max)
+            new = loc._replace(db=db, dp=dp, valid=valid,
+                               row_ids=torch.where(valid, loc.row_ids[perm], -1),
+                               dp_min=dp_min, dp_max=dp_max, dp_lo=lo, dp_hi=hi)
+            if loc.beta is not None:
+                new = new._replace(beta=loc.beta[perm], beta_nsq=loc.beta_nsq[perm])
+            parts.append(new)
+        return _stack_shards(parts)
+
+    @staticmethod
+    def widen(tree, blocks, lo, hi, mask):
+        """The live shard trees widened along the inserted rows' paths, in
+        place (:func:`~repro_torch.search.tree.widen_shard_trees`)."""
+        from repro_torch.search.tree import widen_shard_trees
+        return widen_shard_trees(tree, blocks, lo, hi, mask)
+
+
+def make_sharded_mutation(mesh=None, axis_names=None) -> ShardedMutationOps:
+    """The :class:`ShardedMutationOps` of a handle over a sharded engine on
+    ``mesh`` (``None``: every shard in this process)."""
+    return ShardedMutationOps(mesh, axis_names)

@@ -19,10 +19,11 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-__all__ = ["topk_allgather_merge", "masked_topk_merge", "global_tau_merge"]
+__all__ = ["gather_shards", "topk_allgather_merge", "masked_topk_merge",
+           "global_tau_merge"]
 
 
-def _gather_shards(x: Tensor, group=None) -> Tensor:
+def gather_shards(x: Tensor, group=None) -> Tensor:
     """``[L, ...]`` on each rank -> ``[W * L, ...]``, rank-major (``W``
     ranks in ``group``); ``x`` itself without a group or with one rank."""
     if group is None or dist.get_world_size(group) == 1:
@@ -45,8 +46,8 @@ def topk_allgather_merge(sims: Tensor, ids: Tensor, k: int, group=None):
     union, and the global top-k is a subset of the union of local top-k
     sets.  ``ids`` is any payload riding along with its score.
     """
-    s = _gather_shards(_stacked(sims), group)       # [S, m, k]
-    g = _gather_shards(_stacked(ids), group)
+    s = gather_shards(_stacked(sims), group)       # [S, m, k]
+    g = gather_shards(_stacked(ids), group)
     m = s.shape[1]
     s = s.transpose(0, 1).reshape(m, -1)            # [m, S * k]
     g = g.transpose(0, 1).reshape(m, -1)

@@ -445,14 +445,30 @@ class ShardedBackend:
     process).  Every rank of the mesh passes the same queries, as in the
     reference's contract; they are not gathered.  On CUDA each shard runs
     the hand-written kernels (no fallback), on the CPU the scan loop, and
-    the stats are summed over every shard (``tile_computed_frac`` on
-    CUDA).  The reference's per-shard trees (``tree_shards``) are not
-    ported (ROADMAP Queue 1)."""
+    the stats are summed over every shard (``tile_computed_frac`` where the
+    kernel ran on CUDA).
+
+    With the engine's shard trees on (``SearchEngine(tree_shards=...)``)
+    and pruning on, each shard first descends its own pivot tree against
+    the global τ (:func:`repro_torch.core.distributed.sharded_search_local`'s
+    tree branch); its leaves go to the kernel leaf stage on CUDA (the scan
+    past ``k > block_size``) and the scan on the CPU, and the stats add
+    ``tree_prune_frac``, ``tree_node_eval_frac`` and ``tree_levels``.  The
+    trees are built lazily on the index's device and cached on the engine
+    (``eng._shard_tree``); with pruning off the shards are searched flat,
+    as in the reference."""
 
     name = "sharded"
 
+    @staticmethod
+    def _shard_tree(eng):
+        if eng._shard_tree is None:
+            from repro_torch.search.tree import build_shard_trees
+            eng._shard_tree = build_shard_trees(eng.index)
+        return eng._shard_tree
+
     def run(self, eng, queries, k, *, prune=True, element_stats=False):
-        from repro_torch.core.distributed import make_sharded_search
+        from repro_torch.core.distributed import make_sharded_search, runs_kernel
 
         fn = make_sharded_search(
             eng.mesh, eng.axis_names, with_stats=True, prune=prune,
@@ -460,9 +476,15 @@ class ShardedBackend:
             warm_start_blocks=eng.warm_start_blocks, element_stats=element_stats,
             margin=eng.margin, n_pivots=eng.n_pivots, bm=eng.bm, bn=eng.bn,
             sort_queries=eng.sort_queries)
-        s, ids, frac, efrac = fn(eng.index, queries, k)
-        raw = {"block_prune_frac": frac}
-        if eng.index.db.device.type == "cuda":
+        tree = self._shard_tree(eng) if eng._tree_shards_enabled and prune else None
+        if tree is not None:
+            s, ids, frac, efrac, tfrac, evfrac = fn(eng.index, queries, k, tree=tree)
+            raw = {"block_prune_frac": frac, "tree_prune_frac": tfrac,
+                   "tree_node_eval_frac": evfrac, "tree_levels": tree.n_levels}
+        else:
+            s, ids, frac, efrac = fn(eng.index, queries, k)
+            raw = {"block_prune_frac": frac}
+        if runs_kernel(eng.index, k, tree):
             raw["tile_computed_frac"] = 1.0 - frac
         if element_stats:
             raw["elem_prune_frac"] = efrac

@@ -10,10 +10,12 @@ default); they change how fast τ rises, never the result set, which stays
 the brute-force one.  Ported backends: ``kernel``, ``scan``, ``tree`` (with
 its scan and kernel leaf stages), ``brute`` and ``sharded``
 (``SearchEngine.build(db, mesh=...)``: the rows split into shards over a
-``torch.distributed`` device mesh, :mod:`repro_torch.core.distributed`);
+``torch.distributed`` device mesh, :mod:`repro_torch.core.distributed`,
+searched flat or through per-shard pivot trees, ``tree_shards``);
 ``engine.online()`` hands out the
-:class:`~repro_torch.core.online.MutableIndex` that inserts, deletes and
-rebuilds under a live engine (not on a sharded engine yet).
+:class:`~repro_torch.core.online.MutableIndex` (or, on a sharded engine,
+the :class:`~repro_torch.core.online.ShardedMutableIndex`) that inserts,
+deletes and rebuilds under a live engine.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ __all__ = ["SearchEngine", "auto_backend"]
 _BRUTE_MAX_ROWS = 256
 #: feature widths the reference's kernel backend is chosen for
 _KERNEL_MAX_DIM = 4096
-#: blocks from which the reference prefers the tree to the scan off the TPU
+#: blocks from which the reference prefers the tree to the scan off the TPU,
+#: and turns the shard trees on (per shard)
 _TREE_MIN_BLOCKS = 256
 _LEAF_EVALS = ("scan", "kernel", "auto")
 
@@ -69,11 +72,13 @@ class SearchEngine:
         shard-stacked index (this rank's shards, ``[L, ...]``) is spread
         over, and the dims it shards along (default all); ``mesh=None``
         with a stacked index searches every shard in this process.
-      tree_shards: the reference's per-shard pivot trees.  Not ported:
-        ``True`` raises ``NotImplementedError`` (ROADMAP Queue 1); ``None``
-        (default), which the reference turns on from 256 blocks a shard,
-        and ``False`` search the shards flat, with the same results and
-        no ``tree_prune_frac``.
+      tree_shards: ``sharded`` backend only: run the transitive Eq. 13
+        descent over a pivot tree per shard (built lazily, over each
+        shard's own pivots) before each shard's leaf stage, against one
+        global τ per query (:mod:`repro_torch.core.distributed`).  ``True``
+        / ``False`` force it; ``None`` (default) turns it on from 256
+        blocks a shard, the reference's rule.  Ignored by the other
+        backends.
       warm_start: seed each query's τ by exact-scoring its best-bound tiles.
       warm_start_blocks: widen that prescan (``None``: the ``ceil(k / bn)``
         floor).
@@ -138,12 +143,11 @@ class SearchEngine:
                 f"a shard-stacked BlockIndex is served by the 'sharded' backend "
                 f"only (got backend={self.backend_name!r}); pass mesh= (and "
                 f"backend='auto') to search it.")
-        if tree_shards and self.backend_name == "sharded":
-            raise NotImplementedError(
-                "tree_shards=True: the per-shard pivot trees are not ported "
-                "(ROADMAP Queue 1); tree_shards=None or False searches the "
-                "shards flat")
         self.tree_shards = tree_shards
+        #: per-shard blocks, as the auto rule reads them
+        self.n_blocks = int(index.dp_min.shape[-2])
+        self._tree_shards_enabled = index.db.ndim == 3 and (
+            self.n_blocks >= _TREE_MIN_BLOCKS if tree_shards is None else bool(tree_shards))
         self.backend = _bk.get_backend(self.backend_name)
         self.warm_start = warm_start
         self.warm_start_blocks = (warm_start_blocks if warm_start_blocks is not None
@@ -162,27 +166,28 @@ class SearchEngine:
         self.leaf_eval = leaf_eval
         self._tree_index = None             # built by the tree backend
         self._tree_valid_nodes = 0          # its node count, read once
+        self._shard_tree = None             # built by the sharded backend
         #: bumped on every shape-changing online mutation (appended blocks,
         #: reoptimize), as in the reference
         self.index_epoch = 0
-        self._online = None                 # the MutableIndex handle, if any
+        self._online = None                 # the online handle, if any
         self.bm = bm
         self.bn = bn
         self.sort_queries = sort_queries
-        self.n_blocks = int(index.dp_min.shape[-2])     # per shard
-        n_valid, n_slots = index.valid.sum(), int(index.db.shape[-2])
+        n_valid = index.valid.sum()
+        #: shards of every rank of the mesh's group (1: a flat index)
+        self._n_shards = 1
         if index.db.ndim == 3:
-            # every shard of every rank of the mesh's group
             from repro_torch.core.distributed import shard_group
             group = shard_group(mesh, axis_names)
-            n_slots *= index.db.shape[0] * (1 if group is None
-                                            else dist.get_world_size(group))
+            self._n_shards = index.db.shape[0] * (1 if group is None
+                                                  else dist.get_world_size(group))
             if group is not None:
                 dist.all_reduce(n_valid, group=group)
         self.n_valid = int(n_valid)
         #: padded row slots across all shards: the most candidates a search
         #: can return
-        self.n_slots = n_slots
+        self.n_slots = int(index.db.shape[-2]) * self._n_shards
 
     @classmethod
     def build(
@@ -256,37 +261,36 @@ class SearchEngine:
         return cls(idx, mesh=mesh, device=device, **engine_kw)
 
     def online(self, **kw):
-        """The engine's :class:`~repro_torch.core.online.MutableIndex`
-        handle (created on first use; one per engine).  Insert, delete and
-        reoptimize through it; the engine's index and tree stay consistent.
-        Keyword args (``reoptimize_threshold``, ``auto_reoptimize``) are
-        taken on the first call only.  The handle installs its own copy of
-        the index, which it then writes in place, so an index this engine
-        shares with others is never changed under them.  A sharded engine
-        raises ``NotImplementedError``: the reference's
-        ``ShardedMutableIndex`` is not ported (ROADMAP Queue 1)."""
-        if self.index.db.ndim == 3:
-            raise NotImplementedError(
-                "online mutation of a sharded engine (ShardedMutableIndex) is not "
-                "ported yet (ROADMAP Queue 1)")
+        """The engine's online handle (created on first use; one per
+        engine): a :class:`~repro_torch.core.online.MutableIndex`, or on a
+        shard-stacked index a :class:`~repro_torch.core.online.
+        ShardedMutableIndex` (made on every rank of the mesh alike: it
+        all-gathers ``row_ids``).  Insert, delete and reoptimize through it;
+        the engine's index and trees stay consistent.  Keyword args
+        (``reoptimize_threshold``, ``auto_reoptimize``) are taken on the
+        first call only.  The handle installs its own copy of the index,
+        which it then writes in place, so an index this engine shares with
+        others is never changed under them."""
         if self._online is None:
-            from repro_torch.core.online import MutableIndex
-            self._online = MutableIndex(self, **kw)
+            from repro_torch.core.online import MutableIndex, ShardedMutableIndex
+            cls = ShardedMutableIndex if self.index.db.ndim == 3 else MutableIndex
+            self._online = cls(self, **kw)
         elif kw:
             raise ValueError("engine.online() already created its MutableIndex; "
                              "per-handle options can only be set on the first call")
         return self._online
 
     def _apply_mutation(self, new_index: BlockIndex, *, n_valid: int,
-                        shape_changed: bool, tree=None) -> None:
-        """Install a mutated index (called by the online handle only).
+                        shape_changed: bool, tree=None, shard_tree=None) -> None:
+        """Install a mutated index (called by the online handles only).
 
         A shape change (appended blocks, reoptimize) bumps ``index_epoch``,
-        drops the tree (the next tree search rebuilds it) and recomputes
-        ``n_blocks`` and ``n_slots``.  Otherwise ``tree`` is the widened
-        tree of a shape-stable insert, or, after a delete under a live
-        tree, the tree keeps its (wide) node tables and serves the new
-        index.
+        drops the tree and the shard trees (the next search rebuilds them)
+        and recomputes ``n_blocks`` and ``n_slots``.  Otherwise ``tree`` /
+        ``shard_tree`` is the widened tree / shard trees of a shape-stable
+        insert; after a delete under a live tree, the tree keeps its (wide)
+        node tables and serves the new index, and the shard trees, which
+        hold no index, serve on as they are.
         """
         self.index = new_index
         self.n_valid = int(n_valid)
@@ -294,9 +298,12 @@ class SearchEngine:
             self.index_epoch += 1
             self._tree_index = None
             self._tree_valid_nodes = 0
-            self.n_blocks = new_index.n_blocks
-            self.n_slots = int(new_index.db.shape[0])
+            self._shard_tree = None
+            self.n_blocks = int(new_index.dp_min.shape[-2])
+            self.n_slots = int(new_index.db.shape[-2]) * self._n_shards
             return
+        if shard_tree is not None:
+            self._shard_tree = shard_tree
         if tree is not None:
             self._tree_index = tree
             self._tree_valid_nodes = tree.n_valid_nodes

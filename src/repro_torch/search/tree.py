@@ -19,6 +19,11 @@ whole subtree (DESIGN.md §3.5).
   (:func:`repro_torch.search.backends.scan_search`), or the fused kernel
   over the union of the batch's surviving leaves, compacted
   (:func:`repro_torch.kernels.leaf_gather.gathered_topk`).
+* **Shard trees** (:class:`ShardTreeArrays`): one tree per shard of a
+  shard-stacked index, over that shard's own pivots and blocks, for the
+  ``sharded`` backend's tree branch
+  (:func:`repro_torch.core.distributed.sharded_search_local`), whose descent
+  prunes every shard against one global τ per query.
 
 Exactness: the τ₀ seeds are k-th bests of real scored candidates, a node
 bound dominates every descendant similarity (the node tables hold the
@@ -36,11 +41,13 @@ from torch import Tensor
 from repro_torch.core.index import (BlockIndex, interval_upper_bound,
                                     multipivot_block_cap)
 from repro_torch.kernels.bound_prune import block_bounds
+from repro_torch.kernels.cosine_topk import DEFAULT_BM
 from repro_torch.kernels.leaf_gather import gathered_topk
 from repro_torch.search import backends as _bk
 
-__all__ = ["TreeIndex", "build_tree", "tree_warm_start",
-           "tree_warm_start_topk", "tree_descend", "tree_search", "widen_tree"]
+__all__ = ["TreeIndex", "ShardTreeArrays", "build_tree", "build_shard_trees",
+           "tree_warm_start", "tree_warm_start_topk", "tree_descend",
+           "tree_search", "tree_kernel_search", "widen_tree", "widen_shard_trees"]
 
 
 class TreeIndex(NamedTuple):
@@ -153,17 +160,97 @@ def widen_tree(tree: TreeIndex, index: BlockIndex, blocks: Tensor,
     tree was built, the result equals :func:`build_tree` of ``index`` bit
     for bit.
     """
-    nl = tree.n_leaf_slots
-    lo, hi, valid = tree.node_lo, tree.node_hi, tree.node_valid
-    node = blocks.long() + nl
-    idx = node[:, None].expand_as(lo_rows)
-    for _ in range(tree.n_levels + 1):                 # leaf ... root
+    _widen_paths(tree.node_lo, tree.node_hi, tree.node_valid,
+                 blocks.long() + tree.n_leaf_slots, 0, lo_rows, hi_rows, tree.n_levels)
+    return TreeIndex(index, tree.node_lo, tree.node_hi, tree.node_valid)
+
+
+def _widen_paths(lo: Tensor, hi: Tensor, valid: Tensor, node: Tensor, base,
+                 lo_rows: Tensor, hi_rows: Tensor, levels: int) -> None:
+    """Scatter-min ``lo_rows`` / scatter-max ``hi_rows`` ``[r, P]`` into the
+    node tables ``lo / hi [n, P]`` and mark ``valid [n]``, at ``base +
+    node`` for every node from the leaves ``node [r]`` (heap numbers,
+    ``levels`` below the root) up to the root, in place; ``base`` offsets
+    each row's heap in tables that hold several (0, or a ``[r]`` tensor)."""
+    for _ in range(levels + 1):                        # leaf ... root
+        at = base + node
+        idx = at[:, None].expand_as(lo_rows)
         lo.scatter_reduce_(0, idx, lo_rows, "amin", include_self=True)
         hi.scatter_reduce_(0, idx, hi_rows, "amax", include_self=True)
-        valid[node] = True
+        valid[at] = True
         node = node // 2
-        idx = node[:, None].expand_as(lo_rows)
-    return TreeIndex(index, lo, hi, valid)
+
+
+class ShardTreeArrays(NamedTuple):
+    """One tree per shard of a shard-stacked index, for the ``sharded``
+    backend's tree branch: :class:`TreeIndex`'s heap layout with a leading
+    shard axis, ``node_lo / node_hi [L, 2·nl, P]`` and ``node_valid [L,
+    2·nl]``, each shard's tree over its own pivots and blocks (all shards
+    share their shapes, so one ``nl``).  Kept apart from the index, as in
+    the reference; :meth:`shard` joins shard ``i``'s tables to its flat
+    index."""
+
+    node_lo: Tensor
+    node_hi: Tensor
+    node_valid: Tensor
+
+    @property
+    def n_levels(self) -> int:
+        """Each shard tree's depth."""
+        return (self.node_valid.shape[1] // 2).bit_length() - 1
+
+    def shard(self, index: BlockIndex, i: int) -> TreeIndex:
+        """Shard ``i``'s tree over ``index``, its flat index (views)."""
+        return TreeIndex(index, self.node_lo[i], self.node_hi[i], self.node_valid[i])
+
+
+def build_shard_trees(index: BlockIndex) -> ShardTreeArrays:
+    """One pivot tree per shard of a shard-stacked ``[L, ...]`` index, on
+    its device: :func:`build_tree`'s tables for each shard, from its sound
+    block intervals ``dp_lo/dp_hi`` (the reference's ``build_shard_trees``
+    reads ``dp_min/dp_max``), stacked.  A flat index is refused, as in the
+    reference."""
+    if index.db.ndim != 3:
+        raise ValueError("build_shard_trees needs a shard-stacked BlockIndex "
+                         "(leading [S, ...] axis from build_sharded_index); "
+                         "single-shard indexes are served by build_tree")
+    n_shards, n_pad, _ = index.db.shape
+    nb = index.dp_lo.shape[1]
+    block_valid = index.valid.reshape(n_shards, nb, n_pad // nb).any(2)
+    nl = _next_pow2(nb)
+    parts = [_tree_arrays(index.dp_lo[s], index.dp_hi[s], block_valid[s], nl=nl)
+             for s in range(n_shards)]
+    return ShardTreeArrays(*(torch.stack(t) for t in zip(*parts)))
+
+
+def widen_shard_trees(tree: ShardTreeArrays, blocks: Tensor, lo_rows: Tensor,
+                      hi_rows: Tensor, mask: Tensor) -> ShardTreeArrays:
+    """:func:`widen_tree` for every shard at once, in place (the sharded
+    online insert).
+
+    Args:
+      tree: the shard trees ``[L, ...]``, whose heap shape matches the
+        post-insert index (a shape change drops them instead).
+      blocks: ``[L, R]`` the block of each inserted row in its shard,
+        padded to a uniform width ``R`` across shards.
+      lo_rows / hi_rows: ``[L, R, P]`` each row's sound interval under its
+        shard's pivots (what the insert folds into ``dp_lo/dp_hi``).
+      mask: ``[L, R]`` bool, False on the padding entries.
+
+    Masked entries are dropped, so a shard that received no row is left
+    untouched.  As in :func:`widen_tree`, nodes only loosen, and while no
+    block has lost its last row the result equals
+    :func:`build_shard_trees` of the post-insert index bit for bit.
+    """
+    n_shards, two_nl = tree.node_valid.shape
+    p = tree.node_lo.shape[-1]
+    sel = mask.reshape(-1)
+    shard = torch.arange(n_shards, device=blocks.device)[:, None].expand_as(blocks)
+    _widen_paths(tree.node_lo.view(-1, p), tree.node_hi.view(-1, p),
+                 tree.node_valid.view(-1), blocks.reshape(-1)[sel].long() + two_nl // 2,
+                 shard.reshape(-1)[sel] * two_nl, lo_rows.reshape(-1, p)[sel],
+                 hi_rows.reshape(-1, p)[sel], tree.n_levels)
+    return tree
 
 
 def _gathered_bounds(qp: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
@@ -267,7 +354,7 @@ def tree_descend(tree: TreeIndex, qp: Tensor, tau0: Tensor,
 
 def _seed_and_descend(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
                       warm_start: bool, warm_start_blocks: int | None,
-                      margin: float):
+                      margin: float, tau_seed: Tensor | None = None):
     """Beam seed -> transitive descent -> flat reseed, the one sequence
     every leaf stage shares.
 
@@ -275,6 +362,14 @@ def _seed_and_descend(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
     n_evals)``.  The flat reseed scores the leaf level's best-bound blocks
     too (from the descent's own bound matrix), so τ₀ is at least the scan
     backend's seed and the tree prunes at least what the scan prunes.
+
+    ``tau_seed [m]`` (with ``warm_start``) takes the beam's place: a τ
+    computed outside, a true lower bound on each query's final k-th best.
+    The sharded tree branch passes the global τ, the k-th best of every
+    shard's beam candidates (:func:`tree_warm_start_topk`, merged by
+    ``global_tau_merge``); the reference passes a ``tau_merge`` hook that
+    merges inside, which a loop over a rank's shards in one process
+    cannot do.  ``None``: this tree's own beam seed.
     """
     idx = tree.index
     m = qn.shape[0]
@@ -282,7 +377,7 @@ def _seed_and_descend(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
     tau0 = qn.new_full((m,), float("-inf"))
     n_pre = _bk.prescan_blocks(k, bs, nb, warm_start_blocks)
     if warm_start:
-        tau0 = tree_warm_start(tree, qn, qp, k, n_pre)
+        tau0 = tree_warm_start(tree, qn, qp, k, n_pre) if tau_seed is None else tau_seed
     leaf_alive, leaf_ub, evals = tree_descend(tree, qp, tau0, margin)
     if warm_start:
         tau0 = torch.maximum(
@@ -294,11 +389,13 @@ def tree_search(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
                 prune: bool = True, margin: float = 4e-7,
                 warm_start: bool = True, best_first: bool = True,
                 element_stats: bool = False,
-                warm_start_blocks: int | None = None, n_pivots: int = 0):
-    """Tree search with the scan leaf stage: beam seed -> descent -> the
-    scan loop over the surviving leaves, fed the descent's leaf bound
-    matrix (with ``n_pivots > 0`` min'd with the joint cap; the descent and
-    ``tree_pruned`` stay interval-only), the surviving-leaf mask and τ₀.
+                warm_start_blocks: int | None = None, n_pivots: int = 0,
+                tau_seed: Tensor | None = None):
+    """Tree search with the scan leaf stage: beam seed (or ``tau_seed``,
+    :func:`_seed_and_descend`) -> descent -> the scan loop over the
+    surviving leaves, fed the descent's leaf bound matrix (with ``n_pivots
+    > 0`` min'd with the joint cap; the descent and ``tree_pruned`` stay
+    interval-only), the surviving-leaf mask and τ₀.
 
     Returns ``(top_s, pos, blk_pruned, elem_pruned, tree_pruned,
     node_evals)``: the first four as :func:`scan_search`, then the (query,
@@ -312,7 +409,7 @@ def tree_search(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
     if prune:
         tau0, leaf_alive, leaf_ub, evals = _seed_and_descend(
             tree, qn, qp, k, warm_start=warm_start,
-            warm_start_blocks=warm_start_blocks, margin=margin)
+            warm_start_blocks=warm_start_blocks, margin=margin, tau_seed=tau_seed)
         if n_pivots > 0:
             leaf_ub = torch.minimum(
                 leaf_ub, multipivot_block_cap(idx, qn, n_pivots=n_pivots))
@@ -322,6 +419,60 @@ def tree_search(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
         tau0=tau0, ub_all=leaf_ub, leaf_mask=leaf_alive)
     tree_pruned = (~leaf_alive).sum() if prune else zero
     return top_s, pos, blk_pruned, elem_pruned, tree_pruned, evals
+
+
+def tree_kernel_search(tree: TreeIndex, qn: Tensor, qp: Tensor, k: int, *,
+                       margin: float = 4e-7, warm_start: bool = True,
+                       warm_start_blocks: int | None = None, n_pivots: int = 0,
+                       bm: int = DEFAULT_BM, sort_queries: bool = True,
+                       best_first: bool = True, element_stats: bool = False,
+                       tau_seed: Tensor | None = None):
+    """Tree search with the kernel leaf stage (pruning on, ``k <=
+    block_size``): seed (or ``tau_seed``) and descent, then the fused
+    kernel over the compacted union of the batch's surviving leaves
+    (:func:`gathered_topk`).
+
+    With ``n_pivots > 0`` and no element stats, the joint cap against the
+    τ seed first drops leaves from the union (element stats count every
+    never-kept row as pruned by its interval bound, which the cap does not
+    imply).  The union is one host sync; an empty union keeps block 0, so
+    the kernel has a tile.  With ``sort_queries`` the queries are sorted
+    into angularly coherent tiles, and ``pruned_topk``'s epilogue writes
+    each row back to its caller's place (``row_out``).
+
+    Returns ``(sims [m, k], pos [m, k], computed [m_tiles, n_keep],
+    elem_pruned or None, tree_pruned, node_evals, keep [n_keep])``:
+    ``elem_pruned`` (with ``element_stats``) counts the kernel's pruned
+    (query, valid row) pairs plus every query's pairs with the rows of the
+    never-kept blocks, which the descent proved below τ₀ (each row's own
+    bound lies under its leaf's node bound); ``tree_pruned`` counts the
+    descent's cuts alone.
+    """
+    idx = tree.index
+    m, nb, bs = qn.shape[0], tree.n_blocks, tree.block_size
+    tau0, leaf_alive, _, evals = _seed_and_descend(
+        tree, qn, qp, k, warm_start=warm_start,
+        warm_start_blocks=warm_start_blocks, margin=margin, tau_seed=tau_seed)
+    tree_pruned = (~leaf_alive).sum()
+    if n_pivots > 0 and tau0 is not None and not element_stats:
+        cap = multipivot_block_cap(idx, qn, n_pivots=n_pivots)
+        leaf_alive = leaf_alive & (cap + margin >= tau0[:, None])
+    keep = torch.nonzero(leaf_alive.any(0))[:, 0].int()   # ascending
+    if keep.numel() == 0:
+        keep = keep.new_zeros(1)
+    perm = None
+    if sort_queries:
+        perm = _bk.query_sort_perm(qp).int()
+        qn, qp = qn[perm], qp[perm]
+        tau0 = None if tau0 is None else tau0[perm]
+    sims, pos, computed, elem = gathered_topk(
+        idx, keep, qn, qp, tau0, k=k, bm=bm, margin=margin,
+        element_stats=element_stats, best_first=best_first, row_out=perm)
+    if element_stats:
+        per_block = idx.valid.view(nb, bs).sum(1)
+        never = per_block.sum() - per_block[keep.long()].sum()
+        elem = elem.sum() + m * never
+    return sims, pos, computed, elem, tree_pruned, evals, keep
 
 
 @_bk.register_backend("tree")
@@ -385,42 +536,16 @@ class TreeBackend:
 
     def _run_kernel_leaves(self, eng, tree: TreeIndex, qn: Tensor, qp: Tensor,
                            k: int, *, element_stats: bool):
-        """Seed and descent, then the fused kernel over the compacted union
-        of the batch's surviving leaves (:func:`gathered_topk`).
-
-        With ``n_pivots > 0`` and no element stats, the joint cap against
-        the τ seed first drops leaves from the union (element stats count
-        every never-kept row as pruned by its interval bound, which the cap
-        does not imply).  The union is one host sync; an empty union keeps
-        block 0, so the kernel has a tile.  The queries are sorted into
-        angularly coherent tiles, and ``pruned_topk``'s epilogue writes
-        each row back to its caller's place (``row_out``).
-        """
-        idx = tree.index
-        m, nb, bs = qn.shape[0], tree.n_blocks, tree.block_size
-        tau0, leaf_alive, _, evals = _seed_and_descend(
-            tree, qn, qp, k, warm_start=eng.warm_start,
-            warm_start_blocks=eng.warm_start_blocks, margin=eng.margin)
-        # tree_prune_frac counts the descent's cuts alone
-        tree_pruned = (~leaf_alive).sum()
-        if eng.n_pivots > 0 and tau0 is not None and not element_stats:
-            cap = multipivot_block_cap(idx, qn, n_pivots=eng.n_pivots)
-            leaf_alive = leaf_alive & (cap + eng.margin >= tau0[:, None])
-        keep = torch.nonzero(leaf_alive.any(0))[:, 0].int()   # ascending
-        if keep.numel() == 0:
-            keep = keep.new_zeros(1)
-        perm = None
-        if eng.sort_queries:
-            perm = _bk.query_sort_perm(qp).int()
-            qn, qp = qn[perm], qp[perm]
-            tau0 = None if tau0 is None else tau0[perm]
-        sims, pos, computed, elem = gathered_topk(
-            idx, keep, qn, qp, tau0, k=k, bm=eng.bm, margin=eng.margin,
-            element_stats=element_stats, best_first=eng.best_first,
-            row_out=perm)
-        ids = _bk.map_row_ids(idx.row_ids, pos)
-        # over the full (query tile, block) grid: the compacted-away tiles
-        # were never launched
+        """:func:`tree_kernel_search` with the engine's options, and its
+        stats over the full (query tile, block) grid: the compacted-away
+        tiles were never launched."""
+        m, nb = qn.shape[0], tree.n_blocks
+        sims, pos, computed, elem, tree_pruned, evals, keep = tree_kernel_search(
+            tree, qn, qp, k, margin=eng.margin, warm_start=eng.warm_start,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots,
+            bm=eng.bm, sort_queries=eng.sort_queries, best_first=eng.best_first,
+            element_stats=element_stats)
+        ids = _bk.map_row_ids(tree.index.row_ids, pos)
         grid = computed.shape[0] * nb
         computed_sum = computed.float().sum()
         raw = {"block_prune_frac": 1.0 - computed_sum / grid,
@@ -430,10 +555,5 @@ class TreeBackend:
                "tree_levels": tree.n_levels,
                "n_keep": keep.numel()}
         if element_stats:
-            # rows of never-kept blocks: the descent proved each below τ₀
-            # (its own bound lies under its leaf's node bound)
-            per_block = idx.valid.view(nb, bs).sum(1)
-            never = per_block.sum() - per_block[keep.long()].sum()
-            raw["elem_prune_frac"] = ((elem.float().sum() + m * never)
-                                      / (m * max(1, eng.n_valid)))
+            raw["elem_prune_frac"] = elem.float() / (m * max(1, eng.n_valid))
         return sims, ids, raw

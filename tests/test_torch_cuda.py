@@ -740,6 +740,112 @@ def test_sharded_engine_on_cuda_runs_the_kernels_per_shard(cuda, tmp_path):
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+def test_sharded_tree_engine_on_cuda_runs_the_tree_kernels_per_shard(cuda, tmp_path):
+    """SearchEngine.build(db, mesh=..., tree_shards=True) on a one-rank CUDA
+    mesh holding 4 shards of 40 blocks (6 levels): per call and shard one
+    pruned_topk launch (under gathered_topk) and tree_levels + 1
+    block_bounds launches (the descent and the kept tiles' best-first
+    order), no select kernel; past k = block_size the scan leaf stage:
+    tree_levels block_bounds launches and no pruned_topk.  Every answer
+    equals the brute force, the flat sharded engine (up to k = 128, its
+    kernel's tile) and the same tree branch on the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import build_sharded_index
+    from repro_torch.search import SearchEngine
+
+    rng = np.random.default_rng(24)
+    db = clustered(rng, 20_000, 32, n_centers=8, noise=0.05)
+    q = db[rng.integers(0, 20_000, 1_000)] + 0.03 * rng.normal(size=(1_000, 32))
+    qn = cref.normalize(q).astype(np.float32)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("shard",))
+        eng = SearchEngine.build(db, mesh=mesh, n_shards=4, n_pivots=16, block_size=128,
+                                 tree_shards=True)
+        flat = SearchEngine(eng.index, mesh=mesh, tree_shards=False)
+        on_cpu = SearchEngine(build_sharded_index(db, 4, n_pivots=16, block_size=128,
+                                                  device="cpu"), tree_shards=True,
+                              device="cpu")
+        assert eng._tree_shards_enabled and eng.n_blocks == 40
+        for k in (1, 10, 100, 200):
+            before = (pruned_topk.launches, block_bounds_select.launches,
+                      block_bounds.launches)
+            sims, ids, st = eng.search(qn, k)
+            torch.cuda.synchronize()
+            seen = tuple(a - b for a, b in zip((pruned_topk.launches,
+                                                block_bounds_select.launches,
+                                                block_bounds.launches), before))
+            levels = st.extras["tree_levels"]
+            kernel_leaves = k <= 128
+            assert levels == 6 and seen == (4 * kernel_leaves, 0,
+                                             4 * (levels + kernel_leaves)), (k, seen)
+            s_b, i_b = cref.brute_force_knn(qn, db, k)
+            np.testing.assert_allclose(sims.cpu().numpy(), s_b, atol=1e-5)
+            assert_topk_sets_close(sims.cpu().numpy(), ids.cpu().numpy(),
+                                   s_b.astype(np.float32), i_b.astype(np.int32), tol=1e-5)
+            assert (st.tile_computed_frac is not None) == kernel_leaves
+            assert 0.0 < float(st.tree_prune_frac) < 1.0
+            # the flat kernel path takes k up to its tile (128) only
+            for other in (flat, on_cpu) if kernel_leaves else (on_cpu,):
+                s2, i2, _ = other.search(qn, k)
+                assert_topk_sets_close(sims.cpu().numpy(), ids.cpu().numpy(),
+                                       s2.cpu().numpy(), i2.cpu().numpy(), tol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_online_on_cuda_matches_cpu(cuda, deep_corpus):
+    """The same inserts (under live shard trees, then past every tail),
+    deletes and a reoptimize through the sharded handle of a CPU engine and
+    a CUDA engine over copies of one 4-shard index: ids and placements
+    equal; row_ids, valid and db equal; dp, dp_min, dp_max, dp_lo and dp_hi
+    within 2 ulp of 1; the widened shard trees equal build_shard_trees bit
+    for bit on the card; results equal the float64 brute force over the
+    live rows."""
+    from repro_torch.core.distributed import build_sharded_index
+    from repro_torch.search import SearchEngine, build_shard_trees
+
+    db, q = deep_corpus
+    rng = np.random.default_rng(32)
+    idx = build_sharded_index(db[:19_900], 4, n_pivots=16, block_size=64, device="cpu")
+    engines = [SearchEngine(idx.to(dev), tree_shards=True, device=dev)
+               for dev in ("cpu", cuda)]
+    for eng in engines:
+        eng.search(q[:8], 10)                               # the trees build
+    handles = [eng.online(auto_reoptimize=False) for eng in engines]
+    live = {i: db[i] for i in range(19_900)}
+    steps = [("insert", db[19_900:19_940]), ("delete", list(range(0, 640, 4))),
+             ("insert", clustered(rng, 300, 32)), ("insert", clustered(rng, 500, 32)),
+             ("reoptimize", None)]
+    for op, arg in steps:
+        out = [getattr(h, op)(*(() if arg is None else (arg,))) for h in handles]
+        if op == "insert":
+            assert out[0] == out[1]
+            live.update(zip(out[0], arg))
+        elif op == "delete":
+            for i in arg:
+                del live[i]
+        assert handles[0]._id_pos == handles[1]._id_pos
+        cpu, gpu = (eng.index for eng in engines)
+        for f in ("row_ids", "valid", "db"):
+            assert torch.equal(getattr(cpu, f), getattr(gpu, f).cpu()), (op, f)
+        for f in ("dp", "dp_min", "dp_max", "dp_lo", "dp_hi"):
+            torch.testing.assert_close(getattr(gpu, f).cpu(), getattr(cpu, f),
+                                       atol=2 * 1.2e-7, rtol=0)
+        if engines[1]._shard_tree is not None:
+            rebuilt = build_shard_trees(gpu)
+            assert all(torch.equal(a, b) for a, b in zip(engines[1]._shard_tree, rebuilt))
+        sims, ids, st = engines[1].search(q, 10)
+        live_brute_check(sims, ids, live, q, 10)
+        assert st.generation == handles[1].generation
+
+
 def descent_near_decisions(eng, qn, qp, k) -> int:
     """(query, node) decisions of the tree engine's descent whose gap
     (bound + margin - τ₀) lies within 2·margin: where the descent of two

@@ -5,9 +5,10 @@
   and the port's single-device engine at k in {1, 7, 80}; its stats are
   the sharded layer's, with the reference's ``n_valid`` and ``n_slots``;
 * the reference's two guards (a flat index on ``"sharded"``, a stacked
-  one on any other backend), ``tree_shards=True`` and a sharded
-  ``online()`` raising ``NotImplementedError``, a mesh on another device
-  type, and ``tree_shards``' auto rule searching deep shards flat;
+  one on any other backend), ``tree_shards`` turning the shard trees on
+  and a sharded ``online()`` handing out a ``ShardedMutableIndex``, a mesh
+  on another device type, and ``tree_shards``' auto rule searching deep
+  shards through their trees;
 * four ranks with one shard each on a 2 x 2 mesh
   (``tests/torch_dist_worker.py``, gloo through a file store): the
   process-local build bit for bit against ``build_sharded_index``'s
@@ -25,6 +26,7 @@ torch = pytest.importorskip("torch")
 from repro.core import ref as j_ref  # noqa: E402
 from repro_torch.core.distributed import (build_sharded_index,  # noqa: E402
                                           make_sharded_search)
+from repro_torch.core.online import MutableIndex, ShardedMutableIndex  # noqa: E402
 from repro_torch.search import SearchEngine, auto_backend  # noqa: E402
 from tests.test_torch_distributed import (BLOCK, KS, PIVOTS, SHARDS,  # noqa: E402,F401
                                           assert_same_topk, corpus, mesh)
@@ -100,10 +102,15 @@ def test_engine_guards(mesh, engines):
     with pytest.raises(ValueError, match="sharded"):
         SearchEngine(eng.index, backend="kernel", mesh=mesh, device="cpu")
     assert auto_backend(single.index, mesh) == "sharded"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SearchEngine(eng.index, mesh=mesh, tree_shards=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ShardedMutableIndex"):
-        eng.online()
+    # the shard trees are on where asked and off by the auto rule at 65
+    # blocks a shard; a sharded engine's online handle is the sharded one
+    assert eng.tree_shards is None and not eng._tree_shards_enabled
+    assert SearchEngine(eng.index, mesh=mesh, tree_shards=True,
+                        device="cpu")._tree_shards_enabled
+    fresh = SearchEngine(eng.index, mesh=mesh, device="cpu")
+    assert isinstance(fresh.online(), ShardedMutableIndex)
+    with pytest.raises(TypeError, match="ShardedMutableIndex"):
+        MutableIndex(fresh)
     with pytest.raises(ValueError, match="mesh="):
         SearchEngine.build(db, distributed=True, device="cpu")
     with pytest.raises(ValueError, match="mesh is on 'cuda'"):
@@ -112,21 +119,30 @@ def test_engine_guards(mesh, engines):
     with pytest.raises(ValueError, match="do not split evenly"):
         SearchEngine.build(db, mesh=mesh, n_shards=0, device="cpu")
     # a flat engine ignores tree_shards, as the reference's does
-    assert SearchEngine(single.index, tree_shards=True, device="cpu").backend_name == "scan"
+    flat = SearchEngine(single.index, tree_shards=True, device="cpu")
+    assert flat.backend_name == "scan" and not flat._tree_shards_enabled
 
 
-def test_tree_shards_auto_searches_deep_shards_flat(mesh):
+def test_tree_shards_auto_searches_deep_shards_with_trees(mesh):
     """From 256 blocks a shard the reference's auto rule turns the shard
-    trees on; the port searches flat, with the same result sets."""
+    trees on: the same result sets as the flat search, the tree's stats
+    beside them, and at least the flat search's pruning."""
     db, q = corpus(seed=4, n=4096)
     eng = SearchEngine.build(db, mesh=mesh, n_shards=2, n_pivots=4, block_size=8,
                              device="cpu")
     assert eng.index.dp_min.shape[1] == 256 and eng.tree_shards is None
+    assert eng._tree_shards_enabled
     s, i, st = eng.search(q, 10)
     sref, iref = j_ref.brute_force_knn(q, db, 10)
     assert_same_topk(s.numpy(), i.numpy(), sref, iref, 2e-5)
-    assert st.tree_prune_frac is None and st.tree_node_eval_frac is None
-    assert float(st.block_prune_frac) > 0.0
+    assert 0.0 < float(st.tree_prune_frac) <= 1.0
+    assert 0.0 < float(st.tree_node_eval_frac) <= 1.0
+    assert st.extras["tree_levels"] == 8 and eng._shard_tree is not None
+    flat = SearchEngine(eng.index, mesh=mesh, tree_shards=False, device="cpu")
+    s_f, i_f, st_f = flat.search(q, 10)
+    assert_same_topk(s.numpy(), i.numpy(), s_f.numpy(), i_f.numpy(), 1e-6)
+    assert st_f.tree_prune_frac is None and st_f.tree_node_eval_frac is None
+    assert float(st.block_prune_frac) >= float(st_f.block_prune_frac) > 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -101,10 +101,8 @@ def test_find_near_duplicates_needs_a_gpu_by_default(rng):
 
 
 def test_search_exports_match_reference():
-    """The port's search surface is the reference's but for the sharded
-    layer's tree (ROADMAP.md Queue 1 item 5)."""
-    assert set(j_search.__all__) - set(t_search.__all__) == {"ShardTreeArrays",
-                                                             "build_shard_trees"}
-    assert set(t_search.__all__) <= set(j_search.__all__)
+    """The port's search surface is the reference's, the shard trees'
+    ``ShardTreeArrays`` and ``build_shard_trees`` included."""
+    assert set(t_search.__all__) == set(j_search.__all__)
     for name in t_search.__all__:
         assert getattr(t_search, name) is not None
