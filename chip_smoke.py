@@ -134,7 +134,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    prefilled cache give the same tokens.  mixtral-8x22b (141 B params) and
    qwen2-72b do not fit one card at fp32 and are not run;
 14. training at full width (the reference's whole-system flow): a.
-   tinyllama-1.1b at full width and depth, remat on: find_near_duplicates
+   tinyllama-1.1b at full width, cut to 11 of its 22 layers (phase 16
+   trains it at full depth), remat on: find_near_duplicates
    on the card over the 1,920 passages of 128 tokens of the run's batches
    (32 planted copies: all found, the pairs equal to a brute force, one
    pruned_topk and one block_bounds_select launch), 30 steps through
@@ -173,6 +174,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    fractions, the kept blocks per shard, the profile's busy ms by kernel,
    insert and delete us and peak memory, each beside the card's name and
    power limit.
+
+16. training on a (data, model) mesh, on one card (one-rank NCCL
+   DeviceMeshes (1, 1) ("data", "model") and (1, 1, 1) ("pod", "data",
+   "model"); no collective of more than one card runs): a. tinyllama-1.1b
+   at full width and depth, fp32 params and moments, 5 steps at B = 8,
+   S = 1,024 under default_rules(fsdp=True) through place_state,
+   make_process_local_array and the mesh train step, each loss within
+   1e-5 relative of the same seed's host steps in this process, the
+   largest parameter difference after them reported, every leaf's
+   placement (local shape against global) printed; b. granite-moe-1b-a400m
+   at full width, B = 2, on the (1, 1, 1) mesh: every MoE layer through
+   _moe_sharded, one step's loss and gradients equal to the local path's
+   within 1e-5; c. b's parameters checkpointed and restored with
+   restore(shardings=) onto remesh([0]), every leaf a DTensor there, bit
+   for bit; d. one sharded search over ("pod", "data") of the (1, 1, 1)
+   mesh equal to a brute force.  The training path launches no kernel
+   (counted: 0); d launches pruned_topk and block_bounds_select once per
+   shard.  It prints ms a step beside phase 14's and the host path's,
+   peak GB, and the card's name and power limit.
 
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
@@ -2402,7 +2422,9 @@ def phase_families(seed, card, kernels, archs=FAMILY_ARCHS):
 
 #: phase 14, training at full width: the reference's whole-system flow
 #: (tests/test_system.py: embed -> dedup -> train -> datastore -> kNN-LM
-#: serving) on TRAIN_ARCH at full width and depth, remat on.  The run draws
+#: serving) on TRAIN_ARCH at full width, cut to TRAIN_LAYERS of its 22
+#: layers (phase 16 trains it at full depth, on the host path and on a
+#: mesh, and times both), remat on.  The run draws
 #: TRAIN_STEPS batches of TRAIN_BATCH x TRAIN_SEQ SyntheticLM tokens (8,192 a
 #: step), with duplicate passages planted into them: the dedup's documents
 #: are the passages of DEDUP_DOC tokens of those batches (1,920), of which
@@ -2412,7 +2434,7 @@ def phase_families(seed, card, kernels, archs=FAMILY_ARCHS):
 #: seed 14): DEDUP_K lies above that, so the k-nearest cut drops no pair
 #: and the answer is every pair at the threshold.  The learning rate is
 #: launch/train.py's warmup_cosine
-TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_ARCH, TRAIN_LAYERS = "tinyllama-1.1b", 11
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 1024, 30, 3e-4
 DEDUP_DOC, DEDUP_PLANTED, DEDUP_EDITS, DEDUP_THRESHOLD, DEDUP_K = 128, 32, 2, 0.95, 120
 #: the trained model's store: from_corpus over TRAIN_STORE_SEQS x TRAIN_SEQ
@@ -2573,8 +2595,8 @@ def grads_of_float64(cfg, params, batch):
 def phase_train(seed, card, kernels):
     """Phase 14: training at full width.
 
-    a. Dedup -> train -> serve, on ARCHS[TRAIN_ARCH] at full width and
-       depth: find_near_duplicates over the passages of the run's planted
+    a. Dedup -> train -> serve, on ARCHS[TRAIN_ARCH] at full width, cut
+       to TRAIN_LAYERS layers: find_near_duplicates over the passages of the run's planted
        batches (every planted pair found, the pairs equal to brute_pairs,
        one launch of each of kernels[:2]); TRAIN_STEPS steps through
        Trainer (every loss finite, grad_norm finite and > 0, the mean of
@@ -2628,7 +2650,7 @@ def train_checks(seed, card, kernels, ckpt_root):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    cfg = ARCHS[TRAIN_ARCH]
+    cfg = ARCHS[TRAIN_ARCH].replace(n_layers=TRAIN_LAYERS)
     fns = model_fns(cfg)
     tally = LaunchTally(kernels)
     path = tuple(kern.__name__ for kern in kernels[:2])
@@ -3447,6 +3469,307 @@ def phase_sharded(spec, seed, eng, q, brute, SearchEngine, kernels, card):
     return out
 
 
+#: phase 16: tinyllama-1.1b at full width and depth on a one-rank mesh,
+#: MESH_STEPS steps at B = MESH_BATCH, S = MESH_SEQ, losses within
+#: MESH_LOSS_RTOL of the host path's at every step; granite-moe-1b-a400m
+#: at full width, B = MESH_MOE_BATCH, S = MESH_MOE_SEQ, through
+#: _moe_sharded; the sharded search over ("pod", "data") at MESH_SEARCH
+MESH_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
+MESH_STEPS, MESH_BATCH, MESH_SEQ, MESH_LOSS_RTOL = 5, 8, 1024, 1e-5
+MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 1024
+MESH_SEARCH = dict(n=200_000, d=64, m=1_000, k=10, centers=64, noise=0.05, shards=4)
+
+
+def leaf_placements(model):
+    """Each parameter's placement as ``pattern: (count, local shape, global
+    shape, placements)``, the pattern its name with the layer index as *."""
+    from repro_torch.dist import placement
+
+    out = {}
+    for name, (loc, glob, placed) in placement.describe(model).items():
+        key = ".".join("*" if part.isdigit() else part for part in name.split("."))
+        n = out.get(key, (0,))[0]
+        out[key] = (n + 1, list(loc), list(glob), placed)
+    return out
+
+
+def mesh_host_steps(fns, cfg, seed, batches, dev, schedule_fn):
+    """MESH_STEPS host steps of a fresh state; (losses, ms, the parameters
+    after, on the host)."""
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    state = init_state(fns, seed, device=dev)
+    step = make_train_step(fns, cfg, lr_schedule=schedule_fn)
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    params = {n: p.detach().cpu() for n, p in state["params"].named_parameters()}
+    return losses, ms, params
+
+
+def phase_mesh_train(seed, card, kernels, host_ms):
+    """Phase 16: training on a (data, model) mesh, on one card.
+
+    A one-rank NCCL group (a file store under build/) carries two
+    DeviceMeshes, (1, 1) ("data", "model") and (1, 1, 1) ("pod", "data",
+    "model"); every collective of the mesh path runs as a group of one.
+
+    a. MESH_ARCH at full width and depth, fp32 params and AdamW moments,
+       MESH_STEPS steps at B = MESH_BATCH, S = MESH_SEQ, under
+       default_rules(fsdp=True) on the (1, 1) mesh: the state placed by
+       launch.dryrun.param_shardings (place_state), each batch a DTensor
+       (make_process_local_array, the launcher's make_global), the mesh
+       train step; against the same seed's host steps in this process:
+       losses within MESH_LOSS_RTOL at every step, the largest parameter
+       difference after the steps;
+    b. MESH_MOE_ARCH at full width, B = MESH_MOE_BATCH, on the (1, 1, 1)
+       mesh under default_rules(multi_pod=True, fsdp=True): one step's
+       loss and gradients (as AdamW receives them) against the local
+       path's (grads_of), every MoE layer through _moe_sharded;
+    c. b's parameters checkpointed, restored with restore(shardings=)
+       onto remesh([0]) (a (1, 1) ("data", "model") mesh) by its
+       param_shardings: every leaf a DTensor there, equal bit for bit;
+    d. one sharded search over ("pod", "data") of the (1, 1, 1) mesh
+       ("model" replicated) at MESH_SEARCH: every answer equal to a brute
+       force on the card.
+
+    The training path (a-c) launches no kernel: the counts are zeroed
+    before it and must read 0 after; d launches per call one pruned_topk
+    and one block_bounds_select per shard.  ``host_ms`` is phase 14's ms a
+    step, printed beside a's."""
+    import functools
+    import logging
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import elastic, placement
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.compat import make_process_local_array
+    from repro_torch.launch.dryrun import param_shardings
+    from repro_torch.models import model_fns, moe, synthetic_batch
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.search import SearchEngine
+    from repro_torch.train.train_step import init_state, make_train_step, place_state
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    tag = "[mesh]"
+    dev = torch.device("cuda")
+    store = ROOT / "build" / "mesh_store"
+    ckpt = ROOT / "build" / "mesh_ckpt"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"card": card}
+    tally = LaunchTally(kernels)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh2 = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+        mesh3 = DeviceMesh("cuda", [[[0]]], mesh_dim_names=("pod", "data", "model"))
+
+        # a. the dense arch, host steps then the same on the mesh
+        cfg = ARCHS[MESH_ARCH]
+        fns = model_fns(cfg)
+        lr = functools.partial(schedule.warmup_cosine, peak_lr=TRAIN_LR,
+                               warmup_steps=max(MESH_STEPS // 20, 5), total_steps=MESH_STEPS)
+        data = SyntheticLM(cfg.vocab, MESH_SEQ, MESH_BATCH, seed=seed)
+        host_batches = [data.batch(i) for i in range(MESH_STEPS)]
+        torch.cuda.empty_cache()
+        h_losses, h_ms, h_params = mesh_host_steps(fns, cfg, seed, host_batches, dev, lr)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tally.discard()
+        shd.set_rules(mesh2, shd.default_rules(fsdp=True))
+        try:
+            state = init_state(fns, seed, device=dev)
+            state = place_state(state, param_shardings(state["params"], mesh2, cfg))
+            placed = leaf_placements(state["params"])
+            step = make_train_step(fns, cfg, lr_schedule=lr)
+            batch_sh = shd.NamedSharding(mesh2, (("data",),))
+            m_losses, m_ms = [], []
+            for b in host_batches:
+                gb_ = {k: make_process_local_array(batch_sh, x, x.shape) for k, x in b.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, gb_)
+                torch.cuda.synchronize()
+                m_ms.append((time.perf_counter() - t0) * 1e3)
+                m_losses.append(float(m["loss"]))
+        finally:
+            shd.set_rules(None, None)
+        peak = gb(torch.cuda.max_memory_allocated())
+        diff = max(float((placement.local(p).detach().cpu() - h_params[n]).abs().max())
+                   for n, p in state["params"].named_parameters())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(m_losses, h_losses))
+        launches_a = tally.counts()
+        del state, step, h_params
+        torch.cuda.empty_cache()
+        out["dense"] = {"arch": cfg.name, "batch": [MESH_BATCH, MESH_SEQ],
+                        "losses_mesh": m_losses, "losses_host": h_losses,
+                        "loss_max_rel": rel, "param_max_abs_diff": diff, "ms_mesh": m_ms,
+                        "ms_host": h_ms, "ms_median_mesh": float(np.median(m_ms[1:])),
+                        "ms_median_host": float(np.median(h_ms[1:])),
+                        "phase14_ms_median": host_ms, "peak_gb": peak, "placements": placed,
+                        "launches": launches_a}
+        r = out["dense"]
+        log(f"{tag} a. {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}) on a (1, 1) "
+            f"(data, model) mesh, default_rules(fsdp=True), B = {MESH_BATCH}, S = "
+            f"{MESH_SEQ}: {r['ms_median_mesh']:.1f} ms a step (median past the first; host "
+            f"path in this phase {r['ms_median_host']:.1f}, phase 14 {host_ms:.1f}), peak "
+            f"{peak:.2f} GB; losses mesh {[round(x, 6) for x in m_losses]}, host "
+            f"{[round(x, 6) for x in h_losses]}, max rel diff {rel:.3e}; largest parameter "
+            f"difference after {MESH_STEPS} steps {diff:.3e}; launches {launches_a}; {card}")
+        for key, (n, loc, glob, pl) in placed.items():
+            log(f"{tag} a. placement {key} (x{n}): local {loc} of global {glob}, {pl}")
+        check(rel <= MESH_LOSS_RTOL, f"{tag} a. the mesh losses differ from the host path's")
+        check(all(np.isfinite(m_losses)), f"{tag} a. a mesh loss is not finite")
+
+        # b. the MoE through _moe_sharded on the (1, 1, 1) mesh
+        m_cfg = ARCHS[MESH_MOE_ARCH]
+        m_fns = model_fns(m_cfg)
+        batch = synthetic_batch(m_cfg, MESH_MOE_BATCH, MESH_MOE_SEQ, seed=seed + 1, device=dev)
+        host = init_state(m_fns, seed + 1, device=dev)
+        loss_h, g_h = grads_of(m_fns, m_cfg, host["params"], batch)
+        g_h = {n: g.detach().cpu() for n, g in g_h.items()}
+        del host
+        torch.cuda.empty_cache()
+        calls, captured = [], {}
+        sharded, update = moe._moe_sharded, adamw.update
+
+        def counted(*a, **kw):
+            calls.append(1)
+            return sharded(*a, **kw)
+
+        def spy(grads, *a, **kw):
+            captured.update({n: placement.local(g).detach().clone() for n, g in grads.items()})
+            return update(grads, *a, **kw)
+
+        shd.set_rules(mesh3, shd.default_rules(multi_pod=True, fsdp=True))
+        moe._moe_sharded, adamw.update = counted, spy
+        try:
+            state = init_state(m_fns, seed + 1, device=dev)
+            state = place_state(state, param_shardings(state["params"], mesh3, m_cfg))
+            step = make_train_step(m_fns, m_cfg, lr_schedule=functools.partial(
+                schedule.constant, peak_lr=TRAIN_LR))
+            # the batch split over the data axes, as the launcher's make_global makes it
+            batch_sh3 = shd.NamedSharding(mesh3, (("pod", "data"),))
+            split_batch = {k: make_process_local_array(batch_sh3, x, x.shape)
+                           for k, x in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, split_batch)
+            torch.cuda.synchronize()
+            moe_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe._moe_sharded, adamw.update = sharded, update
+            shd.set_rules(None, None)
+        g_rel = max(float((captured[n].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                    for n, g in g_h.items())
+        del captured
+        n_moe = sum(t == "moe" for t in m_cfg.layer_types)
+        out["moe"] = {"arch": m_cfg.name, "batch": [MESH_MOE_BATCH, MESH_MOE_SEQ],
+                      "loss_mesh": float(m["loss"]), "loss_local": float(loss_h),
+                      "grad_max_rel": g_rel, "moe_sharded_calls": len(calls),
+                      "moe_layers": n_moe, "step_ms": moe_ms}
+        r = out["moe"]
+        log(f"{tag} b. {m_cfg.name} ({m_cfg.n_layers} layers, d {m_cfg.d_model}) on a (1, 1, 1) "
+            f"(pod, data, model) mesh, B = {MESH_MOE_BATCH}, S = {MESH_MOE_SEQ}: one step "
+            f"{moe_ms:.0f} ms, loss {r['loss_mesh']:.6f} (local path {r['loss_local']:.6f}), "
+            f"largest gradient difference over each leaf's max {g_rel:.3e}; _moe_sharded "
+            f"calls {len(calls)} (forward and recompute of {n_moe} MoE layers); {card}")
+        check(abs(r["loss_mesh"] - r["loss_local"]) <= MESH_LOSS_RTOL * abs(r["loss_local"]),
+              f"{tag} b. the mesh MoE loss differs from the local path's")
+        check(g_rel <= 1e-5, f"{tag} b. the mesh MoE gradients differ from the local path's")
+        check(len(calls) >= n_moe, f"{tag} b. an MoE layer did not take _moe_sharded")
+
+        # c. b's parameters checkpointed, restored onto remesh([0])
+        cm = CheckpointManager(str(ckpt), async_save=False)
+        want = {n: placement.local(p).detach().cpu() for n, p in state["params"].named_parameters()}
+        t0 = time.perf_counter()
+        cm.save(1, {"params": state["params"]})
+        save_s = time.perf_counter() - t0
+        del state, step
+        torch.cuda.empty_cache()
+        new_mesh = elastic.remesh([0], device_type="cuda")
+        shd.set_rules(new_mesh, shd.default_rules(fsdp=True))
+        try:
+            target = init_state(m_fns, 0, abstract=True)["params"]
+            sh = param_shardings(target, new_mesh, m_cfg)
+            t0 = time.perf_counter()
+            got, _, _ = cm.restore({"params": target}, 1, device=dev,
+                                   shardings={"params": sh})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shd.set_rules(None, None)
+        bad = [n for n, p in got["params"].named_parameters()
+               if not placement.is_dtensor(p) or p.device_mesh != new_mesh
+               or not torch.equal(placement.local(p).detach().cpu(), want[n])]
+        gbytes = gb(sum(t.numel() * t.element_size() for t in want.values()))
+        out["restore"] = {"remesh": list(new_mesh.mesh.shape), "leaves": len(want),
+                          "gb": gbytes, "save_s": save_s, "restore_s": restore_s,
+                          "not_equal": bad}
+        log(f"{tag} c. {gbytes:.2f} GB of {m_cfg.name} parameters saved in {save_s:.1f} s, "
+            f"restored onto remesh([0]) = {list(new_mesh.mesh.shape)} (data, model) in "
+            f"{restore_s:.1f} s; leaves not placed or not equal: {len(bad)} of {len(want)}")
+        check(not bad, f"{tag} c. a restored leaf is not on the new mesh or differs: {bad[:4]}")
+        del got, want, target
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        launches_train = tally.counts()
+        check(all(v == 0 for v in launches_train.values()),
+              f"{tag} the training path launched a kernel: {launches_train}")
+
+        # d. a sharded search over ("pod", "data") of the (1, 1, 1) mesh
+        spec = MESH_SEARCH
+        rng = np.random.default_rng(seed + 16)
+        c = mixture_centres(dict(spec, key="mesh"), seed + 16)
+        db = mixture_draw(rng, c, spec["n"], spec["noise"])
+        q = mixture_draw(rng, c, spec["m"], spec["noise"])
+        eng = SearchEngine.build(db, mesh=mesh3, axis_names=("pod", "data"),
+                                 n_shards=spec["shards"], n_pivots=16, block_size=128,
+                                 tree_shards=False)
+        tally.discard()
+        s, i, _ = eng.search(q, spec["k"])
+        launches_d = tally.counts()
+        dbn = torch.nn.functional.normalize(torch.as_tensor(db, device=dev), dim=1)
+        qn = torch.nn.functional.normalize(torch.as_tensor(q, device=dev), dim=1)
+        s_b, i_b = brute_topk(qn, dbn, spec["k"])
+        err = float((s.to(dev) - s_b).abs().max())
+        bad_rows = tie_aware_mismatches(s.cpu().numpy(), i.cpu().numpy(), s_b.cpu().numpy(),
+                                        i_b.cpu().numpy(), 1e-5)
+        out["search"] = {"spec": spec, "backend": eng.backend_name, "max_abs_err": err,
+                         "rows_differing": bad_rows, "launches": launches_d}
+        log(f"{tag} d. sharded search over (pod, data) of the (1, 1, 1) mesh, {spec['shards']} "
+            f"shards of {spec['n'] // spec['shards']:,} rows, {spec['m']} queries, k = "
+            f"{spec['k']}: backend {eng.backend_name}, max |sim - brute| {err:.2e}, rows "
+            f"differing beyond near-ties {bad_rows}; launches {launches_d}")
+        check(eng.backend_name == "sharded" and err <= 1e-5 and bad_rows == 0,
+              f"{tag} d. the search over (pod, data) differs from the brute force")
+        del eng, db, q, dbn, qn
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = {"mesh_train": launches_train, "mesh_search": launches_d}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"{tag} phase 16 on {card}: {out['seconds']:.1f} s; launches {out['launches']}; "
+        f"collectives of more than one card do not run here")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3969,6 +4292,14 @@ def main(argv=None) -> int:
                                                         block_bounds, merge_splits))
     train = report["train"]["launches"]
 
+    # 16. training on a (data, model) mesh: one-rank meshes, the sharded
+    # MoE, sharded restore, a search over several mesh dims
+    report["mesh"] = phase_mesh_train(args.seed + 16, card, (pruned_topk, block_bounds_select,
+                                                            block_bounds, merge_splits),
+                                      report["train"]["train"]["ms_median"])
+    mesh_train = report["mesh"]["launches"]["mesh_train"]
+    mesh_search = report["mesh"]["launches"]["mesh_search"]
+
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
         for name, old in runs.items():
@@ -4000,7 +4331,9 @@ def main(argv=None) -> int:
                                       "serving": serving["pruned_topk"],
                                       "knn_lm": knn_lm["pruned_topk"],
                                       "model_families": families["pruned_topk"],
-                                      "train": train["pruned_topk"]}
+                                      "train": train["pruned_topk"],
+                                      "mesh_train": mesh_train["pruned_topk"],
+                                      "mesh_search": mesh_search["pruned_topk"]}
     topk_entry["launches"] = sum(topk_entry["launches_by_path"].values())
     # the epilogue runs in every pruned_topk launch
     merge_entry["launches_by_path"] = dict(topk_entry["launches_by_path"])
@@ -4014,7 +4347,8 @@ def main(argv=None) -> int:
         online_kernel=online["kernel"]["block_bounds"], serving=serving["block_bounds"],
         sharded=sharded["block_bounds"],
         knn_lm=knn_lm["block_bounds"], model_families=families["block_bounds"],
-        train=train["block_bounds"])
+        train=train["block_bounds"], mesh_train=mesh_train["block_bounds"],
+        mesh_search=mesh_search["block_bounds"])
     bb_entry["launches"] = sum(bb_entry["launches_by_path"].values())
     sel_entry["launches_by_path"] = {
         "main": sel_entry["launches"], "sharded": sharded["block_bounds_select"],
@@ -4022,7 +4356,9 @@ def main(argv=None) -> int:
         "online_tree": online["tree"]["block_bounds_select"],
         "serving": serving["block_bounds_select"], "knn_lm": knn_lm["block_bounds_select"],
         "model_families": families["block_bounds_select"],
-        "train": train["block_bounds_select"]}
+        "train": train["block_bounds_select"],
+        "mesh_train": mesh_train["block_bounds_select"],
+        "mesh_search": mesh_search["block_bounds_select"]}
     sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
     report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]

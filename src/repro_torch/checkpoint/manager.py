@@ -22,8 +22,14 @@ A tree is a dict / list / tuple of tensors, numpy arrays and
 ``nn.Module`` s (a module's leaves are its named parameters).  numpy has
 no bfloat16 (without ``ml_dtypes``), so a bf16 leaf is stored as its
 ``uint16`` bits with ``"bfloat16"`` as its dtype in the manifest.
-Restoring onto shardings (the reference's elastic path) waits for the
-port of ``dist/`` (ROADMAP) and raises.
+
+On a mesh (DTensor leaves, :mod:`repro_torch.dist.placement`) every rank
+calls ``save``: each DTensor leaf is gathered whole (``full_tensor``, a
+collective) and rank 0 of the process group writes ``shard_p0.npz``, so a
+checkpoint holds full arrays, as the reference's does, whatever mesh wrote
+it.  ``restore(shardings=...)`` places each leaf onto the given mesh
+placements (the reference's elastic path; a DTensor target without one
+keeps its own placement).
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import placement
 
 __all__ = ["CheckpointManager"]
 
@@ -62,8 +70,12 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A host copy of ``leaf`` (never a view of its storage) and its dtype
-    name; bf16 as its uint16 bits."""
+    name; bf16 as its uint16 bits.  A DTensor is gathered whole first (a
+    collective: every rank of its mesh must call this)."""
     if isinstance(leaf, torch.Tensor):
+        if placement.is_dtensor(leaf):
+            with torch.no_grad():
+                leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -96,28 +108,63 @@ def _placed(t, dev):
     return t if (not t.is_meta and t.device == want) else torch.empty_like(t, device=want)
 
 
-def _fill(tree, prefix: str, load, leaves: dict, dev):
+def _sharding(ref, sh):
+    """(mesh, placements) a leaf is restored onto: ``sh`` (a
+    NamedSharding), else a DTensor target's own; None for a plain leaf."""
+    if sh is not None:
+        return sh.mesh, sh.placements
+    if placement.is_dtensor(ref):
+        return ref.device_mesh, ref.placements
+    return None
+
+
+def _on_mesh(arr: torch.Tensor, ref, where):
+    """The whole checkpointed ``arr`` as a DTensor placed by ``where``, in
+    the target's dtype, on the mesh's device (each rank keeps its slice)."""
+    mesh, placed = where
+    return placement.distribute(arr.to(device=placement.local_device(mesh), dtype=ref.dtype),
+                                mesh, placed)
+
+
+def _fill(tree, prefix: str, load, leaves: dict, dev, shardings: dict):
     """``tree`` with each leaf's checkpointed values (``load(path, ref)``)
     written into it; see :meth:`CheckpointManager.restore`."""
     if isinstance(tree, nn.Module):
         if any(p.is_meta for p in tree.parameters()):
             tree.to_empty(device=dev or resolve_device(None))
-        elif dev is not None:
+        elif dev is not None and placement.mesh_of(tree) is None:
             tree.to(dev)
-        for n, p in tree.named_parameters():
+        for n, p in list(tree.named_parameters()):
             key = f"{prefix}{n}"
-            p.copy_(_from_host(load(key, p), leaves[key]["dtype"]))
+            full = _from_host(load(key, p), leaves[key]["dtype"])
+            where = _sharding(p, shardings.get(key))
+            if where is None:
+                p.copy_(full)
+                continue
+            owner, _, leaf = n.rpartition(".")
+            tree.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+                _on_mesh(full, p, where), requires_grad=p.requires_grad)
         return tree
     if isinstance(tree, dict):
-        return {k: _fill(v, f"{prefix}{k}/", load, leaves, dev) for k, v in tree.items()}
+        return {k: _fill(v, f"{prefix}{k}/", load, leaves, dev, shardings)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_fill(v, f"{prefix}{i}/", load, leaves, dev)
+        return type(tree)(_fill(v, f"{prefix}{i}/", load, leaves, dev, shardings)
                           for i, v in enumerate(tree))
     key = prefix[:-1]
     arr = load(key, tree)
     if not isinstance(tree, torch.Tensor):
         return arr.astype(np.asarray(tree).dtype)
+    where = _sharding(tree, shardings.get(key))
+    if where is not None:
+        return _on_mesh(_from_host(arr, leaves[key]["dtype"]), tree, where)
     return _placed(tree, dev).copy_(_from_host(arr, leaves[key]["dtype"]))
+
+
+def _writes() -> bool:
+    """Whether this process writes the checkpoint files: rank 0 of the
+    process group, or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -136,6 +183,8 @@ class CheckpointManager:
         host, dtypes = {}, {}
         for k, v in _flatten(tree).items():   # fetch NOW
             host[k], dtypes[k] = _to_host(v)
+        if not _writes():
+            return
         meta = {
             "step": step,
             "time": time.time(),
@@ -192,11 +241,14 @@ class CheckpointManager:
         parameters too), cast to its dtype; a target leaf on the ``meta``
         device (``init_state(abstract=True)``) is made on ``device``
         (``None`` means CUDA), and ``device`` moves every leaf there.
+        ``shardings``: a tree of the target's structure (dicts by the same
+        keys, a module's entry a dict by parameter name) with
+        :class:`~repro_torch.dist.sharding.NamedSharding` leaves (or None):
+        those leaves become DTensors placed on their mesh (a module's
+        parameter is replaced by a DTensor parameter), the elastic path; a
+        DTensor target leaf keeps its own placement.
         Returns (tree, extra, step).
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings waits for the port of dist/ (ROADMAP)")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -222,8 +274,10 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch {key}: {arr.shape} vs {ref.shape}")
             return arr
 
+        flat_s = {} if shardings is None else _flatten(shardings)
         with torch.no_grad():
-            tree = _fill(target_tree, "", load, meta["leaves"], dev)
+            tree = _fill(target_tree, "", load, meta["leaves"], dev,
+                         {k: s for k, s in flat_s.items() if s is not None})
         return tree, meta.get("extra", {}), step
 
     # -------------------------------------------------------------------- gc

@@ -72,6 +72,7 @@ from repro_torch.core.index import (BlockIndex, build_index, index_from_referenc
 from repro_torch.core.online import append_blocks, write_rows
 from repro_torch.dist.collectives import (gather_shards, global_tau_merge,
                                           topk_allgather_merge)
+from repro_torch.dist.placement import local_device
 from repro_torch.kernels.cosine_topk import DEFAULT_BM
 
 __all__ = ["build_sharded_index", "build_sharded_index_local", "local_shard_rows",
@@ -146,8 +147,9 @@ def shard_layout(mesh, axis_names=None) -> tuple[int, int]:
 
 def shard_group(mesh, axis_names=None):
     """The process group the merges run over: the ranks of the flattened
-    ``axis_names`` that share this rank's other coordinates.  ``None``
-    (no collective) without a mesh or with one rank."""
+    ``axis_names`` that share this rank's other coordinates (e.g.
+    ``("pod", "data")`` of a multipod mesh, ``"model"`` replicated).
+    ``None`` (no collective) without a mesh or with one rank."""
     if mesh is None:
         return None
     dims = _flat_dims(mesh, axis_names)
@@ -157,17 +159,11 @@ def shard_group(mesh, axis_names=None):
         return mesh.get_group(dims[0])
     if sorted(dims) == list(range(mesh.ndim)) and mesh.mesh.numel() == dist.get_world_size():
         return dist.group.WORLD
-    raise NotImplementedError(
-        f"sharding over mesh dims {dims} of a {mesh.ndim}-dim mesh: pass one "
-        f"dim, or all of them on a mesh over every rank")
-
-
-def _mesh_device(mesh) -> torch.device:
-    """This rank's device on ``mesh``: its current CUDA device on a CUDA
-    mesh, else the mesh's device type."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
+    # several dims: a group over their flattened ranks, made the same way on
+    # every rank (every rank must ask for it)
+    if list(dims) != sorted(dims):
+        raise ValueError(f"mesh dims {dims} must be given in the mesh's order")
+    return mesh[tuple(mesh.mesh_dim_names[d] for d in dims)]._flatten().get_group()
 
 
 def _per_rank(n_shards: int, n_ranks: int) -> int:
@@ -283,7 +279,7 @@ def build_sharded_index_local(db_local, mesh, *, global_rows: int, axis_names=No
         parts.append(_build_shard_part(
             _padded(db_local, ofs, ofs + cnt, per), n_valid=cnt, row_offset=s * per,
             n_pivots=n_pivots, block_size=block_size, pivot_method=pivot_method,
-            device=_mesh_device(mesh)))
+            device=local_device(mesh)))
         ofs += cnt
     return _stack_shards(parts)
 
@@ -293,7 +289,7 @@ def place_sharded_index(index: BlockIndex, mesh, axis_names=None) -> BlockIndex:
     on its device: the shards the flattened mesh axes give it."""
     n_dev, pos = shard_layout(mesh, axis_names)
     per_rank = _per_rank(index.db.shape[0], n_dev)
-    dev = _mesh_device(mesh)
+    dev = local_device(mesh)
     return BlockIndex(*(None if t is None
                         else t[pos * per_rank:(pos + 1) * per_rank].to(dev)
                         for t in index))

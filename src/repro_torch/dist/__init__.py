@@ -1,9 +1,12 @@
 """Distribution utilities (counterpart of :mod:`repro.dist`).
 
+  sharding    — logical-name -> mesh-axis rules, ``shard``, ``param_spec``
+  placement   — DTensor parameters on a ``DeviceMesh`` and the collectives
+                of the mesh train step (gathers, Megatron's f and g)
   collectives — small exact-search collectives (top-k all-gather merges)
                 over ``torch.distributed``
-
-The reference's ``sharding``, ``elastic`` and ``compat`` modules are not
-ported yet (ROADMAP Queue 1).
+  elastic     — rebuild a mesh from surviving ranks after node loss
+  compat      — process-local array assembly (the reference's jax shims
+                have no torch counterpart)
 """
-from repro_torch.dist import collectives  # noqa: F401
+from repro_torch.dist import collectives, compat, elastic, placement, sharding  # noqa: F401

@@ -1,0 +1,343 @@
+"""Parameters placed on a ``DeviceMesh`` and the collectives of the mesh
+train step (the part of the reference's GSPMD partitioning that the port
+writes out by hand; no counterpart module in :mod:`repro.dist`).
+
+The design:
+
+* **Placement.**  Each parameter is an ``nn.Parameter`` holding a DTensor
+  placed by the reference's :func:`~repro_torch.dist.sharding.param_spec`
+  (:func:`place_module`; the specs come from
+  :func:`repro_torch.launch.dryrun.param_shardings`).  The optimizer state
+  (``m``, ``v``, the error feedback) takes the same placements, so each
+  rank stores its share of everything, as under the reference's
+  ``param_shardings``.
+* **Compute on local tensors.**  The forward never runs on DTensors: a
+  layer's parameters are gathered to whole tensors just before the layer
+  runs (:func:`gathered_call`), inside the layer's
+  ``torch.utils.checkpoint`` when remat is on, so the backward pass
+  gathers them again, as GSPMD does.  The gather is all-gathers over the
+  mesh dims the parameter is sharded on (FSDP's data axes and the model
+  axis alike): every layer but the MoE experts computes whole on each rank
+  of a ``"model"`` group (attention's ``dh`` split and the vocabulary
+  split are gathered, not contracted locally).  The MoE keeps its experts'
+  ``d_ff`` split over ``"model"`` and reduces with :func:`all_reduce_sum`
+  (:func:`repro_torch.models.moe._moe_sharded`).
+* **Gradients.**  The batch is split over the data axes
+  (:func:`batch_split`); each rank's backward gives the gradient of its own
+  rows.  The gather's backward turns it into the parameter's placement: a
+  sum over the axes the batch is split on (reduce-scatter where the
+  parameter is sharded on that axis, all-reduce where it is replicated),
+  and on the other axes the rank's own slice.  The loss is the global
+  batch's (:func:`batch_sum` of the token sums: all-reduce forward,
+  identity backward, Megatron's ``g``), so the summed gradients are the
+  global batch's.
+
+Without a placed model none of this runs: :func:`gathered_call` calls the
+function directly and :func:`batch_sum` is the identity.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.distributed as dist
+from torch import Tensor, nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+__all__ = ["is_dtensor", "local", "like", "mesh_of", "local_device", "dp_axes", "axes_group",
+           "batch_split",
+           "split_axes", "place_module", "distribute", "gather", "gathered", "gathered_call",
+           "all_reduce_sum", "copy_to_group", "batch_sum", "sum_over_shards",
+           "describe"]
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def local(x):
+    """This rank's part of a DTensor (an alias of its storage where no
+    gradient is recorded), or ``x`` itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like(ref, t: Tensor):
+    """``t``, this rank's part of a tensor placed as ``ref``, as a DTensor
+    placed as ``ref``; ``t`` itself where ``ref`` is a plain tensor."""
+    if not is_dtensor(ref):
+        return t
+    return DTensor.from_local(t, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def mesh_of(module: nn.Module):
+    """The ``DeviceMesh`` ``module``'s parameters are placed on, or None."""
+    p = next(module.parameters(), None)
+    return p.device_mesh if is_dtensor(p) else None
+
+
+def local_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its current CUDA device on a CUDA
+    mesh, else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of ``mesh`` (the reference's ``("pod",
+    "data")`` filter)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def axes_group(mesh, axes):
+    """The process group over the ranks of the flattened mesh ``axes`` that
+    share this rank's other coordinates; None for a group of one rank.
+    Several axes make a group of their own, the same way on every rank
+    (``DeviceMesh._flatten``), so every rank must ask for it."""
+    axes = tuple(axes)
+    names = tuple(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    if dims != sorted(dims):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    if all(mesh.mesh.shape[d] == 1 for d in dims):
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+# ---------------------------------------------------------------------------
+# the batch split
+# ---------------------------------------------------------------------------
+
+_SPLIT: tuple = (None, ())
+
+
+@contextlib.contextmanager
+def batch_split(mesh, axes):
+    """Within the block, the activations hold this rank's rows of a batch
+    split over the mesh ``axes`` (empty: every rank holds the whole
+    batch).  The mesh train step runs its forward and backward in it."""
+    global _SPLIT
+    old, _SPLIT = _SPLIT, (mesh, tuple(axes))
+    try:
+        yield
+    finally:
+        _SPLIT = old
+
+
+def split_axes() -> tuple[str, ...]:
+    """The axes the current batch is split over (see :func:`batch_split`)."""
+    return _SPLIT[1]
+
+
+# ---------------------------------------------------------------------------
+# placing parameters
+# ---------------------------------------------------------------------------
+
+def distribute(t: Tensor, mesh, placements) -> Tensor:
+    """The whole tensor ``t`` (the same on every rank) as a DTensor placed
+    by ``placements``: each rank keeps its slice, no collective."""
+    return distribute_tensor(t.detach(), mesh, placements, src_data_rank=None)
+
+
+def place_module(module: nn.Module, shardings: dict) -> nn.Module:
+    """Replaces each of ``module``'s parameters named in ``shardings``
+    ({name: :class:`~repro_torch.dist.sharding.NamedSharding`}) by a DTensor
+    parameter with that placement (in place; the module is returned)."""
+    for name, sh in shardings.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner)
+        p = mod._parameters[leaf]
+        mod._parameters[leaf] = nn.Parameter(distribute(p, sh.mesh, sh.placements),
+                                             requires_grad=p.requires_grad)
+    return module
+
+
+# ---------------------------------------------------------------------------
+# the gather and the Megatron collectives
+# ---------------------------------------------------------------------------
+
+class _Gather(torch.autograd.Function):
+    """Local part -> the tensor placed as ``target`` (forward); the
+    gradient of that, placed as ``grad``, -> the parameter's placement
+    (backward)."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, placed, target, grad, shape, stride):
+        ctx.args = mesh, placed, grad, shape, stride
+        full = DTensor.from_local(part, mesh, placed, run_check=False, shape=shape,
+                                  stride=stride).redistribute(mesh, target).to_local()
+        return full.view_as(full) if full is part else full
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placed, grad, shape, stride = ctx.args
+        out = DTensor.from_local(g.contiguous(), mesh, grad, run_check=False, shape=shape,
+                                 stride=stride).redistribute(mesh, placed).to_local()
+        return out, None, None, None, None, None, None
+
+
+def gather(p, keep: tuple = ()):
+    """The parameter ``p`` as a local tensor for this rank's compute:
+    whole, except on the mesh axes in ``keep``, which stay split.  A plain
+    tensor is returned as it is.  Differentiable: the gradient reaching
+    ``p`` is summed over the axes the batch is split on
+    (:func:`batch_split`) and placed as ``p``."""
+    if not is_dtensor(p):
+        return p
+    mesh, placed = p.device_mesh, p.placements
+    names = mesh.mesh_dim_names
+    split = tuple(a for a in split_axes() if a in names)
+    target = tuple(pl if names[i] in keep else Replicate() for i, pl in enumerate(placed))
+    grad = []
+    for i, pl in enumerate(target):
+        if names[i] in split:
+            if not isinstance(pl, Replicate):
+                raise ValueError(f"axis {names[i]} splits the batch; it cannot be kept")
+            grad.append(Partial())
+        else:
+            grad.append(pl)
+    return _Gather.apply(p.to_local(), mesh, placed, target, tuple(grad), p.shape,
+                         p.stride())
+
+
+@contextlib.contextmanager
+def _swapped(module: nn.Module, tensors: dict):
+    """Within the block, ``module``'s parameters named in ``tensors`` read
+    as those tensors (plain attributes in their owners' place)."""
+    owners = []
+    for name, t in tensors.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        owners.append((owner, leaf, owner._parameters.pop(leaf)))
+        object.__setattr__(owner, leaf, t)
+    try:
+        yield module
+    finally:
+        for owner, leaf, p in owners:
+            object.__delattr__(owner, leaf)
+            owner._parameters[leaf] = p
+
+
+def _own_placed(module: nn.Module) -> dict:
+    """{name: parameter} of ``module``'s DTensor parameters that it gathers
+    itself: those under a submodule whose ``gathers_own_params`` is true
+    are left to that module (the model's layers, each gathered where it
+    runs; the MoE, which keeps its experts' ``d_ff`` split)."""
+    own = [prefix for prefix, m in module.named_modules()
+           if prefix and getattr(m, "gathers_own_params", False)]
+    return {n: p for n, p in module.named_parameters()
+            if is_dtensor(p) and not any(n.startswith(f"{o}.") for o in own)}
+
+
+@contextlib.contextmanager
+def gathered(module: nn.Module):
+    """Within the block, ``module``'s own placed parameters (see
+    :func:`_own_placed`) read as their gathered whole tensors.  The mesh
+    train step holds it over the forward and the backward, so the loss's
+    checkpointed chunks recompute with the same tensors."""
+    full = {n: gather(p) for n, p in _own_placed(module).items()}
+    with _swapped(module, full):
+        yield module
+
+
+def gathered_call(fn, module: nn.Module, *args, **kw):
+    """``fn(module, *args, **kw)`` with ``module``'s own placed parameters
+    gathered for the call (:func:`gathered`).  Called inside a layer's
+    checkpointed body, the recompute gathers again."""
+    with gathered(module):
+        return fn(module, *args, **kw)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce sum forward, identity backward (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce sum backward (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: Tensor, group) -> Tensor:
+    """Sum of ``x`` over ``group`` (identity without one); the backward
+    passes each rank's gradient through unchanged: use it where every
+    rank's result feeds the same replicated loss."""
+    return x if group is None else _AllReduceSum.apply(x, group)
+
+
+def copy_to_group(x: Tensor, group) -> Tensor:
+    """``x`` (the same on every rank of ``group``) fed to a computation
+    split over ``group``: its gradient is summed over the group."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def batch_sum(x: Tensor) -> Tensor:
+    """``x`` summed over the ranks the batch is split over
+    (:func:`batch_split`); the identity outside a split."""
+    mesh, axes = _SPLIT
+    return x if not axes else all_reduce_sum(x, axes_group(mesh, axes))
+
+
+# ---------------------------------------------------------------------------
+# reductions over a placed tree
+# ---------------------------------------------------------------------------
+
+def _sharded_axes(t) -> tuple[str, ...]:
+    if not is_dtensor(t):
+        return ()
+    names = t.device_mesh.mesh_dim_names
+    return tuple(names[i] for i, pl in enumerate(t.placements) if isinstance(pl, Shard))
+
+
+def sum_over_shards(values: dict, tensors: dict) -> Tensor:
+    """The sum of ``values`` (a scalar per key, each computed on this
+    rank's part of ``tensors[key]``) over every element once: the values
+    of the tensors sharded over one process group are summed, then
+    all-reduced over that group only, so replicated copies count once.
+    The values with no group to reduce over (plain tensors, or parts on
+    mesh axes of one rank) are summed in their order, as a one-device sum
+    is."""
+    groups: dict = {}
+    for key, v in values.items():
+        t = tensors[key]
+        axes = _sharded_axes(t)
+        group = axes_group(t.device_mesh, axes) if axes else None
+        groups[group] = v if group not in groups else groups[group] + v
+    total = None
+    for group, s in groups.items():
+        if group is not None:
+            dist.all_reduce(s, group=group)
+        total = s if total is None else total + s
+    return total
+
+
+def describe(module: nn.Module) -> dict:
+    """{name: (local shape, global shape, placements as text)} of
+    ``module``'s parameters."""
+    out = {}
+    for n, p in module.named_parameters():
+        out[n] = (tuple(local(p).shape), tuple(p.shape),
+                  str(tuple(p.placements)) if is_dtensor(p) else "plain")
+    return out

@@ -15,7 +15,8 @@ plain torch ops (matmul, max, exp): memory stays O(chunk_q * chunk_k) per
 head whatever the sequence length, causal and sliding-window masks are
 applied per tile, and the softmax statistics are fp32.  It is pure JAX in
 the reference, not a Pallas kernel.  The reference's ``shd.shard``
-annotations are identity without a mesh and are dropped here.
+annotations stand where it has them; they are the identity on the local
+tensors the port computes on (:mod:`repro_torch.dist.sharding`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import Tensor, nn
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["checkpointed", "dense_init", "Norm", "norm_init", "norm_apply", "rope_freqs",
@@ -301,6 +303,10 @@ def attn_apply(
         kx = kx.repeat_interleave(cfg.kv_repeat, dim=2)
         vx = vx.repeat_interleave(cfg.kv_repeat, dim=2)
 
+    q = shd.shard(q, "batch", None, "heads", None)
+    kx = shd.shard(kx, "batch", None, "kv_heads", None)
+    vx = shd.shard(vx, "batch", None, "kv_heads", None)
+
     if cache is not None:
         idx = int(cache_len)
         smax = cache["k"].shape[1]
@@ -337,6 +343,7 @@ def attn_apply(
     if g_pad is not None and g_pad > g_orig:
         out = out.reshape(B, S, kv, g_pad, dh)[:, :, :, :g_orig]
     y = out.reshape(B, S, h * dh) @ p.wo.to(x.dtype).reshape(h * dh, D)
+    y = shd.shard(y, "batch", None, "model_embed")
     return y, cache
 
 
@@ -370,11 +377,11 @@ def mlp_init(gen: torch.Generator | None, cfg: ModelConfig, d_ff: int | None = N
 
 def mlp_apply(p: MLP, x: Tensor, cfg: ModelConfig) -> Tensor:
     """GELU is the tanh form, ``jax.nn.gelu``'s default."""
-    up = x @ p.w_up.to(x.dtype)
+    up = shd.shard(x @ p.w_up.to(x.dtype), "batch", None, "ffn")
     if cfg.mlp_kind == "swiglu":
         hidden = F.silu(x @ p.w_gate.to(x.dtype)) * up
     elif cfg.mlp_kind == "geglu":
         hidden = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh") * up
     else:
         hidden = F.gelu(up, approximate="tanh")
-    return hidden @ p.w_down.to(x.dtype)
+    return shd.shard(hidden @ p.w_down.to(x.dtype), "batch", None, "model_embed")

@@ -27,6 +27,11 @@ Departures from the reference, all of them execution, not arithmetic:
   no cache, each layer body runs under ``torch.utils.checkpoint``
   (:func:`~repro_torch.models.layers.checkpointed`), so the backward pass
   keeps each layer's input and recomputes the rest.
+* On a mesh (parameters placed as DTensors,
+  :mod:`repro_torch.dist.placement`) each layer gathers its own
+  parameters inside its checkpointed body (``gathered_call``); the
+  embedding, the final norm and the head are gathered by the caller (the
+  train step's loss function).
 * The cache is one entry per layer (:func:`lm_cache_init`), not one per
   run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
   written in place at ``cache_len``; the recurrent states (Mamba2's,
@@ -40,11 +45,15 @@ retrieval hook.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import Tensor, nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import placement
+from repro_torch.dist import sharding as shd
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
@@ -77,6 +86,8 @@ def _runs(cfg: ModelConfig):
 class Block(nn.Module):
     """One layer of type ``btype`` (see the module's docstring)."""
 
+    gathers_own_params = True
+
     def __init__(self, btype: str, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None):
         super().__init__()
@@ -102,6 +113,8 @@ class Block(nn.Module):
 class SharedBlock(nn.Module):
     """Zamba2's weight-tied block: ``in_proj [2d, d]``, ``ln1``, ``attn``,
     ``ln2``, ``mlp``, ``out_proj [d, d]``."""
+
+    gathers_own_params = True
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None):
@@ -180,6 +193,11 @@ def _block_apply(btype: str, p: Block, x: Tensor, cfg: ModelConfig, *,
     raise ValueError(btype)
 
 
+def _call(fn, module, *args, **kw):
+    """``fn(module, ...)``: :func:`placement.gathered_call` off a mesh."""
+    return fn(module, *args, **kw)
+
+
 def _block_cache_init(btype: str, cfg: ModelConfig, batch: int, max_seq: int, device):
     if btype in ("attn", "moe", "shared_attn"):
         kv, dh = cfg.n_kv_heads * cfg.kv_repeat, cfg.head_dim
@@ -229,18 +247,23 @@ def lm_forward(
     x = params.embed["table"][tokens].to(cfg.act_dtype)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(cfg.act_dtype), x], dim=1)
+    x = shd.shard(x, "batch", None, "model_embed")
     x0 = x
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: list | None = None if cache is None else []
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    # the layers are never swapped for gathered copies by the caller
+    call = placement.gathered_call if placement.mesh_of(params.blocks) is not None else _call
     for li, btype in enumerate(cfg.layer_types):
         layer_c = None if cache is None else cache[li]
         if btype == "shared_attn":
-            x, nc = checkpointed(_shared_apply, remat, params.shared, x, x0, cfg,
-                                 cache=layer_c, cache_len=cache_len)
+            x, nc = checkpointed(call, remat, _shared_apply,
+                                 params.shared, x, x0, cfg, cache=layer_c,
+                                 cache_len=cache_len)
         else:
-            x, nc, aux = checkpointed(_block_apply, remat, btype, params.blocks[li], x, cfg,
-                                      cache=layer_c, cache_len=cache_len)
+            x, nc, aux = checkpointed(call, remat, functools.partial(_block_apply, btype),
+                                      params.blocks[li], x, cfg, cache=layer_c,
+                                      cache_len=cache_len)
             if aux is not None:
                 aux_total = aux_total + aux
         if new_cache is not None:
@@ -255,7 +278,7 @@ def lm_head_apply(params: LM, hidden: Tensor, cfg: ModelConfig) -> Tensor:
         w = params.embed["table"].to(cfg.act_dtype).T
     else:
         w = params.lm_head["w"].to(cfg.act_dtype)
-    return (hidden @ w).float()
+    return shd.shard(hidden @ w, "batch", None, "vocab").float()
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> list:
@@ -333,11 +356,12 @@ def _reference_paths(names, cfg: ModelConfig) -> dict:
     return out
 
 
-def _reference_stacked(names, cfg: ModelConfig) -> set:
-    """The ``names`` whose reference leaf stacks a scanned run's layers
-    (one dim more than the port's parameter)."""
-    where = _layer_places(cfg)
-    return {n for n in names
+def _reference_stacked(names, cfg: ModelConfig) -> dict:
+    """{name: the run's layer count} of the ``names`` whose reference leaf
+    stacks a scanned run's layers (one dim more than the port's
+    parameter)."""
+    where, runs = _layer_places(cfg), _runs(cfg)
+    return {n: runs[int(where[int(n.split(".")[1])][0])][1] for n in names
             if n.split(".")[0] == "blocks" and where[int(n.split(".")[1])][1] is None}
 
 

@@ -16,19 +16,29 @@ the flat ``[T*K]`` order and each token sums its ``K`` rows, so the sum
 has one fixed order on every device (no atomics) and decoding twice from
 one cache gives the same tokens.  ``experts`` forces the routing: the
 router's probabilities still weight the given experts (used to replay one
-path's expert choices into another).  The reference's mesh path
-(``_moe_sharded``: tokens local per data shard, ``d_ff`` tensor-parallel,
-one ``psum``) waits for the port of ``dist/sharding.py``; on one device
-the reference takes the local path, which is this one.
+path's expert choices into another).
+
+Two execution modes share one math path (:func:`_moe_tokens`), as in the
+reference: the local path, and on a mesh (:func:`_moe_sharded`) the
+tokens of each ``(pod, data)`` shard stay on their rank, the experts'
+``d_ff`` is split over ``"model"``, and the one collective is an
+all-reduce of the expert outputs over ``"model"`` per layer.  The
+reference's ``shard_map`` becomes explicit collectives on the local
+tensors (:mod:`repro_torch.dist.placement`): the expert input enters the
+split computation through ``copy_to_group`` (its gradient summed over
+``"model"``) and the outputs leave through ``all_reduce_sum``.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.dist import placement
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import _param, dense_init
 
@@ -38,7 +48,10 @@ __all__ = ["MoE", "moe_init", "moe_apply"]
 class MoE(nn.Module):
     """``router [d, E]`` (fp32) and ``experts.{up, gate, down}``
     (``[E, d, f]``, ``[E, d, f]``, ``[E, f, d]``; the gate for swiglu and
-    geglu)."""
+    geglu).  On a mesh its placed parameters are gathered by
+    :func:`moe_apply`, not by the layer around it."""
+
+    gathers_own_params = True
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator | None = None, *,
                  device=None):
@@ -102,9 +115,11 @@ def _dispatch(gate_e: Tensor, n_experts: int, capacity: int):
 
 
 def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
-                experts: Tensor | None = None):
+                experts: Tensor | None = None, psum_group=None):
     """Core MoE on a flat token batch x: [T, D] -> ([T, D], aux_loss);
-    ``experts [T, K]`` forces the routing (see :func:`_route`)."""
+    ``experts [T, K]`` forces the routing (see :func:`_route`).  With
+    ``psum_group`` (the mesh path, ``d_ff`` split over the group) the
+    expert outputs' partial sums are reduced over it."""
     m = cfg.moe
     T, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -121,7 +136,7 @@ def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
     order, keep, buf_slot, token_of = _dispatch(gate_e, E, C)
     xbuf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     xbuf[buf_slot] = x[token_of]
-    xbuf = xbuf[: E * C].view(E, C, D)
+    xbuf = placement.copy_to_group(xbuf[: E * C].view(E, C, D), psum_group)
 
     # ---- expert computation (batched over E) ---------------------------
     up = torch.bmm(xbuf, p.experts["up"].to(x.dtype))
@@ -132,6 +147,7 @@ def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
     else:
         hidden = F.gelu(up, approximate="tanh")
     ybuf = torch.bmm(hidden, p.experts["down"].to(x.dtype))
+    ybuf = placement.all_reduce_sum(ybuf, psum_group)             # TP reduce
 
     # ---- combine back ---------------------------------------------------
     yflat = torch.cat([ybuf.reshape(E * C, D), ybuf.new_zeros((1, D))], 0)
@@ -142,12 +158,50 @@ def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
     return out.view(T, K, D).sum(1).to(x.dtype), aux
 
 
+def _gathered(p: MoE, keep: tuple = ()) -> SimpleNamespace:
+    """``p``'s weights for this rank's compute (the module itself where
+    they are not placed): the router whole, the experts whole except on
+    the mesh axes in ``keep``."""
+    return SimpleNamespace(router=placement.gather(p.router),
+                           experts={n: placement.gather(w, keep)
+                                    for n, w in p.experts.items()})
+
+
 def moe_apply(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
               experts: Tensor | None = None):
-    """[B, S, D] -> ([B, S, D], aux).  The reference's local path;
-    ``experts [B, S, K]`` forces the routing (see :func:`_route`)."""
+    """[B, S, D] -> ([B, S, D], aux).  Chooses the mesh or the local path
+    by context; ``experts [B, S, K]`` forces the routing (see
+    :func:`_route`).
+
+    The mesh path needs rules with ``expert_ffn`` mapped and a batch split
+    over the data axes (the train step's ``placement.batch_split``; the
+    reference's ``B % dp_size == 0``).  A batch that is not split (the
+    reference's small decode batches) takes the local path with the whole
+    experts, as the reference's does."""
     B, S, D = x.shape
     if experts is not None:
         experts = experts.reshape(B * S, -1)
-    y, aux = _moe_tokens(p, x.reshape(B * S, D), cfg, no_drop=no_drop, experts=experts)
+    if shd.active() and shd.rule("expert_ffn") and placement.split_axes():
+        y, aux = _moe_sharded(p, x.reshape(B * S, D), cfg, no_drop=no_drop, experts=experts)
+    else:
+        w = _gathered(p) if placement.is_dtensor(p.router) else p
+        y, aux = _moe_tokens(w, x.reshape(B * S, D), cfg, no_drop=no_drop, experts=experts)
     return y.view(B, S, D), aux
+
+
+def _moe_sharded(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
+                 experts: Tensor | None = None):
+    """The reference's ``shard_map`` body on this rank's tokens ``x [T,
+    D]``: capacity from the local token count, the experts' ``d_ff`` split
+    over ``"model"`` where their placement splits it (one all-reduce of
+    the outputs), the aux loss averaged over the data axes."""
+    mesh = shd.get_mesh()
+    dp = placement.split_axes()
+    w = _gathered(p, keep=("model",))
+    tp_split = placement.is_dtensor(p.experts["up"]) and any(
+        pl.is_shard() for name, pl in zip(mesh.mesh_dim_names, p.experts["up"].placements)
+        if name == "model")
+    group = placement.axes_group(mesh, ("model",)) if tp_split else None
+    y, aux = _moe_tokens(w, x, cfg, no_drop=no_drop, experts=experts, psum_group=group)
+    n_dp = math.prod(shd.mesh_shape(mesh)[a] for a in dp)
+    return y, placement.all_reduce_sum(aux / n_dp, placement.axes_group(mesh, dp))

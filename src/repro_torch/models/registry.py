@@ -24,7 +24,7 @@ from repro_torch.models import whisper as wh_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ModelFns", "model_fns", "model_class", "reference_leaves", "reference_paths",
-           "reference_ndims",
+           "reference_ndims", "reference_shapes",
            "params_from_reference", "synthetic_batch"]
 
 #: each kind's module and the map of the reference's parameter pytree onto
@@ -74,6 +74,16 @@ def reference_ndims(model, cfg: ModelConfig) -> dict:
     own = dict(model.named_parameters())
     stacked = _KINDS[model_kind(cfg)][3](list(own), cfg)
     return {n: p.ndim + (n in stacked) for n, p in own.items()}
+
+
+def reference_shapes(model, cfg: ModelConfig) -> dict:
+    """Each of ``model``'s parameter names mapped to the shape of the
+    reference's leaf: the parameter's, led by the run's layer count where
+    the leaf stacks a scanned run's layers."""
+    own = dict(model.named_parameters())
+    stacked = _KINDS[model_kind(cfg)][3](list(own), cfg)
+    return {n: ((stacked[n],) if n in stacked else ()) + tuple(p.shape)
+            for n, p in own.items()}
 
 
 def params_from_reference(params_np: dict, cfg: ModelConfig, device=None):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, _param, dense_init, norm_apply
 
@@ -175,13 +176,16 @@ def rwkv6_apply(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = N
     mu = p.mu.to(xin.dtype)                                 # [5, D]
     xr, xk, xv, xg, xw = (xin + sx * (mu[i] + lora[:, :, i] @ w2[i]) for i in range(5))
 
-    r = (xr @ p.wr.to(x.dtype)).view(B, S, h, m)
-    k = (xk @ p.wk.to(x.dtype)).view(B, S, h, m)
-    v = (xv @ p.wv.to(x.dtype)).view(B, S, h, m)
-    g = F.silu(xg @ p.wg.to(x.dtype))
+    def hs(t):
+        return shd.shard(t, "batch", None, "heads", None)
+
+    r = hs((xr @ p.wr.to(x.dtype)).view(B, S, h, m))
+    k = hs((xk @ p.wk.to(x.dtype)).view(B, S, h, m))
+    v = hs((xv @ p.wv.to(x.dtype)).view(B, S, h, m))
+    g = shd.shard(F.silu(xg @ p.wg.to(x.dtype)), "batch", None, "ffn")
     dec = p.w0 + (torch.tanh(xw @ p.decay_w1.to(x.dtype))
                   @ p.decay_w2.to(x.dtype)).float()
-    w = torch.exp(-torch.exp(dec)).view(B, S, h, m)         # (0,1)
+    w = hs(torch.exp(-torch.exp(dec)).view(B, S, h, m))     # (0,1)
 
     state = (cache["wkv_state"] if cache
              else torch.zeros((B, h, m, m), dtype=torch.float32, device=x.device))
@@ -191,7 +195,8 @@ def rwkv6_apply(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = N
     else:
         out, new_state = _wkv_scan(rf, kf, vf, w, p.u, state)
     out = _head_norm(p.ln_x, out.reshape(B, S, D), h).to(x.dtype) * g
-    x = x + out @ p.wo.to(x.dtype)
+    out = shd.shard(out, "batch", None, "ffn")
+    x = x + shd.shard(out @ p.wo.to(x.dtype), "batch", None, "model_embed")
 
     # ---- channel-mix ---------------------------------------------------
     xc = norm_apply(p.ln2, x, cfg)
@@ -199,9 +204,9 @@ def rwkv6_apply(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = N
     sx2 = torch.cat([last_cm, xc[:, :-1]], dim=1) - xc
     xk2 = xc + sx2 * p.cm_mu[0].to(xc.dtype)
     xr2 = xc + sx2 * p.cm_mu[1].to(xc.dtype)
-    kk = torch.square(F.relu(xk2 @ p.cm_k.to(x.dtype)))
+    kk = shd.shard(torch.square(F.relu(xk2 @ p.cm_k.to(x.dtype))), "batch", None, "ffn")
     cmix = torch.sigmoid(xr2 @ p.cm_r.to(x.dtype)) * (kk @ p.cm_v.to(x.dtype))
-    y = x + cmix
+    y = x + shd.shard(cmix, "batch", None, "model_embed")
 
     new_cache = None
     if cache is not None:

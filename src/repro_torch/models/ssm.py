@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Norm, _param, dense_init, norm_apply
 
@@ -169,6 +170,7 @@ def mamba2_apply(p: Mamba2, x: Tensor, cfg: ModelConfig, *, cache: dict | None =
     A = -torch.exp(p.A_log)                                 # [nh]
 
     if cache is None:
+        heads_x = shd.shard(heads_x, "batch", None, "heads", None)
         y, new_state = _ssd_chunked(heads_x, dt, A, Bh, Ch, s.chunk)
     elif S_ > 4:
         # cache-filling prefill: chunked path from the carried state
@@ -193,7 +195,7 @@ def mamba2_apply(p: Mamba2, x: Tensor, cfg: ModelConfig, *, cache: dict | None =
     y = y + heads_x.float() * p.D[None, None, :, None]
     y = y.reshape(B_, S_, d_in).to(x.dtype)
     y = norm_apply(p.gate_norm, y * F.silu(z), cfg)
-    out = y @ p.out_proj.to(x.dtype)
+    out = shd.shard(y @ p.out_proj.to(x.dtype), "batch", None, "model_embed")
     new_cache = ({"ssm_state": new_state, "conv_state": new_conv} if cache is not None
                  else None)
     return out, new_cache

@@ -18,6 +18,8 @@ import torch
 from torch import Tensor, nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import placement
+from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply,
                                        checkpointed, dense_init, mlp_apply, norm_apply)
@@ -30,6 +32,8 @@ __all__ = ["Whisper", "whisper_init", "encode", "whisper_forward", "whisper_cach
 class EncLayer(nn.Module):
     """``ln1``, ``attn``, ``ln2``, ``mlp``."""
 
+    gathers_own_params = True
+
     def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
         super().__init__()
         self.ln1 = Norm(cfg, device=device)
@@ -41,6 +45,8 @@ class EncLayer(nn.Module):
 class DecLayer(nn.Module):
     """``ln1``, ``self`` (self-attention), ``ln2``, ``cross``, ``ln3``,
     ``mlp``: the reference's names."""
+
+    gathers_own_params = True
 
     def __init__(self, cfg: ModelConfig, gen=None, *, device=None):
         super().__init__()
@@ -126,15 +132,17 @@ def encode(params: Whisper, frames, cfg: ModelConfig) -> Tensor:
     and gradients on, each layer is checkpointed (as the reference's
     scanned body is)."""
     x = torch.as_tensor(frames, device=params.device).to(cfg.act_dtype)
+    x = shd.shard(x, "batch", None, "model_embed")
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.enc:
-        x = checkpointed(_enc_block, remat, lp, x, cfg)
+        x = checkpointed(placement.gathered_call, remat, _enc_block, lp, x, cfg)
     return norm_apply(params.enc_norm, x, cfg)
 
 
 def _embed(params: Whisper, tokens, cfg: ModelConfig) -> Tensor:
     tokens = torch.as_tensor(tokens, device=params.device)
-    return params.embed["table"][tokens].to(cfg.act_dtype)
+    return shd.shard(params.embed["table"][tokens].to(cfg.act_dtype),
+                     "batch", None, "model_embed")
 
 
 def _dec_layer(p: DecLayer, x: Tensor, enc_out: Tensor, cfg: ModelConfig) -> Tensor:
@@ -150,7 +158,7 @@ def whisper_forward(params: Whisper, frames, tokens, cfg: ModelConfig):
     x = _embed(params, tokens, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.dec:
-        x = checkpointed(_dec_layer, remat, lp, x, enc_out, cfg)
+        x = checkpointed(placement.gathered_call, remat, _dec_layer, lp, x, enc_out, cfg)
     x = norm_apply(params.final_norm, x, cfg)
     return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -214,7 +222,10 @@ def _reference_paths(names, cfg: ModelConfig) -> dict:
     return out
 
 
-def _reference_stacked(names, cfg: ModelConfig) -> set:
-    """The ``names`` whose reference leaf stacks the ``enc`` or ``dec``
-    run's layers (one dim more than the port's parameter)."""
-    return {n for n in names if n.split(".")[0] in ("enc", "dec") and cfg.use_scan}
+def _reference_stacked(names, cfg: ModelConfig) -> dict:
+    """{name: the run's layer count} of the ``names`` whose reference leaf
+    stacks the ``enc`` or ``dec`` run's layers (one dim more than the
+    port's parameter)."""
+    count = {"enc": cfg.encoder_layers, "dec": cfg.n_layers}
+    return {n: count[n.split(".")[0]] for n in names
+            if n.split(".")[0] in ("enc", "dec") and cfg.use_scan}

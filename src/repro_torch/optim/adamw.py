@@ -10,6 +10,12 @@ place under ``torch.no_grad()`` and returns the same objects (a functional
 copy would write every parameter once more each step).  The arithmetic is
 the reference's, op for op: the clip scale, the float32 bias corrections,
 the moments, ``new_p`` computed in float32 and cast back to ``p.dtype``.
+
+On a mesh the parameters, their gradients and the moments are DTensors of
+one placement each (:mod:`repro_torch.dist.placement`): the update is
+elementwise, so each rank updates its own part, and :func:`global_norm`
+sums every element once across the shards (replicated copies count once),
+so the clip scale is the one-device run's.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import dataclasses
 
 import torch
 from torch import Tensor
+
+from repro_torch.dist import placement
 
 __all__ = ["AdamWConfig", "init", "global_norm", "update"]
 
@@ -46,16 +54,18 @@ def _decay_mask(paths: dict, cfg: AdamWConfig) -> dict:
 
 
 def init(params) -> dict:
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros():   # placed as its parameter on a mesh
+        return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.named_parameters()}
     return {"step": torch.zeros((), dtype=torch.int32, device=params.device),
             "m": zeros(), "v": zeros()}
 
 
 def global_norm(tree: dict) -> Tensor:
-    """sqrt of the sum of squares of every tensor of ``tree``, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+    """sqrt of the sum of squares of every tensor of ``tree``, in float32;
+    a DTensor's elements are summed over its shards, each once."""
+    sq = {n: torch.sum(torch.square(placement.local(t).float())) for n, t in tree.items()}
+    return torch.sqrt(placement.sum_over_shards(sq, tree))
 
 
 def update(grads: dict, state: dict, params, lr, cfg: AdamWConfig = AdamWConfig(), *,
@@ -70,8 +80,9 @@ def update(grads: dict, state: dict, params, lr, cfg: AdamWConfig = AdamWConfig(
     lr = torch.as_tensor(lr, dtype=torch.float32, device=gnorm.device)
     with torch.no_grad():
         for name, p in params.named_parameters():
-            m, v = state["m"][name], state["v"][name]
-            g = grads[name].float() * scale
+            p = placement.local(p)             # this rank's part, aliased
+            m, v = placement.local(state["m"][name]), placement.local(state["v"][name])
+            g = placement.local(grads[name]).float() * scale
             m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
             delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)

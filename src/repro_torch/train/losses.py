@@ -33,11 +33,14 @@ def _chunk(h: Tensor, l: Tensor, m: Tensor, head_fn):
 
 
 def chunked_ce(hidden: Tensor, labels, head_fn, cfg: ModelConfig, *,
-               mask: Tensor | None = None, z_weight: float = 1e-4):
+               mask: Tensor | None = None, z_weight: float = 1e-4, psum=None):
     """hidden [B,S,D], labels [B,S] -> (mean_nll, metrics).
 
     ``head_fn(hidden_chunk) -> logits_chunk`` (fp32).  ``mask`` [B,S] in
     {0,1} excludes positions (padding / vision prefix) from the loss.
+    ``psum`` sums the token sums over the ranks a batch is split over
+    (:func:`repro_torch.dist.placement.batch_sum`), so the mean is the
+    global batch's, token-weighted.
     """
     B, S, D = hidden.shape
     dev = hidden.device
@@ -58,6 +61,8 @@ def chunked_ce(hidden: Tensor, labels, head_fn, cfg: ModelConfig, *,
         nll, z = checkpointed(_chunk, remat, hidden[:, cs], labels[:, cs], mask[:, cs],
                               head_fn)
         nll_sum, z_sum, n = nll_sum + nll, z_sum + z, n + mask[:, cs].sum()
+    if psum is not None:
+        nll_sum, z_sum, n = psum(nll_sum), psum(z_sum), psum(n)
     n = torch.clamp(n, min=1.0)
     loss = nll_sum / n + z_weight * z_sum / n
     metrics = {"nll": nll_sum / n, "zloss": z_sum / n, "tokens": n}

@@ -9,9 +9,19 @@ reference's shape, ``{"params", "opt": {"step", "m", "v"}, "step",
 the rest tensors (dicts of them by parameter name).  The step updates the
 state's tensors in place (see :mod:`repro_torch.optim.adamw`) and returns
 the state.
+
+On a mesh (:func:`place_state`: the parameters, moments and error feedback
+DTensors placed by ``launch.dryrun.param_shardings``) the same step runs
+the reference's partitioned program by hand
+(:mod:`repro_torch.dist.placement`): the batch is split over the data axes,
+each layer gathers its parameters, the loss is the global batch's
+token-weighted mean (an all-reduce of the token sums, not a mean of the
+ranks' means), and each gradient arrives summed over the data axes and
+placed as its parameter (reduce-scattered over its FSDP axes).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -19,13 +29,15 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import placement
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelFns
 from repro_torch.optim import adamw, compression, schedule
 from repro_torch.train.losses import chunked_ce
 
-__all__ = ["make_loss_fn", "make_train_step", "init_state", "state_from_reference"]
+__all__ = ["make_loss_fn", "make_train_step", "init_state", "state_from_reference",
+           "place_state"]
 
 
 class _Cast(nn.Module):
@@ -59,7 +71,8 @@ def make_loss_fn(fns: ModelFns, cfg: ModelConfig, *, aux_weight: float = 0.01,
         if off:
             # prefix positions (vision/audio) carry no next-token loss
             hidden = hidden[:, off:]
-        loss, metrics = chunked_ce(hidden, labels, lambda h: fns.lm_head(params, h), cfg)
+        loss, metrics = chunked_ce(hidden, labels, lambda h: fns.lm_head(params, h), cfg,
+                                   psum=placement.batch_sum)
         loss = loss + aux_weight * aux
         metrics["aux"] = aux
         return loss, metrics
@@ -87,6 +100,35 @@ def _split(batch: dict, accum: int) -> list:
     return out
 
 
+def _local_batch(batch: dict, device):
+    """(this rank's rows of ``batch``, the mesh axes they are split over).
+    DTensors (``make_global``'s, split over the data axes) give their
+    local parts; numpy arrays or tensors are the whole batch on every rank
+    (the reference's replicated batch, where the data axes do not divide
+    it), split over no axis."""
+    out, split = {}, set()
+    for k, x in batch.items():
+        if placement.is_dtensor(x):
+            names = x.device_mesh.mesh_dim_names
+            split.add(tuple(names[i] for i, pl in enumerate(x.placements) if pl.is_shard(0)))
+            out[k] = x.to_local()
+        else:
+            split.add(())
+            out[k] = torch.as_tensor(x, device=device)
+    if len(split) > 1:
+        raise ValueError(f"the batch's arrays are split over different axes: {split}")
+    return out, split.pop() if split else ()
+
+
+@contextlib.contextmanager
+def _on_mesh(params, mesh, axes):
+    """The batch split over ``axes``, and the model's top-level parameters
+    (embedding, final norm, head) gathered, for a forward and backward;
+    each layer gathers its own in the model's forward."""
+    with placement.batch_split(mesh, axes), placement.gathered(params):
+        yield
+
+
 def make_train_step(
     fns: ModelFns,
     cfg: ModelConfig,
@@ -111,15 +153,22 @@ def make_train_step(
 
     def train_step(state, batch):
         params = state["params"]
-        batch = {k: torch.as_tensor(x, device=params.device) for k, x in batch.items()}
+        mesh = placement.mesh_of(params)
+        if mesh is None:
+            batch = {k: torch.as_tensor(x, device=params.device) for k, x in batch.items()}
+            split = contextlib.nullcontext()
+        else:
+            batch, axes = _local_batch(batch, params.device)
+            split = _on_mesh(params, mesh, axes)
         for p in params.parameters():
             p.grad = None
         lsum = None
-        for mb in _split(batch, accum):
-            loss, metrics = loss_fn(params, mb)
-            loss.backward()                     # adds into each p.grad
-            loss = loss.detach()
-            lsum = loss if lsum is None else lsum + loss
+        with split:       # the backward recomputes (remat) under the same split
+            for mb in _split(batch, accum):
+                loss, metrics = loss_fn(params, mb)
+                loss.backward()                 # adds into each p.grad
+                loss = loss.detach()
+                lsum = loss if lsum is None else lsum + loss
         # a parameter the loss does not reach has a zero gradient (the
         # reference's value_and_grad)
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
@@ -166,6 +215,26 @@ def init_state(fns: ModelFns, seed=0, *, compress_grads: bool = False,
     else:
         params = fns.init(seed, device=resolve_device(device))
     return _state(params.requires_grad_(True), compress_grads)
+
+
+def place_state(state: dict, shardings: dict) -> dict:
+    """``state`` placed on a mesh: each parameter named in ``shardings``
+    ({name: :class:`~repro_torch.dist.sharding.NamedSharding}``, e.g.
+    ``launch.dryrun.param_shardings``) becomes a DTensor parameter in place,
+    and its moments and error feedback DTensors of the same placement.
+    Every rank must hold the same whole state (the same seed); each keeps
+    its slice, with no collective."""
+    placement.place_module(state["params"], shardings)
+
+    def put(tree):
+        return {n: placement.distribute(t, shardings[n].mesh, shardings[n].placements)
+                if n in shardings else t for n, t in tree.items()}
+
+    out = dict(state, opt=dict(state["opt"], m=put(state["opt"]["m"]),
+                               v=put(state["opt"]["v"])))
+    if "err" in state:
+        out["err"] = put(state["err"])
+    return out
 
 
 def state_from_reference(ref_state_np: dict, cfg: ModelConfig, device=None) -> dict:

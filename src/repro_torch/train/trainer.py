@@ -15,9 +15,14 @@
   index.  On CUDA each step is timed after ``torch.cuda.synchronize()``
   (the reference's ``block_until_ready``), so the watchdog times the card,
   not the launch queue.
-* **elastic restart** — restoring onto another mesh waits for the port of
-  ``dist/`` (ROADMAP); a checkpoint holds full arrays, so the data is
-  ready for it.
+* **elastic restart** — a checkpoint holds full arrays, so
+  ``CheckpointManager.restore(shardings=...)`` places them onto any mesh;
+  :func:`repro_torch.dist.elastic.remesh` picks the largest usable mesh
+  over the surviving ranks.
+* **make_global** — turns each host batch into what the train step takes:
+  by default the numpy arrays on the model's device; on a mesh the
+  launcher passes one that makes each rank's rows a DTensor of the global
+  batch (``dist.compat.make_process_local_array``).
 """
 from __future__ import annotations
 

@@ -2,14 +2,20 @@
 flow and repro_torch.launch.train, on the CPU.
 
 The reference's tests/test_checkpoint.py and tests/test_train.py cases
-through the port (resharding and ``best_mesh`` wait for the port of
-``dist/``), one new case for the in-place optimizer (an async save must
-keep the values it was given), and tests/test_system.py's flow (embed ->
-dedup -> train -> datastore -> kNN-LM serving) in both packages from the
-reference's initial state: the trained parameters within ``SYSTEM_ATOL =
-1e-4`` and the greedy tokens with kNN on equal.
+through the port (the multi-rank resharding case is in
+tests/test_torch_mesh_train.py, ``best_mesh`` in tests/test_torch_mesh.py),
+one new case for the in-place optimizer (an async save must keep the values
+it was given), and tests/test_system.py's flow (embed -> dedup -> train ->
+datastore -> kNN-LM serving) in both packages from the reference's initial
+state: the trained parameters within ``SYSTEM_ATOL = 1e-4`` and the greedy
+tokens with kNN on equal.  The launcher's pod and multipod meshes run in a
+subprocess under the fake process group (tests/torch_mesh_worker.py).
 """
+import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -196,11 +202,32 @@ def test_incomplete_checkpoint_ignored(tmp_path):
 
 
 def test_restore_onto_shardings_waits_for_dist(tmp_path):
-    cm = CheckpointManager(str(tmp_path), async_save=False)
+    """restore(shardings=) places the named leaves onto a mesh (a one-rank
+    gloo mesh in this process), bit for bit; the others restore as
+    before."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import placement
+    from repro_torch.dist.sharding import NamedSharding
+
+    cm = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
     t = _tree()
     cm.save(1, t)
-    with pytest.raises(NotImplementedError, match="dist/"):
-        cm.restore(_zeros_like(t), shardings={"a": None})
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cpu", [[0]], mesh_dim_names=("data", "model"))
+        got, _, step = cm.restore(_zeros_like(t), device="cpu", shardings={
+            "a": NamedSharding(mesh, ("data", "model")), "nested": {"b": None}})
+        assert step == 1
+        assert placement.is_dtensor(got["a"]) and got["a"].device_mesh is mesh
+        assert torch.equal(got["a"].full_tensor(), t["a"])
+        assert not placement.is_dtensor(got["nested"]["b"])
+        assert torch.equal(got["nested"]["b"], t["nested"]["b"])
+        assert torch.equal(got["nested"]["h"], t["nested"]["h"])
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +421,32 @@ def test_launcher_trains_on_the_cpu_and_its_loss_decreases(tmp_path, capsys):
 
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
 def test_launcher_mesh_paths_wait_for_dist(tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_train.main(["--smoke", "--device", "cpu", "--mesh", mesh,
-                           "--ckpt-dir", str(tmp_path)])
+    """``--mesh pod|multipod --smoke --device cpu`` trains 2 steps at rank 0
+    of 256 / 512 fake ranks (the fake process group's collectives move no
+    data, so the numbers are not checked): the mesh is the production
+    one, each parameter's local shape is its global shape divided as
+    ``launch.dryrun.param_specs`` says, and each rank's batch is its data
+    shard's 8 rows."""
+    world = 512 if mesh == "multipod" else 256
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(root / "src"), str(root)])}
+    run = subprocess.run([sys.executable, str(root / "tests" / "torch_mesh_worker.py"),
+                          "fake", str(world), mesh, str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    rec = json.loads((tmp_path / "fake.json").read_text())
+    assert rec["final_step"] == 2
+    sizes = dict(zip(("pod", "data", "model") if world == 512 else ("data", "model"),
+                     rec["mesh"]))
+    assert rec["mesh"] == ([2, 16, 16] if world == 512 else [16, 16])
+    assert rec["batch_local"] == [8, 64]
+    split = 0
+    for name, (local, glob, spec) in rec["params"].items():
+        spec = spec + [None] * (len(glob) - len(spec))
+        want = [g // int(np.prod([sizes[a] for a in ([s] if isinstance(s, str) else s)]))
+                if s is not None else g for g, s in zip(glob, spec)]
+        assert local == want, name
+        split += local != glob
+    assert split >= len(rec["params"]) // 2
 

@@ -30,8 +30,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def run_ranks(world: int, workdir, inputs: dict, timeout: float = 240) -> list[dict]:
-    """Run the case ``inputs`` on ``world`` ranks; every rank's results."""
+def run_ranks(world: int, workdir, inputs: dict, timeout: float = 240,
+              worker: str | None = None) -> list[dict]:
+    """Run the case ``inputs`` on ``world`` ranks; every rank's results.
+    ``worker``: the script each rank runs (default this one), called as
+    ``worker rank world workdir``."""
     workdir = Path(workdir)
     np.savez(workdir / "in.npz", **inputs)
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
@@ -42,7 +45,7 @@ def run_ranks(world: int, workdir, inputs: dict, timeout: float = 240) -> list[d
             log = open(workdir / f"log_{rank}.txt", "w")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, __file__, str(rank), str(world), str(workdir)],
+                [sys.executable, worker or __file__, str(rank), str(world), str(workdir)],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
         for p in procs:
             p.wait(timeout=timeout)
