@@ -194,6 +194,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    shard.  It prints ms a step beside phase 14's and the host path's,
    peak GB, and the card's name and power limit.
 
+17. a. (run after phase 5, while phase 3's index is held) pruned_topk over
+   a bf16 db: phase 3's clustered-64 index with its db cast to bf16, its
+   10,000 queries at k = 10 and 100 at the engine's operands and splits;
+   the launch count set to 0 before one launch a k and read after it; the
+   kernel against its plain version on the same bf16 rows (phase 5a's
+   contract) and against phase 3's fp32 brute force within 2e-2 (the
+   reference's tolerance); its ms beside the fp32 kernel's at the same
+   operands and splits, in turns, with tile_computed_frac;
+   b. the dry-run held to the card: tinyllama-1.1b at full width and
+   depth, train_4k at B = 1, S = 4,096 and decode_32k at B = 1 over a
+   32,768-token cache, each first lowered under fake tensors
+   (launch.dryrun.lower_cell on a (1, 1) CUDA mesh of a fake world of one
+   rank), then built with random weights from the seed on a one-rank NCCL
+   (1, 1) DeviceMesh and its step run on the card: argument_bytes equal to
+   the placed state's bytes, argument_bytes + temp_bytes within 25 % of
+   the step's max_memory_allocated, the mesh decode's logits and cache
+   equal bit for bit to the host path's decode_step; no kernel launches;
+   c. run_cell for tinyllama-1.1b and granite-moe-1b-a400m x train_4k and
+   decode_32k, each on the pod and the multipod mesh at rank 0 of a fake
+   world of 256 and 512 ranks, every cell OK, with its memory per rank,
+   FLOPs and collective bytes by kind printed.  The fake runs of b and c
+   take minutes of host CPU and no card time: they start with the script,
+   in processes of their own at a low priority (start_dryruns), and
+   phase 17 waits for them; every process the script starts is ended
+   before it exits.
+
 Every configuration's block_prune_frac is printed beside its value under
 the point bound (PERF.md §6), since the Eq. 13 bound now runs over the
 query's interval and the sound block intervals.
@@ -207,6 +233,8 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -270,6 +298,24 @@ NEAR_PM1 = (1 - 1e-3, 1 - 1e-5, 1.0, -(1 - 1e-3), -(1 - 1e-5), -1.0)
 NEAR_PM1_REPEATS = 4
 #: queries of phase 8's one-tile batch
 TILE_BATCH = 128
+#: phase 17a: the bf16 db's top-k within this of the fp32 brute force (the
+#: reference's own tolerance, tests/test_kernels.py test_cosine_topk_dtypes)
+BF16_DB_ATOL = 2e-2
+#: phase 17b: the dry-run's cells held to the card, (shape, input_specs
+#: scale): train_4k at B = 1, S = 4,096; decode_32k at B = 1 over a
+#: 32,768-token cache
+DRYRUN_ARCH = "tinyllama-1.1b"
+DRYRUN_CARD_CELLS = (("train_4k", 1 / 256), ("decode_32k", 1 / 128))
+#: the dry-run's predicted peak (argument + temporary bytes) within this
+#: share of the card's measured one
+DRYRUN_MEM_RTOL = 0.25
+#: phase 17c: production cells through run_cell, each on the pod and the
+#: multipod mesh at rank 0 of a fake world
+DRYRUN_POD_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "decode_32k"),
+                    ("granite-moe-1b-a400m", "train_4k"),
+                    ("granite-moe-1b-a400m", "decode_32k"))
+#: seconds phase 17 waits for the dry-run's processes, started with the script
+DRYRUN_WAIT_S = 600
 
 
 def log(*a):
@@ -3064,7 +3110,8 @@ def topk_ok(r, tol):
 def pruned_topk_costs(args, kwargs, computed):
     """The least bytes and operations of this pruned_topk call on these
     inputs: each input read once (db rows only of tiles some query tile
-    computes), each output written once; score flops only for computed
+    computes, at the db's element size: 2 B for a bf16 db), each output
+    written once; score flops only for computed
     (query tile, db tile) pairs, bound operations for every pair."""
     qn, db, qp, lo, hi, _ = args
     m, d = qn.shape
@@ -3077,7 +3124,7 @@ def pruned_topk_costs(args, kwargs, computed):
     ops = flops + eq13_ops(m, nt, p) + float(m) * nt * SKIP_OPS
     used_tiles = int((comp.sum(0) > 0).sum())
     nbytes = 4 * (m * d + m * p + 2 * nt * p + m + mt * nt) + db.shape[0] \
-        + 4 * used_tiles * bn * d + 8 * m * k + 4 * mt * nt
+        + db.element_size() * used_tiles * bn * d + 8 * m * k + 4 * mt * nt
     if kwargs.get("ub_cap") is not None:
         nbytes += 4 * m * nt
         ops += float(m) * nt
@@ -3770,16 +3817,383 @@ def phase_mesh_train(seed, card, kernels, host_ms):
     return out
 
 
+def phase_bf16_db(eng, qn, qp, brute, kernel_inputs, pruned_topk, pruned_topk_plain):
+    """Phase 17a: pruned_topk over a bf16 db, at phase 3's operands.
+
+    Phase 3's clustered-64 index with its db cast to bf16 (the
+    reference's ``dot_general`` of fp32 queries with bf16 rows), its
+    10,000 queries at k = 10 and 100, the engine's operands and splits
+    (kernel_inputs).  The drive: one launch per k with row_out (the
+    queries' own order), the launch count set to 0 before it, held to
+    phase 3's fp32 brute force within BF16_DB_ATOL.  Then the kernel
+    against its plain version on the same bf16 rows (check_topk, phase
+    5a's contract), and the kernel's ms beside the fp32 kernel's at the
+    same operands and splits, in turns.  Returns (report, kernels entry)."""
+    t_phase = time.perf_counter()
+    out, db16, launches = {}, None, 0
+    for k in (10, 100):
+        a, kw, perm = kernel_inputs(
+            eng.index, qn, qp, k, bm=eng.bm, bn=eng.bn, warm_start=eng.warm_start,
+            best_first=eng.best_first, margin=eng.margin,
+            warm_start_blocks=eng.warm_start_blocks, n_pivots=eng.n_pivots)
+        if db16 is None:
+            db16 = a[1].to(torch.bfloat16)
+        a16 = (a[0], db16, *a[2:])
+        pruned_topk.launches = 0
+        sims = pruned_topk(*a16, **dict(kw, row_out=perm))[0]
+        torch.cuda.synchronize()
+        launches += pruned_topk.launches
+        check(pruned_topk.launches == 1, f"the bf16 drive at k={k} launched "
+                                         f"{pruned_topk.launches} times")
+        vs_brute = float(np.abs(sims.cpu().numpy() - brute[k][0]).max())
+        del sims
+        got = pruned_topk(*a16, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pruned_topk_plain(*a16, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        r = check_topk(got, want, a16, kw, 1e-5, pruned_topk_plain)
+        computed16 = got[2]
+        del got, want
+        fp32 = pruned_topk(*a, **kw)[2]
+        ms16, ms32 = [], []
+        for _ in range(REPS):
+            ms16 += cuda_ms(lambda: pruned_topk(*a16, **kw), 1)
+            ms32 += cuda_ms(lambda: pruned_topk(*a, **kw), 1)
+        valid = eng.index.valid
+
+        def library():
+            dbf = db16.float()
+            for s in range(0, a[0].shape[0], 2000):
+                torch.topk((a[0][s:s + 2000] @ dbf.T).masked_fill_(~valid[None, :],
+                                                                     float("-inf")), k, dim=1)
+        lib = cuda_ms(library, REPS)
+        nbytes, ops = pruned_topk_costs(a16, kw, computed16)
+        run = {"check": r, "max_abs_err_vs_fp32_brute": vs_brute, "plain_ms": plain_ms,
+               "ms": float(np.median(ms16)), "fp32_ms": float(np.median(ms32)),
+               "ms_all": ms16, "fp32_ms_all": ms32, "splits": kw["splits"],
+               "tile_computed_frac": float(computed16.float().mean()),
+               "fp32_tile_computed_frac": float(fp32.float().mean()),
+               "library_ms": float(np.median(lib)), **bound_entry(nbytes, ops)}
+        out[f"k{k}"] = run
+        log(f"[bf16 db] pruned_topk k={k}, splits={kw['splits']}: against its plain "
+            f"version {r}; against the fp32 brute force max |diff| {vs_brute:.3e} "
+            f"(<= {BF16_DB_ATOL}); bf16 {run['ms']:.3f} ms, fp32 {run['fp32_ms']:.3f} ms "
+            f"(in turns), tile_computed_frac {run['tile_computed_frac']:.4f} (fp32 "
+            f"{run['fp32_tile_computed_frac']:.4f}), plain {plain_ms:.1f} ms, bound "
+            f"{run['bound_ms']:.3f} ms ({run['bound_by']}), matmul+topk "
+            f"{run['library_ms']:.3f} ms")
+        check(topk_ok(r, 1e-5), f"pruned_topk over the bf16 db at k={k} disagrees with "
+                                f"its plain version: {r}")
+        check(vs_brute <= BF16_DB_ATOL, f"pruned_topk over the bf16 db at k={k} is "
+                                        f"{vs_brute} from the fp32 brute force")
+        del a, a16, kw, perm, computed16, fp32
+    out["seconds"] = time.perf_counter() - t_phase
+    k10 = out["k10"]
+    entry = {
+        "name": "pruned_topk_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pruned_topk.cu",
+        "replaces": "src/repro/kernels/cosine_topk.py:165",
+        "launches": launches,
+        "max_abs_err": max(out[f"k{k}"]["check"]["max_abs_err"] for k in (10, 100)),
+        "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"],
+        "bound_by": k10["bound_by"], "library_ms": k10["library_ms"],
+        "library": "db.float() + torch.matmul + torch.topk over the same queries and "
+                   "rows, 5 calls of 2,000 queries",
+        "fp32_ms": k10["fp32_ms"], "splits": k10["splits"],
+        "tile_computed_frac": k10["tile_computed_frac"],
+        "fp32_tile_computed_frac": k10["fp32_tile_computed_frac"],
+        "max_abs_err_vs_fp32_brute": max(out[f"k{k}"]["max_abs_err_vs_fp32_brute"]
+                                         for k in (10, 100)),
+        "k100": {key: out["k100"][key] for key in (
+            "ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tile_computed_frac", "fp32_tile_computed_frac")},
+        "launches_by_path": {"bf16_db": launches}}
+    log(f"[bf16 db] phase 17a: {out['seconds']:.1f} s")
+    return out, entry
+
+
+def lower_card_cells(path):
+    """The fake half of phase 17b, in a process of its own: lower_cell of
+    DRYRUN_CARD_CELLS on a (1, 1) CUDA mesh at rank 0 of a fake world of
+    one rank, the records to ``path`` (JSON)."""
+    import logging
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.dryrun import lower_cell
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+        recs = {shape: lower_cell(DRYRUN_ARCH, shape, mesh, scale=scale)
+                for shape, scale in DRYRUN_CARD_CELLS}
+    finally:
+        dist.destroy_process_group()
+    Path(path).write_text(json.dumps(recs))
+
+
+def start_dryruns():
+    """Phase 17's fake-tensor runs, started with the script in processes of
+    their own at a low priority: they take minutes of host CPU (one
+    tensor op of the step at a time, every layer, under FakeTensorMode)
+    and no card time.  One process lowers DRYRUN_CARD_CELLS
+    (:func:`lower_card_cells`), one per cell of DRYRUN_POD_CELLS runs
+    ``python -m repro_torch.launch.dryrun --mesh both`` into
+    build/dryrun_torch/cells.  Returns [(name, process, log path)]."""
+    out = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
+    cmds = [("card_cells", [sys.executable, str(Path(__file__).resolve()), "--lower-cells",
+                            str(out / "card_cells.json")])]
+    for arch, shape in DRYRUN_POD_CELLS:
+        cmds.append((f"{arch}__{shape}", [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+            shape, "--mesh", "both", "--out", str(out / "cells")]))
+    procs = []
+    for name, cmd in cmds:
+        logf = out / f"{name}.log"
+        with open(logf, "w") as f:
+            procs.append((name, subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=f,
+                                                 stderr=subprocess.STDOUT,
+                                                 preexec_fn=lambda: os.nice(10)), logf))
+    return procs
+
+
+def stop_dryruns(procs):
+    """Ends every process :func:`start_dryruns` started that still runs."""
+    for _, p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def wait_dryruns(procs):
+    """Waits for the dry-run's processes (DRYRUN_WAIT_S in all); any that
+    failed or did not end fails the run, with its log's tail."""
+    t_end = time.perf_counter() + DRYRUN_WAIT_S
+    for name, p, logf in procs:
+        try:
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            pass
+        if p.returncode is None:
+            stop_dryruns(procs)
+            check(False, f"the dry-run's {name} did not end in {DRYRUN_WAIT_S} s: "
+                         f"{logf.read_text()[-2000:]}")
+        check(p.returncode == 0, f"the dry-run's {name} exited {p.returncode}: "
+                                 f"{logf.read_text()[-3000:]}")
+
+
+def placed_bytes(cell):
+    """The bytes of ``cell``'s real placed state: each parameter's local
+    storage (the DTensors' parts), the moments, the batch, the cache's
+    local shards."""
+    from repro_torch.dist import placement
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    total = sum(nbytes(placement.local(p)) for p in cell.model.parameters())
+    args = cell.args
+    total += sum(nbytes(t) for t in args.get("moments", {}).values())
+    total += sum(nbytes(t) for t in args["batch"].values())
+    total += sum(nbytes(t) for t in args.get("cache", {}).values())
+    return total
+
+
+def phase_dryrun(seed, card, procs, kernels):
+    """Phases 17b and 17c: the dry-run against the card, and production
+    cells on fake worlds.
+
+    b. For each of DRYRUN_CARD_CELLS (DRYRUN_ARCH at full width and
+       depth, random weights from the seed): the fake run's record (the
+       process start_dryruns began, lower_cell on a (1, 1) CUDA mesh), then
+       the same cell built for real on a one-rank NCCL (1, 1) DeviceMesh
+       (build_cell) and its step run once on the card.  argument_bytes
+       equals the bytes of the real placed state, exactly; argument_bytes
+       + temp_bytes lies within DRYRUN_MEM_RTOL of the step's peak
+       (torch.cuda.max_memory_allocated after reset_peak_memory_stats,
+       less what was allocated before the step besides its arguments);
+       the decode step (its cache filled from the seed) gives logits equal
+       bit for bit to the host path's decode_step and lm_head on the same
+       weights, cache and tokens, and leaves the same cache.
+    c. Every cell of DRYRUN_POD_CELLS on the pod and the multipod mesh
+       (run_cell at rank 0 of a fake world of 256 and 512 ranks, fake
+       tensors on the card's device type) is OK; their memory per rank,
+       FLOPs and collective bytes by kind are printed.
+
+    The dry-run path launches no kernel: the counts of ``kernels`` are set
+    to 0 before b and must read 0 after it."""
+    import logging
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import model_fns
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    t0 = time.perf_counter()
+    wait_dryruns(procs)
+    out["waited_s"] = time.perf_counter() - t0
+    base = ROOT / "build" / "dryrun_torch"
+    fake = json.loads((base / "card_cells.json").read_text())
+    dev = torch.device("cuda")
+    store = ROOT / "build" / "dryrun_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    tally = LaunchTally(kernels)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        torch.cuda.set_device(0)
+        mesh = DeviceMesh("cuda", [[0]], mesh_dim_names=("data", "model"))
+        for shape, scale in DRYRUN_CARD_CELLS:
+            rec = fake[shape]
+            gen = torch.Generator(dev).manual_seed(seed)
+            with dryrun.cell_rules(shape, mesh):
+                cell = dryrun.build_cell(DRYRUN_ARCH, shape, mesh, scale=scale, seed=seed)
+                real = placed_bytes(cell)
+                host = None
+                if cell.cache is not None:
+                    with torch.no_grad():
+                        for t in cell.args["cache"].values():
+                            t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+                        tok = cell.args["batch"]["tokens"]
+                        tok.copy_(torch.randint(0, cell.cfg.vocab, tok.shape, generator=gen,
+                                                device=dev, dtype=tok.dtype))
+                    host = ({p: t.cpu() for p, t in cell.args["cache"].items()}, tok.clone())
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                res = cell.step()
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                measured = peak - (before - real)
+                predicted = rec["memory"]["argument_bytes"] + rec["memory"]["temp_bytes"]
+                run = {"argument_bytes": rec["memory"]["argument_bytes"], "placed_bytes": real,
+                       "temp_bytes": rec["memory"]["temp_bytes"], "predicted_peak": predicted,
+                       "measured_peak": measured, "max_memory_allocated": peak,
+                       "allocated_before": before,
+                       "rel_diff": (predicted - measured) / measured,
+                       "flops": rec["cost"]["flops"], "collectives": rec["collectives"],
+                       "lower_s": rec["lower_s"]}
+                if cell.cache is None:
+                    run["loss"] = float(res[2])
+                    check(bool(np.isfinite(run["loss"])), f"the {shape} step's loss is "
+                                                          f"{run['loss']}")
+                else:
+                    logits, new = res
+                    mesh_logits = logits.clone()
+                    mesh_cache = {p: t.cpu() for p, t in dryrun.cache_leaves(new).items()}
+                    del res, logits, new
+            if cell.cache is not None:
+                cfg = cell.cfg
+                del cell
+                torch.cuda.empty_cache()
+                fns = model_fns(cfg)
+                params = fns.init(seed, device=dev)
+                cache_h, tok_h = host
+                with torch.no_grad():
+                    hcache = lm_mod.lm_cache_init(cfg, tok_h.shape[0], SHAPES[shape].seq,
+                                                  device=dev)
+                    for p, t in dryrun.cache_leaves(hcache).items():
+                        t.copy_(cache_h[p].to(dev))
+                    hidden, hnew = fns.decode_step(params, tok_h, hcache, SHAPES[shape].seq - 1)
+                    host_logits = fns.lm_head(params, hidden)
+                hflat = {p: t.cpu() for p, t in dryrun.cache_leaves(hnew).items()}
+                run["logits_equal"] = torch.equal(mesh_logits, host_logits)
+                run["cache_equal"] = all(torch.equal(mesh_cache[p], hflat[p]) for p in hflat)
+                run["max_abs_logit_diff"] = float((mesh_logits - host_logits).abs().max())
+                del params, hcache, hnew, host_logits, mesh_logits
+            else:
+                del cell, res
+            torch.cuda.empty_cache()
+            out[shape] = run
+            log(f"[dryrun] {DRYRUN_ARCH} x {shape} at scale {scale} on a (1, 1) mesh: "
+                f"argument_bytes {run['argument_bytes']:,} (placed on the card "
+                f"{real:,}); argument + temp {predicted / 2**30:.3f} GiB predicted, "
+                f"{measured / 2**30:.3f} GiB measured (max_memory_allocated "
+                f"{peak / 2**30:.3f} GiB, {before / 2**30:.3f} GiB allocated before), "
+                f"{100 * run['rel_diff']:+.1f} %"
+                + (f"; mesh decode logits equal to the host path's {run['logits_equal']}, "
+                   f"cache equal {run['cache_equal']}" if "logits_equal" in run else "")
+                + f"; fake step {run['lower_s']} s, {card}")
+            check(run["argument_bytes"] == real, f"{shape}: argument_bytes "
+                                                 f"{run['argument_bytes']} != placed {real}")
+            check(abs(run["rel_diff"]) <= DRYRUN_MEM_RTOL,
+                  f"{shape}: predicted peak {predicted} vs measured {measured}")
+            if "logits_equal" in run:
+                check(run["logits_equal"] and run["cache_equal"],
+                      f"{shape}: the mesh decode differs from the host path: {run}")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    out["launches"] = tally.counts()
+    check(not any(out["launches"].values()), f"the dry-run path launched kernels: "
+                                             f"{out['launches']}")
+
+    # c. the production cells' records
+    cells = {}
+    for arch, shape in DRYRUN_POD_CELLS:
+        for mesh_kind in ("pod", "multipod"):
+            rec = json.loads((base / "cells" / mesh_kind / f"{arch}__{shape}.json").read_text())
+            check("error" not in rec and "memory" in rec,
+                  f"the dry-run's {arch} x {shape} [{mesh_kind}] failed: "
+                  f"{rec.get('error')} {rec.get('traceback', '')[-1500:]}")
+            mem = rec["memory"]
+            cells[f"{arch}__{shape}__{mesh_kind}"] = {
+                "mem_per_rank_gib": (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30,
+                **mem, "flops": rec["cost"]["flops"],
+                "bytes_accessed": rec["cost"]["bytes accessed"],
+                "collectives": rec["collectives"], "lower_s": rec["lower_s"]}
+            coll = ", ".join(f"{kind} {v['count']} x {v['bytes'] / 2**20:.0f} MiB"
+                             for kind, v in sorted(rec["collectives"].items()))
+            log(f"[dryrun] OK {arch} x {shape} [{mesh_kind}]: memory per rank "
+                f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2**30:.2f} GiB (arguments "
+                f"{mem['argument_bytes'] / 2**30:.2f}), {rec['cost']['flops']:.4e} FLOPs, "
+                f"collectives: {coll}; fake step {rec['lower_s']} s")
+    out["cells"] = cells
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phases 17b-c: {out['seconds']:.1f} s ({out['waited_s']:.1f} s of it "
+        f"waiting for the fake runs)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="build/chip_smoke.json",
                     help="where the full report is written (JSON)")
+    ap.add_argument("--lower-cells", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.lower_cells:
+        lower_card_cells(args.lower_cells)
+        return 0
+    procs = start_dryruns()
+    try:
+        return run_phases(args, procs)
+    finally:
+        stop_dryruns(procs)
+
+
+def run_phases(args, procs) -> int:
+    """Phases 1-17 (see the module's docstring); ``procs``: the dry-run's
+    processes (:func:`start_dryruns`)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.bound_prune import (block_bounds,
                                                  block_bounds_plain, block_bounds_select,
@@ -3956,6 +4370,13 @@ def main(argv=None) -> int:
             del ops_m, kw_m
         del a_k, kw_k, perm
     report["merge"] = {f"k{k}_splits{s}": r for (k, s), r in merge_runs.items()}
+
+    # 17a. pruned_topk over a bf16 db at the main path's operands, while
+    # phase 3's index and brute force are held
+    held = pruned_topk.launches
+    report["bf16_db"], bf16_entry = phase_bf16_db(eng, qn, qp, brute64, kernel_inputs,
+                                                  pruned_topk, pruned_topk_plain)
+    pruned_topk.launches = held
     m10, m100 = merge_runs[(10, chosen)], merge_runs[(100, chosen)]
     merge_entry = {
         "name": "merge_splits", "route": "cuda",
@@ -4300,6 +4721,11 @@ def main(argv=None) -> int:
     mesh_train = report["mesh"]["launches"]["mesh_train"]
     mesh_search = report["mesh"]["launches"]["mesh_search"]
 
+    # 17b-c. the dry-run: its prediction against the card, production cells
+    report["dryrun"] = phase_dryrun(args.seed + 17, card, procs,
+                                    (pruned_topk, block_bounds_select, block_bounds,
+                                     merge_splits))
+
     # every configuration's block_prune_frac beside the point bound's
     for key, runs in POINT_BOUND_PRUNE.items():
         for name, old in runs.items():
@@ -4361,7 +4787,8 @@ def main(argv=None) -> int:
         "mesh_search": mesh_search["block_bounds_select"]}
     sel_entry["launches"] = sum(sel_entry["launches_by_path"].values())
 
-    report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry]
+    report["kernels"] = [topk_entry, merge_entry, bb_entry, sel_entry, gather_entry,
+                         bf16_entry]
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)

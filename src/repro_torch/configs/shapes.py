@@ -10,17 +10,20 @@ Four shapes per architecture (LM family):
                 sub-quadratic archs (SSM/hybrid/SWA) — full-attention archs
                 skip it (DESIGN.md §5)
 
-The reference's ``input_specs`` (abstract ``jax.ShapeDtypeStruct`` inputs
-for the dry-run) is not ported: only the dry-run reads it, and the dry-run
-is not ported yet.
+``input_specs`` returns tensors on the ``meta`` device (shapes and dtypes,
+no storage: the counterpart of the reference's ``jax.ShapeDtypeStruct``
+stand-ins); modality frontends are stubs, so whisper gets frame
+*embeddings* and internvl2 gets patch *embeddings* directly.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Shape", "SHAPES", "model_kind", "is_subquadratic", "applicable"]
+__all__ = ["Shape", "SHAPES", "model_kind", "is_subquadratic", "applicable", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +64,29 @@ def applicable(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
     if shape.name == "long_500k" and not is_subquadratic(cfg):
         return False, "full attention is quadratic/unbounded-KV at 500k"
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: Shape, *, scale: float = 1.0) -> dict:
+    """Abstract inputs for the given cell: ``meta`` tensors with the
+    reference's keys, shapes and dtypes.  ``scale`` shrinks batch for
+    smoke tests (batch >= 1)."""
+    from repro_torch.models.vlm import VIT_WIDTH
+
+    b = max(1, int(shape.batch * scale))
+    s = shape.seq
+    kind = model_kind(cfg)
+
+    def f(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": f((b, s), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = f((b, s), torch.int32)
+        if kind == "vlm":
+            specs["patches"] = f((b, cfg.vision_seq, VIT_WIDTH), torch.bfloat16)
+        if kind == "whisper":
+            specs["frames"] = f((b, cfg.encoder_seq, cfg.d_model), torch.bfloat16)
+        return specs
+    # decode: one new token against a cache of length seq
+    return {"tokens": f((b, 1), torch.int32), "cache_len": f((), torch.int32)}

@@ -45,8 +45,8 @@ from torch import Tensor, nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 __all__ = ["is_dtensor", "local", "like", "mesh_of", "local_device", "dp_axes", "axes_group",
-           "batch_split",
-           "split_axes", "place_module", "distribute", "gather", "gathered", "gathered_call",
+           "batch_split", "split_axes", "head_split", "head_part", "place_module",
+           "distribute", "gather", "gathered", "gathered_call",
            "all_reduce_sum", "copy_to_group", "batch_sum", "sum_over_shards",
            "describe"]
 
@@ -130,6 +130,37 @@ def batch_split(mesh, axes):
 def split_axes() -> tuple[str, ...]:
     """The axes the current batch is split over (see :func:`batch_split`)."""
     return _SPLIT[1]
+
+
+_HEADS: tuple | None = None
+
+
+@contextlib.contextmanager
+def head_split(mesh):
+    """Within the block, attention whose K/V hold this rank's share of the
+    KV heads over the mesh's ``"model"`` axis (a decode cache placed by
+    ``launch.dryrun.cache_shardings``, or a cross-attention's cached K/V)
+    computes this rank's query heads only and sums the head-split output
+    projection over ``"model"``: Megatron's ``f`` on its input, ``g`` on
+    its output (:func:`~repro_torch.models.layers.attn_apply`).  The mesh
+    decode step runs in it; K/V that hold every head compute whole."""
+    global _HEADS
+    if "model" in mesh.mesh_dim_names:
+        part = (mesh.get_local_rank("model"), mesh.size(mesh.mesh_dim_names.index("model")),
+                axes_group(mesh, ("model",)))
+    else:
+        part = (0, 1, None)
+    old, _HEADS = _HEADS, part
+    try:
+        yield
+    finally:
+        _HEADS = old
+
+
+def head_part() -> tuple | None:
+    """``(this rank's index on "model", the axis size, its group or None
+    for one rank)`` inside :func:`head_split`, None outside it."""
+    return _HEADS
 
 
 # ---------------------------------------------------------------------------

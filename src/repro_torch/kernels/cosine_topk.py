@@ -286,7 +286,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.pruned_topk_launch.argtypes = (
-            [vp] * 17 + [i] * 9 + [ctypes.c_float, i, i, vp])
+            [vp] * 17 + [i] * 9 + [ctypes.c_float, i, i, i, vp])
         lib.pruned_topk_launch.restype = i
         lib.merge_splits_launch.argtypes = [vp] * 4 + [i] * 3 + [vp]
         lib.merge_splits_launch.restype = i
@@ -324,10 +324,9 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
     n, p = db.shape[0], qp.shape[1]
     nt, mt = n // bn, -(-m // bm)
     dev = qn.device
-    if db.dtype != torch.float32:
+    if db.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
-            f"pruned_topk's CUDA kernel takes float32 db rows, got {db.dtype} "
-            "(a bf16 variant is not ported yet)")
+            f"pruned_topk's CUDA kernel takes float32 or bfloat16 db rows, got {db.dtype}")
     if not 1 <= bm <= MAX_BM:
         raise ValueError(f"bm={bm} outside [1, {MAX_BM}] for the CUDA kernel")
     if not 1 <= p <= MAX_PIVOTS:
@@ -338,7 +337,7 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         raise ValueError("row_out needs the fused kernel")
     f32 = torch.float32
     check_operand("qn", qn, (m, d), f32, dev)
-    check_operand("db", db, (n, d), f32, dev)
+    check_operand("db", db, (n, d), db.dtype, dev)
     check_operand("qp", qp, (m, p), f32, dev)
     check_operand("dp_min", lo, (nt, p), f32, dev)
     check_operand("dp_max", hi, (nt, p), f32, dev)
@@ -353,7 +352,8 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
         check_operand("row_out", row_out, (m,), torch.int32, dev)
     # the kernel reads every tile k-major in panels of 128 rows, [panel][D]
     # [128], zero past a tile's rows: each K-step of a panel is one
-    # contiguous bulk copy, and each column a thread's float4 fragments
+    # contiguous bulk copy, and each column a thread's float4 fragments.
+    # The db panels keep the db's dtype: a bf16 db is read as bf16
     qt = qn.new_zeros(mt, d, _PANEL)
     qt[:, :, :bm] = torch.cat([qn, qn.new_zeros(mt * bm - m, d)]).view(
         mt, bm, d).transpose(1, 2)
@@ -390,7 +390,7 @@ def _launch(qn, db, qp, lo, hi, tau, block_order, row_valid, ub_cap, dp, *,
             ptr(block_order), ptr(row_valid), ptr(ub_cap), ptr(dp),
             ptr(part_s), ptr(part_i), ptr(computed), ptr(elem), ptr(sims),
             ptr(idx), ptr(row_out), ptr(arrive), m, m_valid, n, d, p, k, bm,
-            bn, splits, margin, int(prune), int(fused),
+            bn, splits, margin, int(prune), int(fused), int(db.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"pruned_topk kernel launch failed: CUDA error {rc}")
@@ -491,7 +491,13 @@ def pruned_topk(
     plus ``splits`` and ``row_out``).
 
     Args:
-      qn: [M, D] L2-normalized queries.  db: [N, D] normalized database.
+      qn: [M, D] L2-normalized queries.  db: [N, D] normalized database,
+        float32 or bfloat16.  A bf16 db is scored as the reference scores
+        it: the fp32 dot product of the query with the bf16-rounded row,
+        the tile skip against the fp32 ``dp_min``/``dp_max`` as given.
+        The rounded rows are not unit norm, so the Eq. 13 bound is not
+        proven for them: the result is held to the fp32 brute force only
+        as the reference holds it, within 2e-2.
       qp: [M, P] query-pivot similarities, each the float64 cosine rounded
         to nearest; the bound runs over their float32 neighbours.
       dp_min/dp_max: [N // bn, P] pivot intervals at kernel tile granularity.

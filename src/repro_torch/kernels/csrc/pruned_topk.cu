@@ -1,4 +1,5 @@
-// Fused block-pruned exact cosine top-k for Hopper (sm_90a), fp32 SIMT.
+// Fused block-pruned exact cosine top-k for Hopper (sm_90a), fp32 SIMT,
+// over an fp32 or a bf16 db.
 //
 // Replaces the TPU kernel src/repro/kernels/cosine_topk.py:pruned_topk
 // (body _make_kernel, pallas_call at cosine_topk.py:310).  It computes
@@ -47,6 +48,9 @@
 // - Shared memory per CTA (p pivots):
 //     Q tile, resident    D·128 floats     (51,200 B at D = 100)
 //     db ring             2 stages of 34·128 floats + a step's intervals
+//                         (a bf16 db chunk fills the first half of its
+//                         slot; the layout, and so the epilogue's merge
+//                         room and the occupancy, stay the fp32 one's)
 //     Q ring (streamed)   34·128 floats per stage, where Q is not resident
 //     qp                  128·p floats     (8,192 B at p = 16)
 //     τ per row, merge candidates (128 per half-warp), barriers  16,960 B
@@ -79,6 +83,14 @@
 //   barriers around it and around the merge keep the FMA pipes idle for a
 //   large share of each tile (PERF.md).
 //
+// A bf16 db (the reference's dot_general of fp32 queries with bf16 rows,
+// preferred_element_type f32): the wrapper hands the kernel bf16 panels,
+// each K-step's bulk copy moves half the bytes (34 x 128 x 2 = 8,704 B),
+// and fma_panel widens a thread's 8 db values to fp32 (exact) before the
+// same 64 fmaf in the same column order.  A score is then the fp32 dot
+// product with the bf16-rounded row; the Q tile, τ, the intervals and the
+// merge stay fp32.  The kernel is templated on the db element type.
+//
 // Why fp32 SIMT and not wgmma: the reference guards fp32 scores with
 // margin = 4e-7 and seeds τ 1e-6 below the prescan value; TF32 keeps
 // about 3 digits, and 3xTF32 on wgmma reaches about fp32 accuracy but not
@@ -87,6 +99,7 @@
 // PyTorch version bit for bit; its header says why they are sound near
 // |a| = 1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -116,7 +129,8 @@ static_assert(3 * kMaxK <= kRingEntries, "one warp merges k = kMaxK in the ring"
 
 struct Params {
   const float* qt;              // [mt, d, 128] query tiles, k-major
-  const float* dbt;             // [nt * nsub, d, 128] db sub-tiles, k-major
+  const void* dbt;              // [nt * nsub, d, 128] db sub-tiles, k-major
+                                // (float or __nv_bfloat16: the kernel's T)
   const float* qp;              // [m, p]
   const float* lh;              // [nt, 2 * pp]: lo, then hi, each padded
   const float* tau;             // [m] seeds (already lowered), -inf if none
@@ -173,7 +187,7 @@ __device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
                ::"r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(float* dst, const void* src,
                                           unsigned bytes, unsigned bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -197,16 +211,26 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Four consecutive bf16 values widened to fp32 (exact: a bf16 is the top
+// half of an fp32), from one 8-byte load.
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
 // acc[i][j] += sum over `cols` k-major rows of a[row i] · b[col j], for
 // the thread's rows 4ty + {0..3}, 64 + 4ty + {0..3} and columns 4tx +
 // {0..3}, 64 + 4tx + {0..3}.  The next row's fragments load while this
 // row's 64 FMAs issue; the load past the last row reads shared memory that
-// follows every panel and is discarded.
+// follows every panel and is discarded.  b holds the db panel as T (float
+// or bf16, widened on load); a is the fp32 Q panel.
+template <typename T>
 __device__ __forceinline__ void fma_panel(float (&acc)[8][8], const float* a,
-                                          const float* b, int cols, int tx,
+                                          const T* b, int cols, int tx,
                                           int ty) {
   const float* pa = a + 4 * ty;
-  const float* pb = b + 4 * tx;
+  const T* pb = b + 4 * tx;
   float4 a0 = lds4(pa), a1 = lds4(pa + 64), b0 = lds4(pb), b1 = lds4(pb + 64);
 #pragma unroll 2
   for (int kk = 0; kk < cols; ++kk) {
@@ -531,8 +555,9 @@ __device__ __noinline__ void epilogue(const Params& prm) {
 
 // kFused: the epilogue merges the splits into out_s/out_i; without it the
 // partial lists in top_s/top_i are the result (merge_splits_kernel's
-// input, kept as the route the epilogue is compared with).
-template <bool kFused>
+// input, kept as the route the epilogue is compared with).  T: the db's
+// element type, float or __nv_bfloat16.
+template <bool kFused, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 pruned_topk_kernel(const __grid_constant__ Params prm) {
   extern __shared__ __align__(16) float smem[];
@@ -697,14 +722,17 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
       const int slot = issued % kStages;
       float* st = ring + slot * stage;
       const int k0 = pc * kStep;
-      const unsigned bytes = (unsigned)min(kStep, d - k0) * kTileN * 4;
+      const unsigned cols = (unsigned)min(kStep, d - k0);
+      const unsigned bytes = cols * kTileN * (unsigned)sizeof(T);
+      const unsigned q_bytes = resident ? 0u : cols * kTileM * 4;
       const bool first = pc == 0 && psub == 0;
       const unsigned lh_bytes = first ? 2u * pp * 4 : 0u;
-      mbar_expect(bars + 8 * slot, (resident ? bytes : 2 * bytes) + lh_bytes);
-      bulk_copy(st, prm.dbt + (((size_t)pjb * nsub + psub) * d + k0) * kTileN,
+      mbar_expect(bars + 8 * slot, bytes + q_bytes + lh_bytes);
+      bulk_copy(st, static_cast<const T*>(prm.dbt) +
+                        (((size_t)pjb * nsub + psub) * d + k0) * kTileN,
                 bytes, bars + 8 * slot);
       if (!resident)
-        bulk_copy(st + kStageFloats, qtile + (size_t)k0 * kTileM, bytes,
+        bulk_copy(st + kStageFloats, qtile + (size_t)k0 * kTileM, q_bytes,
                   bars + 8 * slot);
       if (first)
         bulk_copy(st + stage - kLhFloats, prm.lh + (size_t)pjb * 2 * pp,
@@ -756,8 +784,8 @@ pruned_topk_kernel(const __grid_constant__ Params prm) {
         issue();
         const float* st = ring + (consumed % kStages) * stage;
         const int k0 = c * kStep;
-        fma_panel(acc, resident ? qres + k0 * kTileM : st + kStageFloats, st,
-                  min(kStep, d - k0), tx, ty);
+        fma_panel(acc, resident ? qres + k0 * kTileM : st + kStageFloats,
+                  reinterpret_cast<const T*>(st), min(kStep, d - k0), tx, ty);
         ++consumed;
       }
 
@@ -841,15 +869,27 @@ __global__ void merge_splits_kernel(const float* ps, const int* pi,
   }
 }
 
-template <bool kFused>
+template <bool kFused, typename T>
 cudaError_t set_smem(size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      pruned_topk_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pruned_topk_kernel<kFused, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(pruned_topk_kernel<kFused>,
+  return cudaFuncSetAttribute(pruned_topk_kernel<kFused, T>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T>
+int launch_typed(const Params& prm, size_t smem, dim3 grid, int fused,
+                 cudaStream_t stream) {
+  const cudaError_t err = fused ? set_smem<true, T>(smem) : set_smem<false, T>(smem);
+  if (err != cudaSuccess) return (int)err;
+  if (fused)
+    pruned_topk_kernel<true, T><<<grid, kThreads, smem, stream>>>(prm);
+  else
+    pruned_topk_kernel<false, T><<<grid, kThreads, smem, stream>>>(prm);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -861,17 +901,17 @@ extern "C" size_t pruned_topk_smem_bytes(int d, int p) {
 // Resident CTAs per SM at (d, p), or -1 on a CUDA error.
 extern "C" int pruned_topk_ctas_per_sm(int d, int p) {
   const size_t smem = pruned_topk_smem_bytes(d, p);
-  if (set_smem<true>(smem) != cudaSuccess) return -1;
+  if (set_smem<true, float>(smem) != cudaSuccess) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, pruned_topk_kernel<true>, kThreads, smem) != cudaSuccess)
+          &blocks, pruned_topk_kernel<true, float>, kThreads, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
 
 // qt: [ceil(m / bm), d, 128] query tiles, k-major, rows past m zero;
 // dbt: [n / bn * ceil(bn / 128), d, 128] db sub-tiles of 128 rows,
-// k-major, rows past a tile's end zero; lh: [n / bn, 2 * pp] each tile's
+// k-major, rows past a tile's end zero, float (db_bf16 == 0) or bf16; lh: [n / bn, 2 * pp] each tile's
 // pivot intervals, lo then hi, each padded to pp = p rounded up to 4.  All
 // three 16-byte aligned.  top_s/top_i: [splits, m, k] scratch for the
 // partial lists.  fused != 0: the epilogue merges them into out_s/out_i
@@ -881,13 +921,13 @@ extern "C" int pruned_topk_ctas_per_sm(int d, int p) {
 // are the result and out_s, out_i, row_out and arrive are not read.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int pruned_topk_launch(
-    const float* qt, const float* dbt, const float* qp, const float* lh,
+    const float* qt, const void* dbt, const float* qp, const float* lh,
     const float* tau, const int* block_order,
     const uint8_t* row_valid, const float* ub_cap, const float* dp,
     float* top_s, int* top_i, int* computed, int* elem, float* out_s,
     int* out_i, const int* row_out, unsigned* arrive, int m, int m_valid,
     int n, int d, int p, int k, int bm, int bn, int splits, float margin,
-    int prune, int fused, void* stream) {
+    int prune, int fused, int db_bf16, void* stream) {
   if (bm < 1 || bm > kTileM || p < 1 || p > kMaxPivots || k < 1 || k > bn ||
       k > kMaxK || bn < 1 || n % bn != 0 || m < 1 || d < 1 || splits < 1 ||
       splits > n / bn ||
@@ -899,14 +939,9 @@ extern "C" int pruned_topk_launch(
                    computed, elem, m, m_valid, d, p, k, bm, bn, n / bn,
                    margin, prune, q_resident(d, p)};
   const size_t smem = pruned_topk_smem_bytes(d, p);
-  const cudaError_t err = fused ? set_smem<true>(smem) : set_smem<false>(smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((m + bm - 1) / bm, splits);
-  if (fused)
-    pruned_topk_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
-  else
-    pruned_topk_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(prm);
-  return (int)cudaGetLastError();
+  return db_bf16 ? launch_typed<__nv_bfloat16>(prm, smem, grid, fused, (cudaStream_t)stream)
+                 : launch_typed<float>(prm, smem, grid, fused, (cudaStream_t)stream);
 }
 
 extern "C" int merge_splits_launch(const float* part_s, const int* part_i,

@@ -5,6 +5,7 @@ are the reference's axis names, one rank per device.  Functions, not
 module constants, so importing this module touches no process group.
 The process group must exist, or be creatable from the environment
 (``torchrun``'s variables), before a mesh is made; a CUDA mesh needs NCCL
+(or the ``"fake"`` backend of the dry-run, whose collectives move nothing)
 and never falls back to gloo.
 """
 from __future__ import annotations
@@ -25,9 +26,10 @@ def _mesh(device_type: str, shape: tuple, axes: tuple):
         if world != math.prod(shape):
             raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; the process "
                              f"group has {world}")
-        if device_type == "cuda" and "nccl" not in str(dist.get_backend()):
-            raise RuntimeError(f"a CUDA mesh needs the NCCL backend, not "
-                               f"{dist.get_backend()!r}")
+        backend = str(dist.get_backend())
+        if device_type == "cuda" and "nccl" not in backend and backend != "fake":
+            raise RuntimeError(f"a CUDA mesh needs the NCCL backend (or the dry-run's "
+                               f"fake one), not {backend!r}")
     if device_type == "cuda":
         torch.cuda.set_device(int(dist.get_rank() if dist.is_initialized() else 0)
                               % torch.cuda.device_count())

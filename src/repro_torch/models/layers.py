@@ -27,6 +27,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import Tensor, nn
 
+from repro_torch.dist import placement
 from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
 
@@ -267,10 +268,25 @@ def attn_apply(
     more to fill the cache).  The new K/V are written into the cache's
     tensors in place (the reference returns updated copies).  Returns
     (y, cache).
+
+    Inside :func:`placement.head_split <repro_torch.dist.placement.head_split>`
+    a cache (or ``kv_override``) that holds this rank's ``1/tp`` of the KV
+    heads (``tp`` the ``"model"`` axis's size) is attended by this rank's
+    query heads only: their contiguous share of the (padded, repeated)
+    heads, the output projection over their rows of ``wo``, summed over
+    ``"model"`` (Megatron's ``f`` and ``g``).  K/V that hold every head
+    compute whole.
     """
     B, S, D = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     inv_freq = rope_freqs(cfg, device=x.device)
+    split = placement.head_part()
+    if split is not None:
+        held = (cache["k"].shape[2] * split[1] == kv * cfg.kv_repeat if cache is not None
+                else kv_override is not None and kv_override[0].shape[2] * split[1] == kv)
+        split = split if held else None
+    if split is not None:
+        x = placement.copy_to_group(x, split[2])
 
     q = (x @ p.wq.to(x.dtype).reshape(D, h * dh)).view(B, S, h, dh)
     if p.bq is not None:
@@ -302,6 +318,15 @@ def attn_apply(
         # Megatron-style KV replication (params stay at n_kv_heads)
         kx = kx.repeat_interleave(cfg.kv_repeat, dim=2)
         vx = vx.repeat_interleave(cfg.kv_repeat, dim=2)
+    if split is not None:
+        # this rank's query heads, and the new K/V of its KV heads (an
+        # override already holds only those)
+        r, tp, _ = split
+        hq = q.shape[2] // tp
+        q = q[:, :, r * hq:(r + 1) * hq]
+        if kv_override is None:
+            hk = kx.shape[2] // tp
+            kx, vx = kx[:, :, r * hk:(r + 1) * hk], vx[:, :, r * hk:(r + 1) * hk]
 
     q = shd.shard(q, "batch", None, "heads", None)
     kx = shd.shard(kx, "batch", None, "kv_heads", None)
@@ -340,11 +365,35 @@ def attn_apply(
             q, kx, vx, causal=causal, window=cfg.sliding_window,
             chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
         )
-    if g_pad is not None and g_pad > g_orig:
-        out = out.reshape(B, S, kv, g_pad, dh)[:, :, :, :g_orig]
-    y = out.reshape(B, S, h * dh) @ p.wo.to(x.dtype).reshape(h * dh, D)
+    if split is not None:
+        y = _head_split_out(p, out, split, g_orig, g_pad, x.dtype)
+    else:
+        if g_pad is not None and g_pad > g_orig:
+            out = out.reshape(B, S, kv, g_pad, dh)[:, :, :, :g_orig]
+        y = out.reshape(B, S, h * dh) @ p.wo.to(x.dtype).reshape(h * dh, D)
     y = shd.shard(y, "batch", None, "model_embed")
     return y, cache
+
+
+def _head_split_out(p: Attention, out: Tensor, split: tuple, g_orig: int,
+                    g_pad: int | None, dtype) -> Tensor:
+    """The output projection of this rank's heads ``out [B, S, hq, dh]``
+    (its ``hq`` consecutive heads of the padded order), summed over the
+    split's group: the padding heads are dropped and each real head meets
+    its own row of ``wo``."""
+    B, S, hq, dh = out.shape
+    r, _, group = split
+    first = r * hq
+    if g_pad is not None and g_pad > g_orig:
+        ids = [i for i in range(first, first + hq) if i % g_pad < g_orig]
+        out = out[:, :, [i - first for i in ids]]
+        wo = p.wo[torch.tensor([(i // g_pad) * g_orig + i % g_pad for i in ids],
+                               dtype=torch.long, device=out.device)]
+    else:
+        wo = p.wo[first:first + hq]
+    n = out.shape[2]                    # 0 where every head of the share pads
+    y = out.reshape(B, S, n * dh) @ wo.to(dtype).reshape(n * dh, p.wo.shape[-1])
+    return placement.all_reduce_sum(y, group)
 
 
 # ---------------------------------------------------------------------------

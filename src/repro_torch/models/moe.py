@@ -8,7 +8,7 @@ no token is dropped and cached decoding equals teacher forcing.  The router
 and its softmax run in fp32; the Switch load-balancing loss is returned.
 
 The dispatch is the reference's, op for op: a stable argsort of the flat
-expert ids, ``bincount`` for the segment starts, a buffer of ``E * C`` rows
+expert ids, counts per expert for the segment starts, a buffer of ``E * C`` rows
 plus one trash row that overflow tokens are written to, a batched expert
 einsum, and the combine.  The reference combines with a scatter-add over
 the tokens; here each assignment's weighted row goes back to its place in
@@ -95,6 +95,14 @@ def _route(p: MoE, x: Tensor, cfg: ModelConfig, experts: Tensor | None = None):
     return probs, gate_w, gate_e
 
 
+def _counts(flat_e: Tensor, n_experts: int) -> Tensor:
+    """Assignments per expert ``[E]`` (int64): ``bincount`` with a static
+    length, so a shape-only run (the dry-run's fake tensors) can follow
+    it."""
+    return torch.zeros(n_experts, dtype=torch.int64, device=flat_e.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.int64))
+
+
 def _dispatch(gate_e: Tensor, n_experts: int, capacity: int):
     """The sort-based capacity dispatch of the flat ``[T*K]`` assignments:
     (order, keep, buffer slot, token of each sorted assignment).  Each
@@ -104,7 +112,7 @@ def _dispatch(gate_e: Tensor, n_experts: int, capacity: int):
     flat_e = gate_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = _counts(flat_e, n_experts)
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(tk, device=gate_e.device) - seg_start[sorted_e]
     keep = pos_in_e < capacity
@@ -129,7 +137,7 @@ def _moe_tokens(p: MoE, x: Tensor, cfg: ModelConfig, *, no_drop: bool = False,
 
     # ---- load-balancing aux loss (Switch): E * sum_e f_e * p_e --------
     me = probs.mean(0)
-    assign = torch.bincount(gate_e.reshape(-1), minlength=E).float()
+    assign = _counts(gate_e.reshape(-1), E).float()
     aux = E * torch.sum(assign / (T * K) * me)
 
     # ---- sort-based capacity dispatch ---------------------------------

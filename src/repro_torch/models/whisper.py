@@ -184,12 +184,12 @@ def whisper_decode_step(params: Whisper, tokens, cfg: ModelConfig, cache: list,
                         cache_len: int):
     """tokens [B, S] -> (hidden [B, S, D], new cache).  The self-attention
     K/V are written into the cache's tensors in place; the returned list
-    is a new one."""
+    is a new one.  On a mesh each layer gathers its own parameters."""
     x = _embed(params, tokens, cfg)
     new_cache = []
     for lp, lc in zip(params.dec, cache, strict=True):
-        x, nc = _dec_block(lp, x, (lc["cross_k"], lc["cross_v"]), cfg, cache=lc,
-                           cache_len=cache_len)
+        x, nc = placement.gathered_call(_dec_block, lp, x, (lc["cross_k"], lc["cross_v"]),
+                                        cfg, cache=lc, cache_len=cache_len)
         new_cache.append(dict(lc, self=nc["self"]))
     x = norm_apply(params.final_norm, x, cfg)
     return x, new_cache

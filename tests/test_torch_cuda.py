@@ -467,8 +467,11 @@ def test_pruned_topk_kernel_k_equals_bn(cuda):
 def test_cuda_wrappers_reject_wrong_dtype(cuda):
     ops = topk_operands(256, 16, 8, 64, 4, seed=10)
     pos = [torch.from_numpy(ops[a]).to(cuda) for a in ("q", "db", "qp", "lo", "hi")]
-    with pytest.raises(TypeError, match="float32 db"):
-        pruned_topk(pos[0], pos[1].bfloat16(), *pos[2:], 256, k=4, bm=8, bn=64)
+    with pytest.raises(TypeError, match="float32 or bfloat16 db"):
+        pruned_topk(pos[0], pos[1].half(), *pos[2:], 256, k=4, bm=8, bn=64)
+    before = pruned_topk.launches
+    s_bf, _, _, _ = pruned_topk(pos[0], pos[1].bfloat16(), *pos[2:], 256, k=4, bm=8, bn=64)
+    assert pruned_topk.launches == before + 1 and s_bf.shape == (8, 4)
     with pytest.raises(TypeError, match="qn"):
         pruned_topk(pos[0].double(), *pos[1:], 256, k=4, bm=8, bn=64)
     with pytest.raises(TypeError, match="qp"):
@@ -544,6 +547,37 @@ def test_pruned_topk_kernel_small_cases(cuda, case, splits):
     ops = topk_operands(shape["n"], shape["d"], shape["m"], shape["bn"],
                         shape["p"], seed=12, holes=o.get("holes", False))
     run_kernel_and_plain(cuda, ops, splits, bn=shape["bn"], **kk, **o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, "chosen"])
+@pytest.mark.parametrize("shape", [(2048, 100, 300, 16), (896, 37, 200, 5)],
+                         ids=["d100", "d37"])
+def test_pruned_topk_kernel_bf16_db_matches_plain(cuda, shape, splits):
+    """The bf16 db through the kernel (bf16 panels, widened in fma_panel)
+    against the plain version over the same rows (check_topk: sims within
+    1e-5, ids tie-aware), at D = 100 and at D = 37, which is not a multiple
+    of the 34-column K-step; and within the reference's 2e-2 of the fp32
+    brute force."""
+    from chip_smoke import check_topk, topk_ok
+
+    n, d, m, p = shape
+    ops = topk_operands(n, d, m, 128, p, seed=31, holes=True)
+    pos = [torch.from_numpy(ops[a]).to(cuda) for a in ("q", "db", "qp", "lo", "hi")]
+    pos[1] = pos[1].bfloat16()
+    if splits == "chosen":
+        splits = default_splits(m, n, d, p, bm=128, bn=128, device=cuda)
+    kw = optional_operands(ops, bm=128, bn=128, **OPTIONS["all"])
+    kw = {a: None if v is None else torch.from_numpy(v).to(cuda) for a, v in kw.items()}
+    kw.update(k=10, bm=128, bn=128, element_stats=True, splits=splits)
+    args = (*pos, n)
+    before = pruned_topk.launches
+    got = pruned_topk(*args, **kw)
+    assert pruned_topk.launches == before + 1
+    r = check_topk(got, pruned_topk_plain(*args, **kw), args, kw, 1e-5, pruned_topk_plain)
+    assert topk_ok(r, 1e-5), (splits, r)
+    s_w, _ = cref.brute_force_knn(ops["q"], np.where(ops["valid"][:, None], ops["db"], 0), 10)
+    np.testing.assert_allclose(got[0].cpu().numpy(), s_w, atol=2e-2)
 
 
 @pytest.mark.cuda

@@ -195,6 +195,40 @@ def test_pruned_topk_matches_pallas(n, d, k, bm, bn, opt):
     np.testing.assert_allclose(got[0], sref, atol=3e-5)
 
 
+@pytest.mark.parametrize("opt", ["plain", "all"])
+def test_pruned_topk_bf16_db_matches_pallas(opt):
+    """A bf16 db (the reference's test_cosine_topk_dtypes corpus shape: 512
+    x 32, 16 queries, 8 pivots, k = 5, bm = 16): the same bf16 rows
+    through the Pallas kernel in interpret mode and the port's plain
+    version (both score fp32 queries against the rounded rows), sims
+    within 1e-5, ids tie-aware; both within the reference's 2e-2 of the
+    fp32 brute force."""
+    o = OPTIONS[opt]
+    ops = topk_operands(512, 32, 16, 128, 8, seed=29, holes=o.get("holes", False))
+    n, k, bm, bn = 512, 5, 16, 128
+    kw = optional_operands(ops, bm=bm, bn=bn, **o)
+    pos = (ops["q"], ops["db"], ops["qp"], ops["lo"], ops["hi"])
+    ref = j_pruned_topk(jnp.asarray(pos[0]), jnp.asarray(pos[1]).astype(jnp.bfloat16),
+                        *map(jnp.asarray, pos[2:]), n,
+                        **{a: None if v is None else jnp.asarray(v) for a, v in kw.items()},
+                        k=k, bm=bm, bn=bn, prune=o.get("prune", True),
+                        element_stats=o.get("elem", False), interpret=True)
+    tpos = [torch.from_numpy(a) for a in pos]
+    tpos[1] = tpos[1].bfloat16()
+    got = pruned_topk(*tpos, n, **{a: None if v is None else torch.from_numpy(v)
+                                   for a, v in kw.items()},
+                      k=k, bm=bm, bn=bn, prune=o.get("prune", True),
+                      element_stats=o.get("elem", False))
+    ref = [None if x is None else np.asarray(x) for x in ref]
+    got = [None if x is None else x.numpy() for x in got]
+    assert_topk_match(ref, got, atol=1e-5)
+    sref, _ = cref.brute_force_knn(ops["q"], np.where(ops["valid"][:, None], ops["db"], 0), k)
+    for s in (ref[0], got[0]):
+        np.testing.assert_allclose(s, sref, atol=2e-2)
+    # the rows really were rounded: fp32 scores would sit within 3e-5
+    assert np.abs(got[0] - sref).max() > 3e-5
+
+
 @pytest.mark.parametrize("k", [1, 5, 32])
 def test_pruned_topk_k_sweep(k):
     """k from 1 to bn (=32), with every option on."""

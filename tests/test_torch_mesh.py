@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -175,17 +176,22 @@ def test_best_mesh_equals_the_reference():
         elastic.best_mesh(0)
 
 
-def test_batch_shardings_split_where_the_data_axes_divide():
+def test_batch_shardings_split_where_the_data_axes_divide(tmp_path):
     """The reference's rule (launch/dryrun.py:70-73): the first dim over the
     data axes where they divide it, else replicated; and the dry-run
-    proper raises, pointing at the ROADMAP."""
+    proper writes a cell's record (here a cell the reference skips, with
+    its reason; tests/test_torch_dryrun.py runs one at rank 0 of 256)."""
     m = shd.AbstractMesh((2, 16, 16), ("pod", "data", "model"))
     batch = {"tokens": np.zeros((64, 8)), "odd": np.zeros((48, 8)), "scalar": np.zeros(())}
     got = dryrun.batch_shardings(batch, m, ("pod", "data"))
     assert {k: sh.spec for k, sh in got.items()} == {
         "tokens": (("pod", "data"),), "odd": (), "scalar": ()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dryrun.run_cell("tinyllama-1.1b", "train_4k", "pod")
+    rec = dryrun.run_cell("tinyllama-1.1b", "long_500k", "pod", out_dir=str(tmp_path),
+                          device="cpu")
+    written = json.loads((tmp_path / "pod" / "tinyllama-1.1b__long_500k.json").read_text())
+    assert written == rec == {
+        "arch": "tinyllama-1.1b", "shape": "long_500k", "mesh": {"data": 16, "model": 16},
+        "skipped": True, "reason": "full attention is quadratic/unbounded-KV at 500k"}
 
 
 def test_shard_is_the_identity_on_local_tensors(rules):
