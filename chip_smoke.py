@@ -210,8 +210,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (1, 1) DeviceMesh and its step run on the card: argument_bytes equal to
    the placed state's bytes, argument_bytes + temp_bytes within 25 % of
    the step's max_memory_allocated, the mesh decode's logits and cache
-   equal bit for bit to the host path's decode_step; no kernel launches;
-   c. run_cell for tinyllama-1.1b and granite-moe-1b-a400m x train_4k and
+   equal bit for bit to the host path's decode_step; then one train step
+   of tinyllama-1.1b at full width and depth, fp32 params and AdamW
+   moments, at B = 1, S = 16,384 (512 score tiles of 64 MiB a layer,
+   which fit the card only because the backward recomputes each tile's
+   body): the loss finite and within 1e-6 relative of a no_grad
+   forward's on the same batch, its ms and peak GiB printed; no kernel
+   launches; c. run_cell for tinyllama-1.1b and granite-moe-1b-a400m x train_4k and
    decode_32k, each on the pod and the multipod mesh at rank 0 of a fake
    world of 256 and 512 ranks, every cell OK, with its memory per rank,
    FLOPs and collective bytes by kind printed.  The fake runs of b and c
@@ -316,6 +321,13 @@ DRYRUN_POD_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "decode_3
                     ("granite-moe-1b-a400m", "decode_32k"))
 #: seconds phase 17 waits for the dry-run's processes, started with the script
 DRYRUN_WAIT_S = 600
+#: phase 17b: one train step of DRYRUN_ARCH at full width and depth at B = 1
+#: over this many tokens: 32 x 16 flash-attention tiles of 512 x 1,024 a
+#: layer, 64 MiB each in fp32, which fit the card only because the backward
+#: recomputes each tile's body (the reference's memory law)
+LONG_SEQ = 16_384
+#: its loss against a no_grad forward's on the same batch, relative
+LONG_LOSS_RTOL = 1e-6
 
 
 def log(*a):
@@ -4007,6 +4019,51 @@ def placed_bytes(cell):
     return total
 
 
+def long_train_step(seed, card):
+    """Phase 17b's long step: DRYRUN_ARCH at full width and depth, fp32
+    params and moments (init_state, make_train_step: the host path), one
+    step at B = 1, S = LONG_SEQ; its loss against a no_grad forward's of
+    the same weights and batch.  Returns the record."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model_fns
+    from repro_torch.train.train_step import init_state, make_loss_fn, make_train_step
+
+    cfg = ARCHS[DRYRUN_ARCH]
+    fns = model_fns(cfg)
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in SyntheticLM(cfg.vocab, LONG_SEQ, 1, seed=seed).batch(0).items()}
+    torch.cuda.empty_cache()
+    state = init_state(fns, seed, device="cuda")
+    with torch.no_grad():
+        want = float(make_loss_fn(fns, cfg)(state["params"], batch)[0])
+    step = make_train_step(fns, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    del state, step, m
+    torch.cuda.empty_cache()
+    tiles = cfg.n_heads * LONG_SEQ ** 2 * 4
+    run = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": [1, LONG_SEQ],
+           "remat": cfg.remat, "ms": ms, "peak_gib": peak / 2**30, "loss": loss,
+           "no_grad_loss": want, "loss_rel_diff": abs(loss - want) / abs(want),
+           "score_tiles_a_layer_gib": tiles / 2**30}
+    log(f"[dryrun] b. one train step of {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"remat {cfg.remat}, fp32 params and moments) at B = 1, S = {LONG_SEQ:,}: "
+        f"{ms:.1f} ms, peak {run['peak_gib']:.3f} GiB (one layer's score tiles "
+        f"{run['score_tiles_a_layer_gib']:.1f} GiB in fp32); loss {loss:.7f}, no_grad "
+        f"forward {want:.7f}, rel diff {run['loss_rel_diff']:.3e}; {card}")
+    check(bool(np.isfinite(loss)), f"the S = {LONG_SEQ} step's loss is {loss}")
+    check(run["loss_rel_diff"] <= LONG_LOSS_RTOL,
+          f"the S = {LONG_SEQ} step's loss {loss} differs from the no_grad forward's {want}")
+    return run
+
+
 def phase_dryrun(seed, card, procs, kernels):
     """Phases 17b and 17c: the dry-run against the card, and production
     cells on fake worlds.
@@ -4022,7 +4079,8 @@ def phase_dryrun(seed, card, procs, kernels):
        less what was allocated before the step besides its arguments);
        the decode step (its cache filled from the seed) gives logits equal
        bit for bit to the host path's decode_step and lm_head on the same
-       weights, cache and tokens, and leaves the same cache.
+       weights, cache and tokens, and leaves the same cache.  Then
+       :func:`long_train_step`, S = LONG_SEQ.
     c. Every cell of DRYRUN_POD_CELLS on the pod and the multipod mesh
        (run_cell at rank 0 of a fake world of 256 and 512 ranks, fake
        tensors on the card's device type) is OK; their memory per rank,
@@ -4139,6 +4197,7 @@ def phase_dryrun(seed, card, procs, kernels):
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+    out["long_step"] = long_train_step(seed, card)
     out["launches"] = tally.counts()
     check(not any(out["launches"].values()), f"the dry-run path launched kernels: "
                                              f"{out['launches']}")

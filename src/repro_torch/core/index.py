@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ref as kref
 
 __all__ = ["BlockIndex", "build_index", "search_brute", "interval_upper_bound",
-           "block_upper_bound", "reorder_perm", "multipivot_block_cap",
+           "block_upper_bound", "reorder_perm", "multipivot_block_cap", "search",
            "index_from_reference", "pivot_cosines64", "row_intervals",
            "sound_intervals"]
 
@@ -260,6 +260,21 @@ def multipivot_block_cap(index: BlockIndex, qn: Tensor, *, n_pivots: int) -> Ten
         alpha, index.beta[:, :j], index.beta_nsq[:, j - 1])     # [M, n_pad]
     row_ub = row_ub.masked_fill(~index.valid[None, :], float("-inf"))
     return row_ub.reshape(row_ub.shape[0], index.n_blocks, -1).amax(-1)
+
+
+def search(*args, **kwargs):
+    """Removed: use :class:`repro_torch.search.SearchEngine`.
+
+    The pre-engine entry point, kept as a hard error as in the reference:
+    its legacy policy (natural block order, no τ warm-start) made numbers
+    incomparable with the engine's.
+    """
+    raise TypeError(
+        "repro_torch.core.index.search() was removed. Use "
+        "repro_torch.search.SearchEngine: "
+        "eng = SearchEngine(index, backend='scan'); "
+        "sims, ids, stats = eng.search(queries, k). The migration table "
+        "is in docs/search-api.md.")
 
 
 def search_brute(index: BlockIndex, queries, k: int):

@@ -1,8 +1,9 @@
 """Pivot (reference point) selection for LAESA-style bound pruning.
 
 PyTorch counterpart of :mod:`repro.core.pivots`: greedy max-min
-(farthest-first) selection in arc distance, a seeded random fallback, and
-the float64 orthonormal pivot basis behind the joint multi-pivot bound.
+(farthest-first) selection in arc distance, a seeded random fallback, the
+joint bound's table depth, and the float64 orthonormal pivot basis behind
+that bound.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from torch import Tensor
 
 __all__ = ["normalize", "select_pivots_maxmin", "select_pivots_random",
-           "orthonormal_pivot_basis"]
+           "suggest_bound_pivots", "orthonormal_pivot_basis"]
 
 
 def normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
@@ -48,6 +49,18 @@ def select_pivots_random(n: int, n_pivots: int, seed: int = 0) -> Tensor:
     n_pivots = max(1, min(n_pivots, n))
     return torch.from_numpy(rng.choice(n, size=n_pivots, replace=False)
                             .astype(np.int64))
+
+
+def suggest_bound_pivots(n: int, d: int) -> int:
+    """Pivot-table depth for the joint ``eq13_multi`` bound
+    (:mod:`repro_torch.core.bounds`).
+
+    ``d`` pivots span the whole space, where the joint bound equals the
+    exact score at the cost of a full matmul; shallow tables lose all power
+    on uniform high-d data.  ``7d/8`` keeps a usable orthogonal remainder;
+    clamped to ``n - 1`` so tiny corpora stay non-degenerate.
+    """
+    return max(1, min(7 * d // 8, max(1, n - 1)))
 
 
 def orthonormal_pivot_basis(pivots, jitter: float = 1e-6) -> np.ndarray:

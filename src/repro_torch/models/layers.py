@@ -193,9 +193,17 @@ def flash_attention(
     kv chunks inner, with the same tiles and the same update per tile.
     Each tile is one batched matmul per KV head over its ``g`` query heads
     (``[g·cq, Dh] @ [Dh, ck]``), so the repeated K/V are never written.
-    Every tile step is out of place, so autograd differentiates it (the
-    backward keeps each tile's masked scores and probabilities; a layer
-    under :func:`checkpointed` keeps them only while it is recomputed).
+
+    Memory law (the reference's ``jax.checkpoint(kv_step)``): when autograd
+    will differentiate the call, each key tile's step runs under
+    :func:`checkpointed`, so the backward keeps per tile only the step's
+    inputs (the running ``m``, ``l`` and ``acc``; the K/V tile and its
+    ``kv_valid`` slice are views, the fp32 query chunk is shared by the
+    chunk's tiles) and
+    recomputes the tile's ``[g·cq, ck]`` scores and probabilities; no score
+    tile is stored.  Under a layer's :func:`checkpointed` the checkpoints
+    nest: the layer's recompute keeps only the tiles' carries.  Without
+    grad (serving, decode, prefill) the same steps run with no checkpoint.
     """
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -220,36 +228,56 @@ def flash_attention(
     qg = q.view(B, nq * cq, KV, g, Dh).permute(0, 2, 3, 1, 4)   # [B,KV,g,Sq',Dh]
     kt = k.permute(0, 2, 1, 3)                                 # [B,KV,Sk',Dh]
     vt = v.permute(0, 2, 1, 3)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     out = torch.empty((B, KV, g, nq * cq, Dh), dtype=q.dtype, device=dev)
     for i in range(nq):
         qs = slice(i * cq, (i + 1) * cq)
         qf = qg[:, :, :, qs].float().reshape(B, KV, g * cq, Dh)
-        q_pos = q_offset + torch.arange(i * cq, (i + 1) * cq, device=dev)
         m_run = torch.full((B, KV, g, cq), float("-inf"), device=dev)
         l_run = torch.zeros((B, KV, g, cq), device=dev)
         acc = torch.zeros((B, KV, g, cq, Dh), device=dev)
         for j in range(nk):
             ks = slice(j * ck, (j + 1) * ck)
-            kc, vc = kt[:, :, ks].float(), vt[:, :, ks].float()   # [B,KV,ck,Dh]
-            s = torch.matmul(qf, kc.transpose(-1, -2)).view(B, KV, g, cq, ck) * scale
-            mask = _tile_mask(q_pos, torch.arange(j * ck, (j + 1) * ck, device=dev),
-                              causal, window)
-            if kvv is not None:
-                mask = mask & kvv[:, None, None, None, ks]
-            # one kernel: an out-of-place masked_fill is a copy and a fill
-            s = torch.where(mask, s, float("-inf"))
-            m_new = torch.maximum(m_run, s.amax(-1))
-            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-            # masked entries are -inf, so exp leaves them 0 (the reference's
-            # where(mask, p, 0)); so does a row that nothing has reached yet
-            p = torch.exp(s - m_safe[..., None])
-            corr = torch.where(torch.isneginf(m_run), 0.0, torch.exp(m_run - m_safe))
-            l_run = l_run * corr + p.sum(-1)
-            pv = torch.matmul(p.view(B, KV, g * cq, ck), vc).view(B, KV, g, cq, Dh)
-            acc = acc * corr[..., None] + pv
-            m_run = m_new
+            # everything that varies over the loops is an argument: the
+            # backward's recompute runs after the loops have moved on
+            m_run, l_run, acc = checkpointed(
+                _kv_step, remat, m_run, l_run, acc, qf, kt[:, :, ks], vt[:, :, ks],
+                None if kvv is None else kvv[:, ks], q_offset + i * cq, j * ck,
+                causal, window, scale)
         out[:, :, :, qs] = (acc / l_run.clamp(min=1e-30)[..., None]).to(q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(B, nq * cq, H, Dh)[:, :Sq]
+
+
+def _kv_step(m_run: Tensor, l_run: Tensor, acc: Tensor, qf: Tensor, kc: Tensor,
+             vc: Tensor, kval: Tensor | None, q0: int, k0: int, causal: bool,
+             window: int | None, scale: float):
+    """One key tile of :func:`flash_attention`'s online softmax: the running
+    max ``m_run`` and sum ``l_run`` ``[B,KV,g,cq]`` and ``acc [B,KV,g,cq,Dh]``
+    updated by the tile ``kc``/``vc [B,KV,ck,Dh]`` (cast to fp32 here, so a
+    checkpoint keeps the tile's own storage) against ``qf [B,KV,g·cq,Dh]``
+    fp32; ``kval [B, ck]`` the tile's ``kv_valid`` slice, ``q0``/``k0`` the
+    absolute positions of the chunk's first query and the tile's first key
+    (ints, so a checkpoint keeps no position tensors)."""
+    B, KV, g, cq, Dh = acc.shape
+    ck = kc.shape[2]
+    kc, vc = kc.float(), vc.float()
+    s = torch.matmul(qf, kc.transpose(-1, -2)).view(B, KV, g, cq, ck) * scale
+    mask = _tile_mask(torch.arange(q0, q0 + cq, device=qf.device),
+                      torch.arange(k0, k0 + ck, device=qf.device), causal, window)
+    if kval is not None:
+        mask = mask & kval[:, None, None, None, :]
+    # one kernel: an out-of-place masked_fill is a copy and a fill
+    s = torch.where(mask, s, float("-inf"))
+    m_new = torch.maximum(m_run, s.amax(-1))
+    m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    # masked entries are -inf, so exp leaves them 0 (the reference's
+    # where(mask, p, 0)); so does a row that nothing has reached yet
+    p = torch.exp(s - m_safe[..., None])
+    corr = torch.where(torch.isneginf(m_run), 0.0, torch.exp(m_run - m_safe))
+    l_new = l_run * corr + p.sum(-1)
+    pv = torch.matmul(p.view(B, KV, g * cq, ck), vc).view(B, KV, g, cq, Dh)
+    return m_new, l_new, acc * corr[..., None] + pv
 
 
 def attn_apply(

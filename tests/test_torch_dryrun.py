@@ -14,7 +14,8 @@
   bytes of four cells on a ``(data 2, model 4)`` mesh, the reference's
   ``memory_analysis`` on 8 XLA host devices and the port's placed state at
   rank 0 of 8 fake ranks, equal to the byte; the port's FLOPs of an
-  unrolled probe beside the reference's ``cost.flops``; and one pod cell
+  unrolled probe beside the reference's ``cost.flops``, its peak temp
+  bytes below one layer's attention score tiles; and one pod cell
   through ``run_cell`` at rank 0 of 256 fake ranks, whose record has the
   reference's keys, ``compile_s`` aside.
 * The head-split decode attention (``placement.head_split``): each rank's
@@ -278,6 +279,20 @@ def test_probe_flops_beside_the_reference(runs):
     port, ref = runs["port"]["probe_flops"], runs["ref"]["probe_flops"]
     print(f"probe FLOPs: port {port:.6e}, reference {ref:.6e}, ratio {port / ref:.3f}")
     assert 0.95 * ref <= port <= 32 * ref
+
+
+def test_probe_keeps_no_score_tiles(runs):
+    """The same probe's peak temp bytes: flash attention's key-tile steps
+    run under checkpoint (the reference's ``jax.checkpoint(kv_step)``), so
+    the backward keeps no ``[cq, ck]`` score tile.  One layer's tiles at
+    this cell (this rank's 128 of the 256 rows, tinyllama's 32 heads,
+    8 x 4 tiles of 512 x 1,024 at 4,096 tokens) are 274.9 GB in fp32, and
+    a backward that keeps each tile's scores and probabilities needs more
+    than that."""
+    port, ref = runs["port"]["probe_temp_bytes"], runs["ref"]["probe_temp_bytes"]
+    print(f"probe temp bytes: port {port:.6e}, reference {ref:.6e}")
+    nq, nk, b, h, cq, ck = 4096 // 512, 4096 // 1024, 256 // 2, 32, 512, 1024
+    assert 0 < port < nq * nk * b * h * cq * ck * 4
 
 
 # ---------------------------------------------------------------------------

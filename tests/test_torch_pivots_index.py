@@ -146,6 +146,14 @@ def test_random_pivots_and_basis_identical():
                                   jpiv.orthonormal_pivot_basis(z))
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 7, 100, 4096])
+def test_suggest_bound_pivots_identical(n):
+    """The joint bound's table depth, 7d/8 clamped to n - 1 and to at
+    least 1, for every d of a grid that crosses both clamps."""
+    for d in (1, 2, 7, 8, 9, 64, 100, 2048):
+        assert tpiv.suggest_bound_pivots(n, d) == jpiv.suggest_bound_pivots(n, d), (n, d)
+
+
 # ---------------------------------------------------------------------------
 # index build and the bounds over it
 # ---------------------------------------------------------------------------
@@ -234,3 +242,15 @@ def test_search_brute_matches_reference(shared_index):
     s_t, i_t = tidx.search_brute(t, q, 7)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=1e-6)
     np.testing.assert_array_equal(np.sort(i_t.numpy(), 1), np.sort(np.asarray(i_j), 1))
+
+
+def test_removed_search_raises_type_error(shared_index):
+    """``core.index.search``, the pre-engine entry point, raises TypeError
+    as the reference's does, whatever it is given, and names the engine."""
+    db, j, t = shared_index
+    with pytest.raises(TypeError, match="repro.search.SearchEngine"):
+        jidx.search(j, db[:4], 5)
+    with pytest.raises(TypeError, match=r"repro_torch\.search\.SearchEngine"):
+        tidx.search(t, db[:4], 5)
+    with pytest.raises(TypeError, match="docs/search-api.md"):
+        tidx.search()

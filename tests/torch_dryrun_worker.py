@@ -10,7 +10,8 @@ its own: ``python tests/torch_dryrun_worker.py ref|port|pod workdir``.
 * ``port`` places the same cells with ``repro_torch.launch.dryrun
   .build_cell`` under ``FakeTensorMode`` at rank 0 of a fake world of 8
   ranks (no step runs: the argument bytes are the placed state's), runs
-  the probe's step (``lower_cell``) and writes ``port.json``.
+  the probe's step (``lower_cell``: its FLOPs and its peak
+  ``temp_bytes``) and writes ``port.json``.
 * ``pod`` runs ``run_cell(POD_CELL, "pod")`` at rank 0 of a fake world of
   256 ranks and writes ``pod.json``.
 
@@ -47,7 +48,9 @@ def ref(workdir: Path) -> None:
         out["argument_bytes"][f"{arch}:{shape}"] = rec["memory"]["argument_bytes"]
         out["keys"] = sorted(rec)
         out["memory_keys"] = sorted(rec["memory"])
-    out["probe_flops"] = dryrun.lower_cell(*PROBE, mesh, unrolled=True)["cost"]["flops"]
+    probe = dryrun.lower_cell(*PROBE, mesh, unrolled=True)
+    out["probe_flops"] = probe["cost"]["flops"]
+    out["probe_temp_bytes"] = probe["memory"]["temp_bytes"]
     (workdir / "ref.json").write_text(json.dumps(out))
 
 
@@ -68,7 +71,9 @@ def port(workdir: Path) -> None:
             with dryrun.cell_rules(shape, mesh), FakeTensorMode(allow_non_fake_inputs=True):
                 cell = dryrun.build_cell(arch, shape, mesh)
                 out["argument_bytes"][f"{arch}:{shape}"] = dryrun.argument_bytes(cell)
-        out["probe_flops"] = dryrun.lower_cell(*PROBE, mesh, unrolled=True)["cost"]["flops"]
+        probe = dryrun.lower_cell(*PROBE, mesh, unrolled=True)
+        out["probe_flops"] = probe["cost"]["flops"]
+        out["probe_temp_bytes"] = probe["memory"]["temp_bytes"]
     finally:
         dist.destroy_process_group()
     (workdir / "port.json").write_text(json.dumps(out))
