@@ -189,10 +189,20 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    within 1e-5; c. b's parameters checkpointed and restored with
    restore(shardings=) onto remesh([0]), every leaf a DTensor there, bit
    for bit; d. one sharded search over ("pod", "data") of the (1, 1, 1)
-   mesh equal to a brute force.  The training path launches no kernel
-   (counted: 0); d launches pruned_topk and block_bounds_select once per
-   shard.  It prints ms a step beside phase 14's and the host path's,
-   peak GB, and the card's name and power limit.
+   mesh equal to a brute force; e. the "model" split of the mesh train
+   step (placement.model_split), which a one-rank mesh cannot show:
+   tinyllama-1.1b's first block at full width, B = 8, S = 1,024, its
+   attention and its GLU MLP computed as every share r = 0..tp-1 for tp in
+   2, 4, 16 through the same split code with no collective (group None),
+   in bf16 and fp32 activations; the shares' outputs, input gradients and
+   parameter gradients summed against the whole layer within 3e-2 (bf16)
+   and 1e-4 (fp32) of each tensor's largest magnitude, and each share's
+   FLOPs (FlopCounterMode) printed beside the whole's, at most the whole's
+   / tp plus the K/V projection where the KV heads stay whole.  The
+   training path launches no kernel (counted: 0); d launches pruned_topk
+   and block_bounds_select once per shard.  It prints ms a step beside
+   phase 14's and the host path's, peak GB, and the card's name and power
+   limit.
 
 17. a. (run after phase 5, while phase 3's index is held) pruned_topk over
    a bf16 db: phase 3's clustered-64 index with its db cast to bf16, its
@@ -3537,6 +3547,14 @@ MESH_ARCH, MESH_MOE_ARCH = "tinyllama-1.1b", "granite-moe-1b-a400m"
 MESH_STEPS, MESH_BATCH, MESH_SEQ, MESH_LOSS_RTOL = 5, 8, 1024, 1e-5
 MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 1024
 MESH_SEARCH = dict(n=200_000, d=64, m=1_000, k=10, centers=64, noise=0.05, shards=4)
+#: phase 16e: MESH_ARCH's first block at full width, its attention and its
+#: MLP computed as each share of "model" for each tp in MESH_SPLIT_TPS at
+#: B = MESH_BATCH, S = MESH_SEQ; the shares' sums against the whole layer
+#: within MESH_SPLIT_RTOL of each tensor's largest magnitude, by activation
+#: dtype (bf16: each share's output and gradients are rounded to bf16 apart
+#: before the sum, a few bf16 steps; fp32: the sums' order)
+MESH_SPLIT_TPS = (2, 4, 16)
+MESH_SPLIT_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
 
 
 def leaf_placements(model):
@@ -3571,6 +3589,107 @@ def mesh_host_steps(fns, cfg, seed, batches, dev, schedule_fn):
     return losses, ms, params
 
 
+def split_shares(layer, fn, x, dy, parts):
+    """``fn`` (a layer's ``x -> y``) forward and backward against ``dy``
+    once per share in ``parts`` (``(r, tp, None)`` under
+    ``placement.model_split``, None for the whole layer): (the outputs
+    summed, the input's gradient summed, each parameter's gradient summed,
+    the FLOPs of each share, forward and backward)."""
+    import contextlib
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import placement
+
+    for w in layer.parameters():
+        w.grad = None
+    xg = x.detach().clone().requires_grad_(True)
+    total, flops = None, []
+    for part in parts:
+        split = placement.model_split(part=part) if part else contextlib.nullcontext()
+        with FlopCounterMode(display=False) as fc, split:
+            y = fn(xg)
+            torch.sum(y * dy).backward()
+        flops.append(fc.get_total_flops())
+        total = y.detach().float() if total is None else total + y.detach().float()
+    grads = {n: w.grad.detach().clone() for n, w in layer.named_parameters()}
+    for w in layer.parameters():
+        w.grad = None
+    return total, xg.grad.float(), grads, flops
+
+
+def phase_split(seed, card):
+    """Phase 16e: MESH_ARCH's first block at full width, its attention and
+    its GLU MLP computed as every share of "model" through
+    ``placement.model_split(part=(r, tp, None))`` (the train step's split
+    code, one share at a time, no collective) for each tp of
+    MESH_SPLIT_TPS, in bf16 activations (the model's) and fp32: the sum of
+    the shares' outputs, input gradients and parameter gradients against
+    the whole layer's within MESH_SPLIT_RTOL, and each share's FLOPs
+    (``FlopCounterMode``, forward and backward) beside the whole's: at most
+    the whole's / tp plus the K/V projection where the KV heads stay whole
+    (tp = 16: 4 KV heads)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.models.layers import attn_apply, mlp_apply, norm_apply, tp_plan
+
+    t0 = time.perf_counter()
+    tag = "[mesh]"
+    dev = torch.device("cuda")
+    base = ARCHS[MESH_ARCH]
+    gen = torch.Generator(dev).manual_seed(seed)
+    B, S, D = MESH_BATCH, MESH_SEQ, base.d_model
+    out = {"arch": base.name, "batch": [B, S], "card": card, "dtypes": {}}
+    for dtype, rtol in MESH_SPLIT_RTOL.items():
+        cfg = base.replace(dtype=dtype)
+        block = lm.Block("attn", cfg, gen).requires_grad_(True)
+        x = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
+        dy = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
+        layers_ = {"attn": (block.attn, lambda h: attn_apply(block.attn, h, cfg)[0],
+                            norm_apply(block.ln1, x, cfg)),
+                   "mlp": (block.mlp, lambda h: mlp_apply(block.mlp, h, cfg),
+                           norm_apply(block.ln2, x, cfg))}
+        rec = out["dtypes"][dtype] = {"rtol": rtol}
+        for name, (layer, fn, h) in layers_.items():
+            h = h.detach()
+            want_y, want_dx, want_g, (whole,) = split_shares(layer, fn, h, dy, [None])
+            for tp in MESH_SPLIT_TPS:
+                got_y, got_dx, got_g, flops = split_shares(
+                    layer, fn, h, dy, [(r, tp, None) for r in range(tp)])
+                pairs = [("y", got_y, want_y), ("dx", got_dx, want_dx)]
+                pairs += [(f"d{n}", got_g[n], want_g[n]) for n in want_g]
+                rels = {k: float((a.float() - b.float()).abs().max())
+                        / max(float(b.float().abs().max()), 1e-30) for k, a, b in pairs}
+                worst = max(rels, key=rels.get)
+                plan = tp_plan(cfg, tp)
+                kv_flops = (0 if name == "mlp" or plan["kv_heads"] else
+                            3 * 2 * 2 * B * S * D * cfg.n_kv_heads * cfg.head_dim)
+                rec[f"{name}|tp{tp}"] = r = {
+                    "plan": plan, "max_rel": rels[worst], "worst": worst, "rels": rels,
+                    "flops_whole": whole, "flops_shares": flops,
+                    "flops_bound": whole / tp + kv_flops}
+                what = (f"{'split' if plan['heads'] else 'whole'} query heads, "
+                        f"{'split' if plan['kv_heads'] else 'whole'} KV heads" if name == "attn"
+                        else f"{'split' if plan['ffn'] else 'whole'} ffn columns")
+                log(f"{tag} e. {cfg.name} block 0 {name}, {dtype} activations, B = {B}, "
+                    f"S = {S}, tp = {tp} ({what}): the {tp} shares summed "
+                    f"against the whole layer, largest |diff| / max {r['max_rel']:.3e} ({worst}; "
+                    f"tolerance {rtol:.0e}); FLOPs a share {min(flops):.4e}-{max(flops):.4e} "
+                    f"against the whole's {whole:.4e} (ratio {max(flops) / whole:.4f}, "
+                    f"1/tp {1 / tp:.4f}); {card}")
+                check(r["max_rel"] <= rtol,
+                      f"{tag} e. {name} tp = {tp} {dtype}: the shares' sum differs from the "
+                      f"whole ({worst} {r['max_rel']:.3e})")
+                check(0 < max(flops) <= r["flops_bound"],
+                      f"{tag} e. {name} tp = {tp}: a share's FLOPs {max(flops):.4e} pass "
+                      f"{r['flops_bound']:.4e}")
+        del block, x, dy, layers_
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{tag} e. {out['seconds']:.1f} s")
+    return out
+
+
 def phase_mesh_train(seed, card, kernels, host_ms):
     """Phase 16: training on a (data, model) mesh, on one card.
 
@@ -3595,9 +3714,12 @@ def phase_mesh_train(seed, card, kernels, host_ms):
        param_shardings: every leaf a DTensor there, equal bit for bit;
     d. one sharded search over ("pod", "data") of the (1, 1, 1) mesh
        ("model" replicated) at MESH_SEARCH: every answer equal to a brute
-       force on the card.
+       force on the card;
+    e. the "model" split of attention and the MLP, share by share
+       (:func:`phase_split`).
 
-    The training path (a-c) launches no kernel: the counts are zeroed
+    On the one-rank meshes of a-c "model" has one rank, so nothing splits.
+    The training path (a-c, e) launches no kernel: the counts are zeroed
     before it and must read 0 after; d launches per call one pruned_topk
     and one block_bounds_select per shard.  ``host_ms`` is phase 14's ms a
     step, printed beside a's."""
@@ -3786,6 +3908,9 @@ def phase_mesh_train(seed, card, kernels, host_ms):
         del got, want, target
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
+
+        # e. attention and the MLP per share of "model", one share at a time
+        out["split"] = phase_split(seed + 5, card)
         launches_train = tally.counts()
         check(all(v == 0 for v in launches_train.values()),
               f"{tag} the training path launched a kernel: {launches_train}")

@@ -17,23 +17,40 @@ The design:
   ``torch.utils.checkpoint`` when remat is on, so the backward pass
   gathers them again, as GSPMD does.  The gather is all-gathers over the
   mesh dims the parameter is sharded on (FSDP's data axes and the model
-  axis alike): every layer but the MoE experts computes whole on each rank
-  of a ``"model"`` group (attention's ``dh`` split and the vocabulary
-  split are gathered, not contracted locally).  The MoE keeps its experts'
+  axis alike).
+* **Compute split over ``"model"``.**  The train step runs in
+  :func:`model_split`: attention (its cache-free path) computes this
+  rank's share of the query heads and the GLU MLP its share of the ffn
+  columns, as the reference's activation shardings (``"heads"``,
+  ``"kv_heads"``, ``"ffn"`` on ``"model"``) make GSPMD do; K/V are this
+  rank's KV heads where ``"model"`` divides them, whole otherwise; a dim
+  ``"model"`` does not divide is computed whole (the reference's
+  ``sanitize``).  The split layer's input goes through
+  :func:`copy_to_group` and its output through :func:`all_reduce_sum`
+  (Megatron's ``f`` and ``g``); it takes its share's columns of the
+  gathered weights and marks them (:func:`sum_over_model`).  The
+  embedding, the head, the norms, the rwkv6 and SSD layers compute whole
+  on each rank of a ``"model"`` group.  The MoE keeps its experts'
   ``d_ff`` split over ``"model"`` and reduces with :func:`all_reduce_sum`
-  (:func:`repro_torch.models.moe._moe_sharded`).
+  (:func:`repro_torch.models.moe._moe_sharded`).  The decode step runs in
+  :func:`head_split`, where attention reads K/V that already hold this
+  rank's KV heads.
 * **Gradients.**  The batch is split over the data axes
   (:func:`batch_split`); each rank's backward gives the gradient of its own
   rows.  The gather's backward turns it into the parameter's placement: a
-  sum over the axes the batch is split on (reduce-scatter where the
-  parameter is sharded on that axis, all-reduce where it is replicated),
-  and on the other axes the rank's own slice.  The loss is the global
-  batch's (:func:`batch_sum` of the token sums: all-reduce forward,
+  sum over the axes the batch is split on, and over ``"model"`` for a
+  weight marked by :func:`sum_over_model` (each rank's gradient then holds
+  only its own heads' or columns' part): a reduce-scatter where the
+  parameter is sharded on that axis, an all-reduce where it is
+  replicated; on the other axes the rank's own slice.  The loss is the
+  global batch's (:func:`batch_sum` of the token sums: all-reduce forward,
   identity backward, Megatron's ``g``), so the summed gradients are the
   global batch's.
 
 Without a placed model none of this runs: :func:`gathered_call` calls the
-function directly and :func:`batch_sum` is the identity.
+function directly and :func:`batch_sum` is the identity.  Inside
+:func:`model_split` with a part whose group is None, one process computes
+one share alone, with no collective.
 """
 from __future__ import annotations
 
@@ -44,9 +61,12 @@ import torch.distributed as dist
 from torch import Tensor, nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
+from repro_torch.dist import sharding as shd
+
 __all__ = ["is_dtensor", "local", "like", "mesh_of", "local_device", "dp_axes", "axes_group",
-           "batch_split", "split_axes", "head_split", "head_part", "place_module",
-           "distribute", "gather", "gathered", "gathered_call",
+           "batch_split", "split_axes", "head_split", "head_part", "model_split",
+           "model_part", "sum_over_model", "place_module", "distribute", "gather",
+           "gathered", "gathered_call",
            "all_reduce_sum", "copy_to_group", "batch_sum", "sum_over_shards",
            "describe"]
 
@@ -132,6 +152,16 @@ def split_axes() -> tuple[str, ...]:
     return _SPLIT[1]
 
 
+def _model_part(mesh) -> tuple:
+    """``(this rank's index on "model", the axis size, its group or None
+    for one rank)`` on ``mesh``; ``(0, 1, None)`` without a ``"model"``
+    axis."""
+    if "model" not in mesh.mesh_dim_names:
+        return (0, 1, None)
+    return (mesh.get_local_rank("model"), mesh.size(mesh.mesh_dim_names.index("model")),
+            axes_group(mesh, ("model",)))
+
+
 _HEADS: tuple | None = None
 
 
@@ -145,12 +175,7 @@ def head_split(mesh):
     its output (:func:`~repro_torch.models.layers.attn_apply`).  The mesh
     decode step runs in it; K/V that hold every head compute whole."""
     global _HEADS
-    if "model" in mesh.mesh_dim_names:
-        part = (mesh.get_local_rank("model"), mesh.size(mesh.mesh_dim_names.index("model")),
-                axes_group(mesh, ("model",)))
-    else:
-        part = (0, 1, None)
-    old, _HEADS = _HEADS, part
+    old, _HEADS = _HEADS, _model_part(mesh)
     try:
         yield
     finally:
@@ -161,6 +186,39 @@ def head_part() -> tuple | None:
     """``(this rank's index on "model", the axis size, its group or None
     for one rank)`` inside :func:`head_split`, None outside it."""
     return _HEADS
+
+
+_MODEL: tuple | None = None
+
+
+@contextlib.contextmanager
+def model_split(mesh=None, *, part: tuple | None = None):
+    """Within the block, attention's cache-free path and the GLU MLP
+    compute this rank's share over ``"model"`` (see the module's
+    docstring; :func:`~repro_torch.models.layers.tp_plan` says what
+    splits).  ``mesh``: the share is this rank's on the mesh's
+    ``"model"`` axis, its collectives over that axis; where the rules
+    (:mod:`~repro_torch.dist.sharding`) map ``"heads"`` to no axis (the
+    reference's ``pure_dp``) nothing splits.  ``part``: ``(share, count,
+    group)`` given outright; a group of None computes that share alone,
+    with no collective, so one process can compute each share in turn.
+    The mesh train step runs its forward and backward in it."""
+    global _MODEL
+    if part is None:
+        part = _model_part(mesh)
+        if shd.active() and shd.rule("heads") != "model":
+            part = (0, 1, None)
+    old, _MODEL = _MODEL, tuple(part)
+    try:
+        yield
+    finally:
+        _MODEL = old
+
+
+def model_part() -> tuple | None:
+    """``(this rank's share, the share count, the group or None)`` inside
+    :func:`model_split` with more than one share, None otherwise."""
+    return _MODEL if _MODEL is not None and _MODEL[1] > 1 else None
 
 
 # ---------------------------------------------------------------------------
@@ -192,22 +250,26 @@ def place_module(module: nn.Module, shardings: dict) -> nn.Module:
 
 class _Gather(torch.autograd.Function):
     """Local part -> the tensor placed as ``target`` (forward); the
-    gradient of that, placed as ``grad``, -> the parameter's placement
-    (backward)."""
+    gradient of that, placed as ``grad`` (and ``Partial`` on ``"model"``
+    where ``marked[0]`` was set after the forward, :func:`sum_over_model`),
+    -> the parameter's placement (backward)."""
 
     @staticmethod
-    def forward(ctx, part, mesh, placed, target, grad, shape, stride):
-        ctx.args = mesh, placed, grad, shape, stride
+    def forward(ctx, part, mesh, placed, target, grad, shape, stride, marked):
+        ctx.args = mesh, placed, grad, shape, stride, marked
         full = DTensor.from_local(part, mesh, placed, run_check=False, shape=shape,
                                   stride=stride).redistribute(mesh, target).to_local()
         return full.view_as(full) if full is part else full
 
     @staticmethod
     def backward(ctx, g):
-        mesh, placed, grad, shape, stride = ctx.args
+        mesh, placed, grad, shape, stride, marked = ctx.args
+        if marked[0]:
+            at = mesh.mesh_dim_names.index("model")
+            grad = grad[:at] + (Partial(),) + grad[at + 1:]
         out = DTensor.from_local(g.contiguous(), mesh, grad, run_check=False, shape=shape,
                                  stride=stride).redistribute(mesh, placed).to_local()
-        return out, None, None, None, None, None, None
+        return out, None, None, None, None, None, None, None
 
 
 def gather(p, keep: tuple = ()):
@@ -215,7 +277,8 @@ def gather(p, keep: tuple = ()):
     whole, except on the mesh axes in ``keep``, which stay split.  A plain
     tensor is returned as it is.  Differentiable: the gradient reaching
     ``p`` is summed over the axes the batch is split on
-    (:func:`batch_split`) and placed as ``p``."""
+    (:func:`batch_split`), and over ``"model"`` once the tensor is marked
+    by :func:`sum_over_model`, and placed as ``p``."""
     if not is_dtensor(p):
         return p
     mesh, placed = p.device_mesh, p.placements
@@ -230,8 +293,25 @@ def gather(p, keep: tuple = ()):
             grad.append(Partial())
         else:
             grad.append(pl)
-    return _Gather.apply(p.to_local(), mesh, placed, target, tuple(grad), p.shape,
-                         p.stride())
+    marked = [False]
+    out = _Gather.apply(p.to_local(), mesh, placed, target, tuple(grad), p.shape,
+                        p.stride(), marked)
+    if "model" in names and isinstance(target[names.index("model")], Replicate):
+        out._sum_over_model = marked
+    return out
+
+
+def sum_over_model(w: Tensor) -> Tensor:
+    """``w``, a gathered parameter that this rank's share of a computation
+    split over ``"model"`` uses (:func:`model_split`): the gather's
+    backward sums its gradient over ``"model"`` too, since each rank's
+    holds only its share's part (a reduce-scatter where the parameter is
+    sharded on ``"model"``, an all-reduce where it is replicated).  A
+    plain tensor (or None) is returned as it is.  Returns ``w``."""
+    marked = getattr(w, "_sum_over_model", None)
+    if marked is not None:
+        marked[0] = True
+    return w
 
 
 @contextlib.contextmanager

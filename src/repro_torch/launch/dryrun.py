@@ -34,7 +34,9 @@ module that ships with torch.
 
 The steps are the reference's:
 
-* **train**: the loss's gradient (``make_loss_fn``, ``REPRO_CAST_BF16``),
+* **train**: the loss's gradient (``make_loss_fn``, ``REPRO_CAST_BF16``)
+  under the mesh train step's ``"model"`` split (attention's heads and the
+  GLU MLP's ffn columns per rank, :func:`~repro_torch.dist.placement.model_split`),
   optionally cast to bf16 (``REPRO_BF16_GRAD_REDUCE``; the port reduces
   inside the backward, so the cast lands after the reduce and changes
   only the moment's input), then one fp32 moment ``0.9 m + g`` and
@@ -539,7 +541,8 @@ def _train_step(model, cfg, fns, batch, moments, mesh, axes):
     bf16_grads = _flag("REPRO_BF16_GRAD_REDUCE")
 
     def step():
-        with placement.batch_split(mesh, axes), placement.gathered(model):
+        with placement.batch_split(mesh, axes), placement.model_split(mesh), \
+                placement.gathered(model):
             loss, _ = loss_fn(model, batch)
             loss.backward()
         with torch.no_grad():

@@ -16,7 +16,12 @@ head whatever the sequence length, causal and sliding-window masks are
 applied per tile, and the softmax statistics are fp32.  It is pure JAX in
 the reference, not a Pallas kernel.  The reference's ``shd.shard``
 annotations stand where it has them; they are the identity on the local
-tensors the port computes on (:mod:`repro_torch.dist.sharding`).
+tensors the port computes on (:mod:`repro_torch.dist.sharding`).  What
+they make GSPMD split over ``"model"`` the port computes per rank inside
+:func:`placement.model_split <repro_torch.dist.placement.model_split>`:
+attention's query heads and KV heads and the MLP's ffn columns, where
+:func:`tp_plan` (the reference's ``sanitize`` of those annotations) splits
+them.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["checkpointed", "dense_init", "Norm", "norm_init", "norm_apply", "rope_freqs",
            "rope_apply", "Attention", "attn_init", "flash_attention", "attn_apply", "MLP",
-           "mlp_init", "mlp_apply"]
+           "mlp_init", "mlp_apply", "tp_plan"]
 
 
 def _param(t: Tensor) -> nn.Parameter:
@@ -304,10 +309,20 @@ def attn_apply(
     heads, the output projection over their rows of ``wo``, summed over
     ``"model"`` (Megatron's ``f`` and ``g``).  K/V that hold every head
     compute whole.
+
+    Inside :func:`placement.model_split
+    <repro_torch.dist.placement.model_split>` the cache-free self-attention
+    computes this rank's share of the query heads where :func:`tp_plan`
+    splits them (:func:`_attn_share`); otherwise it computes whole.
     """
     B, S, D = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     inv_freq = rope_freqs(cfg, device=x.device)
+    share = placement.model_part() if cache is None and kv_override is None else None
+    if share is not None and tp_plan(cfg, share[1])["heads"]:
+        if positions is None:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        return _attn_share(p, x, cfg, positions, causal, inv_freq, share), cache
     split = placement.head_part()
     if split is not None:
         held = (cache["k"].shape[2] * split[1] == kv * cfg.kv_repeat if cache is not None
@@ -403,6 +418,95 @@ def attn_apply(
     return y, cache
 
 
+def tp_plan(cfg: ModelConfig, tp: int, d_ff: int | None = None) -> dict:
+    """What splits over ``tp`` ranks of ``"model"`` (the reference's
+    ``sanitize`` of its ``"heads"``, ``"kv_heads"`` and ``"ffn"``
+    annotations: a dim ``tp`` divides splits, any other is whole):
+    ``heads`` the padded query heads (``kv · q_group_pad``, or
+    ``n_heads``), ``kv_heads`` the repeated KV heads (``kv · kv_repeat``),
+    ``ffn`` the MLP's ``d_ff`` columns (``d_ff`` if given, else
+    ``cfg.d_ff``).  Where the query heads stay whole the attention computes
+    whole; KV heads that split while the query heads do not have no such
+    layout, and raise."""
+    kv = cfg.n_kv_heads
+    g = cfg.n_heads // kv
+    heads = kv * max(cfg.q_group_pad or g, g)
+    plan = {"heads": tp > 1 and heads % tp == 0,
+            "kv_heads": tp > 1 and (kv * cfg.kv_repeat) % tp == 0,
+            "ffn": tp > 1 and (d_ff or cfg.d_ff) % tp == 0}
+    if plan["kv_heads"] and not plan["heads"]:
+        raise ValueError(f"{kv * cfg.kv_repeat} KV heads split over {tp} ranks, "
+                         f"{heads} query heads do not")
+    return plan
+
+
+def _attn_share(p: Attention, x: Tensor, cfg: ModelConfig, positions: Tensor,
+                causal: bool, inv_freq: Tensor, share: tuple) -> Tensor:
+    """This share's part of the cache-free self-attention over ``"model"``
+    (``share = (r, tp, group)``), summed over the group: the query heads
+    ``[r·hq, (r+1)·hq)`` of the padded order (``hq`` = padded heads / tp)
+    from their own columns of ``wq`` (a padding head is a zero query), the
+    K/V of their KV heads from those heads' columns of ``wk``/``wv`` where
+    :func:`tp_plan` splits the KV heads, else whole and then the heads the
+    share's queries read; the output projection over the share's rows of
+    ``wo`` (:func:`_head_split_out`).  Each weight the share takes columns
+    of is marked :func:`placement.sum_over_model
+    <repro_torch.dist.placement.sum_over_model>`."""
+    r, tp, group = share
+    B, S, D = x.shape
+    h, kv, dh, rep = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.kv_repeat
+    g_orig = h // kv
+    g_pad = max(cfg.q_group_pad or g_orig, g_orig)
+    hq = kv * g_pad // tp
+    ids = range(r * hq, (r + 1) * hq)                      # padded query heads
+    real = [(i // g_pad) * g_orig + i % g_pad for i in ids if i % g_pad < g_orig]
+    x = placement.copy_to_group(x, group)
+    for w in (p.wq, p.wk, p.wv, p.wo, p.bq, p.bk, p.bv):
+        placement.sum_over_model(w)
+
+    def project(w, b, heads):
+        idx = (slice(heads[0], heads[-1] + 1) if heads == list(range(heads[0], heads[-1] + 1))
+               else heads)
+        y = (x @ w[:, idx].to(x.dtype).reshape(D, len(heads) * dh)).view(B, S, len(heads), dh)
+        return y if b is None else y + b[idx].to(x.dtype)
+
+    if not real:                                          # a share of padding heads
+        q = x.new_zeros(B, S, hq, dh)
+    elif len(real) < hq:
+        slots = torch.tensor([i - r * hq for i in ids if i % g_pad < g_orig],
+                             dtype=torch.long, device=x.device)
+        q = x.new_zeros(B, S, hq, dh).index_copy(
+            2, slots, rope_apply(project(p.wq, p.bq, real), positions, inv_freq))
+    else:
+        q = rope_apply(project(p.wq, p.bq, real), positions, inv_freq)
+
+    n_kv = kv * rep                                        # repeated KV heads
+    if tp_plan(cfg, tp)["kv_heads"]:
+        hk = n_kv // tp
+        lo, hi = r * hk // rep, ((r + 1) * hk - 1) // rep + 1   # their own heads
+        base = r * hk
+    else:
+        hk, lo, hi, base = n_kv, 0, kv, 0
+    kx = rope_apply(project(p.wk, p.bk, list(range(lo, hi))), positions, inv_freq)
+    vx = project(p.wv, p.bv, list(range(lo, hi)))
+    if rep > 1:
+        kx = kx.repeat_interleave(rep, dim=2)[:, :, base - lo * rep:base - lo * rep + hk]
+        vx = vx.repeat_interleave(rep, dim=2)[:, :, base - lo * rep:base - lo * rep + hk]
+    # the KV head each of the share's queries reads (the whole layer's query
+    # head i reads repeated KV head i // G), as an index into kx
+    G = kv * g_pad // n_kv
+    reads = [i // G - base for i in ids]
+    n = reads[-1] - reads[0] + 1
+    if hq % n == 0 and reads == [reads[0] + j // (hq // n) for j in range(hq)]:
+        kx, vx = kx[:, :, reads[0]:reads[0] + n], vx[:, :, reads[0]:reads[0] + n]
+    else:                                                  # one KV head per query
+        kx, vx = kx[:, :, reads], vx[:, :, reads]
+
+    out = flash_attention(q, kx, vx, causal=causal, window=cfg.sliding_window,
+                          chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+    return _head_split_out(p, out, share, g_orig, g_pad, x.dtype)
+
+
 def _head_split_out(p: Attention, out: Tensor, split: tuple, g_orig: int,
                     g_pad: int | None, dtype) -> Tensor:
     """The output projection of this rank's heads ``out [B, S, hq, dh]``
@@ -453,12 +557,30 @@ def mlp_init(gen: torch.Generator | None, cfg: ModelConfig, d_ff: int | None = N
 
 
 def mlp_apply(p: MLP, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """GELU is the tanh form, ``jax.nn.gelu``'s default."""
-    up = shd.shard(x @ p.w_up.to(x.dtype), "batch", None, "ffn")
+    """GELU is the tanh form, ``jax.nn.gelu``'s default.
+
+    Inside :func:`placement.model_split
+    <repro_torch.dist.placement.model_split>`, where :func:`tp_plan` splits
+    the ffn columns, this rank computes its ``d_ff / tp`` columns of
+    ``up`` (and ``gate``) and the matching rows of ``down``, summed over
+    the group (Megatron's ``f`` and ``g``)."""
+    share = placement.model_part()
+    f = p.w_up.shape[-1]
+    if share is not None and tp_plan(cfg, share[1], f)["ffn"]:
+        r, tp, group = share
+        cols = slice(r * f // tp, (r + 1) * f // tp)
+        x = placement.copy_to_group(x, group)
+        w_up, w_down = (placement.sum_over_model(p.w_up)[:, cols],
+                        placement.sum_over_model(p.w_down)[cols])
+        w_gate = None if p.w_gate is None else placement.sum_over_model(p.w_gate)[:, cols]
+    else:
+        group, w_up, w_gate, w_down = None, p.w_up, p.w_gate, p.w_down
+    up = shd.shard(x @ w_up.to(x.dtype), "batch", None, "ffn")
     if cfg.mlp_kind == "swiglu":
-        hidden = F.silu(x @ p.w_gate.to(x.dtype)) * up
+        hidden = F.silu(x @ w_gate.to(x.dtype)) * up
     elif cfg.mlp_kind == "geglu":
-        hidden = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh") * up
+        hidden = F.gelu(x @ w_gate.to(x.dtype), approximate="tanh") * up
     else:
         hidden = F.gelu(up, approximate="tanh")
-    return shd.shard(hidden @ p.w_down.to(x.dtype), "batch", None, "model_embed")
+    y = placement.all_reduce_sum(hidden @ w_down.to(x.dtype), group)
+    return shd.shard(y, "batch", None, "model_embed")

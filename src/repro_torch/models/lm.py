@@ -31,7 +31,11 @@ Departures from the reference, all of them execution, not arithmetic:
   :mod:`repro_torch.dist.placement`) each layer gathers its own
   parameters inside its checkpointed body (``gathered_call``); the
   embedding, the final norm and the head are gathered by the caller (the
-  train step's loss function).
+  train step's loss function).  Under the train step's
+  ``placement.model_split`` the attention and GLU MLP of every block
+  (``"attn"``, ``"moe"``'s attention, the shared block) compute this
+  rank's heads and ffn columns of ``"model"``; the embedding, the head,
+  the MoE's own split, the Mamba2 and RWKV layers are unchanged.
 * The cache is one entry per layer (:func:`lm_cache_init`), not one per
   run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
   written in place at ``cache_len``; the recurrent states (Mamba2's,

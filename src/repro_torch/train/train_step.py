@@ -14,10 +14,13 @@ On a mesh (:func:`place_state`: the parameters, moments and error feedback
 DTensors placed by ``launch.dryrun.param_shardings``) the same step runs
 the reference's partitioned program by hand
 (:mod:`repro_torch.dist.placement`): the batch is split over the data axes,
-each layer gathers its parameters, the loss is the global batch's
+each layer gathers its parameters, attention and the GLU MLP compute this
+rank's heads and ffn columns of the ``"model"`` axis
+(:func:`placement.model_split`), the loss is the global batch's
 token-weighted mean (an all-reduce of the token sums, not a mean of the
-ranks' means), and each gradient arrives summed over the data axes and
-placed as its parameter (reduce-scattered over its FSDP axes).
+ranks' means), and each gradient arrives summed over the data axes (and
+over ``"model"`` for the split layers' weights) and placed as its
+parameter (reduce-scattered over its FSDP axes).
 """
 from __future__ import annotations
 
@@ -122,10 +125,13 @@ def _local_batch(batch: dict, device):
 
 @contextlib.contextmanager
 def _on_mesh(params, mesh, axes):
-    """The batch split over ``axes``, and the model's top-level parameters
-    (embedding, final norm, head) gathered, for a forward and backward;
-    each layer gathers its own in the model's forward."""
-    with placement.batch_split(mesh, axes), placement.gathered(params):
+    """The batch split over ``axes``, attention's heads and the MLP's ffn
+    columns split over ``"model"`` (:func:`placement.model_split`), and
+    the model's top-level parameters (embedding, final norm, head)
+    gathered, for a forward and backward; each layer gathers its own in
+    the model's forward."""
+    with placement.batch_split(mesh, axes), placement.model_split(mesh), \
+            placement.gathered(params):
         yield
 
 

@@ -13,7 +13,12 @@ process, and its sharded MoE against the reference's.
   ``LOSS_RTOL``, the first step's gradients within ``GRAD_RTOL`` of each
   leaf's largest (the compressed ones within one quantizer step of their
   leaf, where a rounding near a half step may flip), the parameters after
-  three steps within ``PARAM_ATOL``.  The MoE's capacity comes from each
+  three steps within ``PARAM_ATOL``.  Attention and the GLU MLP compute
+  each rank's share of the query heads and ffn columns over ``"model"``
+  (``placement.model_split``): every parameter replicated over
+  ``"model"`` is bitwise equal across the ranks of a model group after the
+  steps, and ``flash_attention`` sees ``n_heads / tp`` query heads on each
+  rank.  The MoE's capacity comes from each
   rank's tokens and its aux loss is averaged over the data ranks (the
   reference's ``_moe_sharded``), so the one-process run applies the MoE
   to each data shard's rows of the batch apart (``split_moe``).
@@ -237,6 +242,44 @@ def test_mesh_train_matches_one_process(runs, one_process, mesh, arch, compress)
                                        rtol=0, err_msg=name)
         np.testing.assert_allclose(got[f"{tag}|param|{name}"], want["params"][name].numpy(),
                                    atol=PARAM_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_replicated_parameters_agree_across_each_model_group(runs, mesh):
+    """The gradients of the split layers' weights are summed over
+    ``"model"``, so a weight replicated over it (the dense MLP's, FSDP
+    only) stays bitwise equal on every rank of a model group."""
+    outs = runs[mesh]
+    groups: dict = {}
+    for rank, out in enumerate(outs):
+        groups.setdefault(tuple(out["model_group"].tolist()), []).append(rank)
+    assert sorted(len(g) for g in groups.values()) == [2, 2]
+    checked = 0
+    for ranks in groups.values():
+        first = outs[ranks[0]]
+        keys = [k for k in first if "|replicated|" in k]
+        assert any("|replicated|blocks.0.mlp.w_up" in k for k in keys)
+        for rank in ranks[1:]:
+            for k in keys:
+                np.testing.assert_array_equal(outs[rank][k], first[k], err_msg=k)
+                checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_attention_computes_its_share_of_the_heads(runs, mesh):
+    """On each rank flash attention sees ``n_heads / tp`` query heads
+    (tp = 2, the mesh's ``"model"``), on both attention archs: tinyllama's
+    one KV head stays whole (1 % 2), granite-moe's two split."""
+    tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
+    for arch in ARCHS:
+        cfg = smoke_config(arch)
+        for out in runs[mesh]:
+            for compress in (0, 1):
+                got = out[f"{arch}|{compress}|q_heads"].tolist()
+                want = [] if "attn" not in cfg.layer_types and "moe" not in cfg.layer_types \
+                    else [cfg.n_heads // tp]
+                assert got == want, (arch, got)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -1,0 +1,193 @@
+"""Attention and the GLU MLP computed per share of ``"model"``
+(``placement.model_split``), one process computing each share in turn
+(a part whose group is None: no collective).
+
+* The shares' outputs, summed, and their parameter and input gradients,
+  summed (the all-reduces of Megatron's ``g`` and ``f``, and the gather's
+  sum over ``"model"``, done by hand here), equal the whole layer's within
+  ``SUM_RTOL`` of each tensor's largest magnitude.  Smoke configs in
+  float64 (attention's tiles stay fp32, as in every dtype): tinyllama (one
+  KV head: whole at tp 2 and 4), granite-moe (two KV heads: split at 2,
+  whole at 4), qwen2.5 (qkv biases), whisper (non-causal, a GELU MLP), and
+  6 query heads over 2 KV heads padded to 4 a group (``q_group_pad``) with
+  the KV heads repeated, at tp 2, 4 and 8 (at 8 two shares hold only
+  padding).
+* Each share's FLOPs (``torch.utils.flop_counter``, forward and backward)
+  are at most the whole's / tp, plus, for attention, the K/V projection
+  where the KV heads stay whole; ``flash_attention`` sees ``n_heads / tp``
+  query heads.
+* The split choice (:func:`repro_torch.models.layers.tp_plan`: query
+  heads, KV heads, ffn columns split or whole) equals the reference's
+  ``sanitize`` of its activation annotations (``shd.shard(q, "batch",
+  None, "heads", None)``, ``kv_heads``, ``ffn``), read by tracing its
+  ``attn_apply`` and ``mlp_apply`` with ``jax.eval_shape`` at full size
+  under its rules on ``AbstractMesh``es, for every arch on the pod and
+  multipod meshes, at the arch's own config and at the train_4k cell's
+  (``launch.dryrun.prepare_cfg``: the KV heads repeated for ``"model"``).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh as JAbstractMesh  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+from repro.configs import ARCHS as J_ARCHS  # noqa: E402
+from repro.dist import sharding as j_shd  # noqa: E402
+from repro.models import layers as j_layers  # noqa: E402
+from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
+from repro_torch.dist import placement  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+SUM_RTOL = 1e-6
+B, S = 2, 24
+PAD = dict(n_heads=6, n_kv_heads=2, q_group_pad=4, kv_repeat=2, d_head=16)
+CASES = [("tinyllama-1.1b", {}, 2), ("tinyllama-1.1b", {}, 4),
+         ("granite-moe-1b-a400m", {}, 2), ("granite-moe-1b-a400m", {}, 4),
+         ("qwen2.5-14b", {}, 2), ("whisper-small", {}, 4),
+         ("tinyllama-1.1b", PAD, 2), ("tinyllama-1.1b", PAD, 4),
+         ("tinyllama-1.1b", dict(PAD, kv_repeat=4), 8)]
+MESHES = {"pod": ((16, 16), ("data", "model")),
+          "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def layer_and_fn(cfg, which):
+    """(the module, ``x -> y``) of a smoke attention or MLP, weights from a
+    seed (qkv biases drawn too, the init's are zero)."""
+    gen = torch.Generator().manual_seed(3)
+    if which == "mlp":
+        m = layers.MLP(cfg, gen).requires_grad_(True)
+        return m, lambda x: layers.mlp_apply(m, x, cfg)
+    m = layers.Attention(cfg, gen).requires_grad_(True)
+    if cfg.qkv_bias:
+        with torch.no_grad():
+            for b in (m.bq, m.bk, m.bv):
+                b.copy_(torch.randn(b.shape, generator=gen, dtype=b.dtype))
+    causal = cfg.name != "whisper-small"
+    return m, lambda x: layers.attn_apply(m, x, cfg, causal=causal)[0]
+
+
+def inputs(cfg, dtype):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model))).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model))).to(dtype)
+    return x, dy
+
+
+def grads(m, fn, x, dy, parts):
+    """(the output, the input's gradient, each parameter's gradient), each
+    summed over the shares ``parts`` (None: the whole layer)."""
+    for p in m.parameters():
+        p.grad = None
+    xg = x.clone().requires_grad_(True)
+    total = 0
+    for part in parts:
+        with placement.model_split(part=part) if part else contextlib.nullcontext():
+            y = fn(xg)
+        (y * dy).sum().backward()
+        total = total + y.detach()
+    return total, xg.grad, {n: p.grad.clone() for n, p in m.named_parameters()}
+
+
+@pytest.mark.parametrize("which", ["attn", "mlp"])
+@pytest.mark.parametrize("arch,over,tp", CASES,
+                         ids=[f"{a.split('-')[0]}{'-pad' if o else ''}{o.get('kv_repeat', '')}-tp{t}"
+                              for a, o, t in CASES])
+def test_shares_sum_to_the_whole_layer(arch, over, tp, which):
+    cfg = smoke_config(arch).replace(dtype="float64", **over)
+    m, fn = layer_and_fn(cfg, which)
+    x, dy = inputs(cfg, torch.float64)
+    want = grads(m, fn, x, dy, [None])
+    got = grads(m, fn, x, dy, [(r, tp, None) for r in range(tp)])
+    pairs = [("y", got[0], want[0]), ("dx", got[1], want[1])]
+    pairs += [(f"d{n}", got[2][n], want[2][n]) for n in want[2]]
+    for name, a, b in pairs:
+        top = float(b.abs().max())
+        assert top > 0, name
+        err = float((a - b).abs().max())
+        assert err <= SUM_RTOL * top, (name, err, top)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_share_flops_and_heads(tp, monkeypatch):
+    """tinyllama's smoke config (4 query heads, 1 KV head), float32."""
+    cfg = smoke_config("tinyllama-1.1b").replace(dtype="float32")
+    x, dy = inputs(cfg, torch.float32)
+    seen = []
+    flash = layers.flash_attention
+
+    def spy(q, *a, **kw):
+        seen.append(q.shape[2])
+        return flash(q, *a, **kw)
+
+    monkeypatch.setattr(layers, "flash_attention", spy)
+    d, kvd = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+    # K and V's projections, forward and both backward products
+    kv_flops = 3 * 2 * (2 * B * S * d * kvd)
+    for which, extra in (("attn", kv_flops), ("mlp", 0)):
+        m, fn = layer_and_fn(cfg, which)
+        counts = []
+        for part in (None, (0, tp, None), (tp - 1, tp, None)):
+            seen.clear()
+            with FlopCounterMode(display=False) as fc:
+                grads(m, fn, x, dy, [part])
+            counts.append(fc.get_total_flops())
+            if which == "attn":
+                assert set(seen) == {cfg.n_heads if part is None else cfg.n_heads // tp}
+        whole, *shares = counts
+        for share in shares:
+            assert 0 < share <= whole / tp + extra, (which, share, whole)
+        if which == "attn":
+            assert all(share < whole / 1.5 for share in shares)
+
+
+def reference_choice(cfg, mesh_name) -> dict:
+    """The reference's sanitized annotations of its attention and MLP at
+    ``cfg``: {logical name: whether "model" splits the dim}."""
+    jmesh = JAbstractMesh(*MESHES[mesh_name])
+    seen = {}
+
+    def record(x, *names):
+        spec = P(*[j_shd.rule(n) if n else None for n in names])
+        spec = tuple(j_shd.sanitize(spec, x.shape, jmesh)) + (None,) * len(names)
+        for i, n in enumerate(names):
+            if n in ("heads", "kv_heads", "ffn"):
+                seen.setdefault(n, set()).add(spec[i] == "model")
+        return x
+
+    key = jax.random.PRNGKey(0)
+    x = jax.ShapeDtypeStruct((512, 8, cfg.d_model), jnp.float32)
+    j_shd.set_rules(jmesh, j_shd.default_rules(fsdp=True, multi_pod=mesh_name == "multipod"))
+    shard, j_shd.shard = j_shd.shard, record
+    try:
+        pa = jax.eval_shape(lambda k: j_layers.attn_init(k, cfg), key)
+        jax.eval_shape(lambda p, x_: j_layers.attn_apply(p, x_, cfg)[0], pa, x)
+        pm = jax.eval_shape(lambda k: j_layers.mlp_init(k, cfg), key)
+        jax.eval_shape(lambda p, x_: j_layers.mlp_apply(p, x_, cfg), pm, x)
+    finally:
+        j_shd.shard = shard
+        j_shd.set_rules(None, None)
+    assert all(len(v) == 1 for v in seen.values()), seen
+    return {n: v.pop() for n, v in seen.items()}
+
+
+@pytest.mark.parametrize("variant", ["arch", "train_4k"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_split_choice_equals_the_reference_sanitize(arch, mesh, variant):
+    m = shd.AbstractMesh(*MESHES[mesh])
+    cfg = ARCHS[arch] if variant == "arch" else dryrun.prepare_cfg(arch, "train_4k", m)
+    jcfg = J_ARCHS[arch].replace(kv_repeat=cfg.kv_repeat, q_group_pad=cfg.q_group_pad)
+    want = reference_choice(jcfg, mesh)
+    got = layers.tp_plan(cfg, shd.mesh_shape(m)["model"])
+    assert got == want, (cfg.kv_repeat, cfg.q_group_pad)

@@ -14,7 +14,10 @@ gloo group through a file store in ``workdir``, lays a ``DeviceMesh``
   ``tokens_<i>`` / ``labels_<i>``, each rank's rows made a DTensor by
   ``make_process_local_array`` (the launcher's ``make_global``): the
   losses, the first step's gradients (as AdamW receives them) and the
-  parameters after the three steps, gathered whole;
+  parameters after the three steps, gathered whole; this rank's parts of
+  the parameters replicated over ``"model"``, its coordinates on the
+  other axes, and the query head counts that reached ``flash_attention``
+  (attention and the GLU MLP compute this rank's share of ``"model"``);
 * ``replicated``: one step of the MoE arch (``archs[1]``) on the plain
   batch ``odd_tokens`` / ``odd_labels``, whose rows the data axes do not
   divide: every rank takes the whole batch and the MoE the local path
@@ -70,11 +73,15 @@ def train_part(inp, out, mesh, rank):
     from repro_torch.dist import sharding as shd
     from repro_torch.dist.compat import make_process_local_array
     from repro_torch.launch.dryrun import param_shardings
-    from repro_torch.models import model_fns
+    from repro_torch.models import layers, model_fns
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import init_state, make_train_step, place_state
 
     multi = "pod" in mesh.mesh_dim_names
+    names = mesh.mesh_dim_names
+    at = names.index("model")
+    coord = mesh.get_coordinate()
+    out["model_group"] = np.asarray([c for i, c in enumerate(coord) if i != at])
     shd.set_rules(mesh, shd.default_rules(fsdp=True, multi_pod=multi))
     dp = placement.dp_axes(mesh)
     n_dp, pos = shard_layout(mesh, dp)
@@ -87,7 +94,13 @@ def train_part(inp, out, mesh, rank):
             captured.append({n: _full(g) for n, g in grads.items()})
         return update(grads, *a, **kw)
 
-    adamw.update = spy
+    flash, heads = layers.flash_attention, set()
+
+    def seen(q, *a, **kw):
+        heads.add(q.shape[2])
+        return flash(q, *a, **kw)
+
+    adamw.update, layers.flash_attention = spy, seen
     try:
         for arch in (str(a) for a in inp["archs"]):
             cfg = smoke_config(arch)
@@ -97,6 +110,7 @@ def train_part(inp, out, mesh, rank):
                 state = init_state(fns, ARCH_SEED, device="cpu", compress_grads=compress)
                 state = place_state(state, param_shardings(state["params"], mesh, cfg))
                 step = make_train_step(fns, cfg, compress_grads=compress)
+                heads.clear()
                 losses = []
                 for i in range(int(inp["steps"])):
                     b = {k: inp[f"{k}_{i}"] for k in ("tokens", "labels")}
@@ -112,6 +126,10 @@ def train_part(inp, out, mesh, rank):
                 out[f"{tag}|local"] = np.asarray(json.dumps(
                     {n: list(placement.local(p).shape)
                      for n, p in state["params"].named_parameters()}))
+                out[f"{tag}|q_heads"] = np.asarray(sorted(heads), dtype=np.int64)
+                for n, p in state["params"].named_parameters():
+                    if p.placements[at].is_replicate():
+                        out[f"{tag}|replicated|{n}"] = placement.local(p).detach().numpy().copy()
                 if rank == 0:
                     for n in params:
                         out[f"{tag}|grad|{n}"] = grads[n]
@@ -119,7 +137,7 @@ def train_part(inp, out, mesh, rank):
                 if arch == str(inp["archs"][0]) and not compress:
                     out["_dense_state"] = state
     finally:
-        adamw.update = update
+        adamw.update, layers.flash_attention = update, flash
         shd.set_rules(None, None)
 
 
