@@ -198,7 +198,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    parameter gradients summed against the whole layer within 3e-2 (bf16)
    and 1e-4 (fp32) of each tensor's largest magnitude, and each share's
    FLOPs (FlopCounterMode) printed beside the whole's, at most the whole's
-   / tp plus the K/V projection where the KV heads stay whole.  The
+   / tp plus the K/V projection where the KV heads stay whole; then its
+   head (V = 32,000, d = 2,048; its lm_head.w, and tied to the embedding's
+   table) as every share of the same tps: the shares' logits concatenated,
+   and the hidden and weight gradients of the vocab-parallel loss combined
+   by hand from the shares (the max, the sum of exps, the gold logit),
+   against the whole head's within the same 3e-2 / 1e-4, that loss against
+   chunked_ce on the whole logits within 1e-3 / 1e-5 relative, each share
+   V / tp columns wide and its FLOPs at most the whole head's / tp.  The
    training path launches no kernel (counted: 0); d launches pruned_topk
    and block_bounds_select once per shard.  It prints ms a step beside
    phase 14's and the host path's, peak GB, and the card's name and power
@@ -226,10 +233,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    which fit the card only because the backward recomputes each tile's
    body): the loss finite and within 1e-6 relative of a no_grad
    forward's on the same batch, its ms and peak GiB printed; no kernel
-   launches; c. run_cell for tinyllama-1.1b and granite-moe-1b-a400m x train_4k and
-   decode_32k, each on the pod and the multipod mesh at rank 0 of a fake
-   world of 256 and 512 ranks, every cell OK, with its memory per rank,
-   FLOPs and collective bytes by kind printed.  The fake runs of b and c
+   launches; c. run_cell for tinyllama-1.1b and granite-moe-1b-a400m x
+   train_4k and decode_32k, each on the pod and the multipod mesh at rank
+   0 of a fake world of 256 and 512 ranks (both steps under the "model"
+   split: train computes each rank's heads, ffn and vocab columns, decode
+   its ffn and vocab columns), every cell OK, with its memory per rank,
+   FLOPs and collective bytes by kind printed (a prefill_32k cell takes
+   13-48 min of host, past the script's time: the dry-run's sweep records
+   those).  The fake runs of b and c
    take minutes of host CPU and no card time: they start with the script,
    in processes of their own at a low priority (start_dryruns), and
    phase 17 waits for them; every process the script starts is ended
@@ -3555,6 +3566,14 @@ MESH_SEARCH = dict(n=200_000, d=64, m=1_000, k=10, centers=64, noise=0.05, shard
 #: before the sum, a few bf16 steps; fp32: the sums' order)
 MESH_SPLIT_TPS = (2, 4, 16)
 MESH_SPLIT_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
+#: phase 16e: MESH_ARCH's head (its own lm_head.w, then tied to the
+#: embedding) and the vocab-parallel loss at B = MESH_BATCH, S = MESH_SEQ
+#: over each tp of MESH_SPLIT_TPS: the shares' logits, hidden-state and
+#: weight gradients within MESH_SPLIT_RTOL of the whole head's largest
+#: magnitude; the loss combined by hand from the shares within this of
+#: chunked_ce's on the whole logits, relative (bf16: each share's logits
+#: are a GEMM of their own, rounded to bf16 apart; fp32: the sums' order)
+MESH_HEAD_LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-5}
 
 
 def leaf_placements(model):
@@ -3618,6 +3637,105 @@ def split_shares(layer, fn, x, dy, parts):
     return total, xg.grad.float(), grads, flops
 
 
+def head_loss_by_hand(params, h, labels, cfg, tp, z_weight=1e-4):
+    """The vocab-parallel cross-entropy of ``h [B, S, D]`` at ``labels``
+    over ``tp`` shares of the head, each computed alone
+    (``placement.model_split(part=(r, tp, None))``: its ``V / tp`` logit
+    columns, no collective) and the three reductions over the shares done
+    here by hand: the max of the shares' maxima (detached), the sum of
+    their sums of ``exp(logit - max)``, the gold logit from the share that
+    holds the label.  The mean nll plus ``z_weight`` times the mean lse²
+    (``chunked_ce``'s loss with no mask), differentiable in ``h`` and the
+    head's weight."""
+    from repro_torch.dist import placement
+    from repro_torch.models import lm
+
+    n = cfg.vocab // tp
+    logits = []
+    for r in range(tp):
+        with placement.model_split(part=(r, tp, None)):
+            logits.append(lm.lm_head_share(params, h, cfg, lm.head_weight(params, cfg)))
+    top = torch.stack([x.detach().amax(-1) for x in logits]).amax(0)
+    lse = top + torch.log(sum(torch.exp(x - top[..., None]).sum(-1) for x in logits))
+    gold = sum(torch.where((labels >= r * n) & (labels < (r + 1) * n),
+                           torch.gather(x, -1, (labels - r * n).clamp(0, n - 1)[..., None])[..., 0],
+                           0.0) for r, x in enumerate(logits))
+    return (lse - gold).mean() + z_weight * torch.square(lse).mean()
+
+
+def head_split_check(cfg, gen, tps):
+    """Phase 16e's head: ``cfg``'s head at full width (its ``lm_head.w``,
+    or the embedding's table where ``cfg.tie_embeddings``, drawn from
+    ``gen``) on B = MESH_BATCH, S = MESH_SEQ hidden states and labels: for
+    each tp, the shares' logits concatenated (``lm_head_apply`` under each
+    part) against the whole head's; the loss combined by hand
+    (:func:`head_loss_by_hand`) and its hidden-state and weight gradients
+    against ``chunked_ce`` on the whole logits; each share's FLOPs
+    (``lm_head_share``, forward and backward) against the whole's.
+    Returns {tp: record}."""
+    import contextlib
+    import types
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import placement
+    from repro_torch.models import lm
+    from repro_torch.models.layers import dense_init
+    from repro_torch.train.losses import chunked_ce
+
+    dev = gen.device
+    B, S, D, V = MESH_BATCH, MESH_SEQ, cfg.d_model, cfg.vocab
+    shape = (V, D) if cfg.tie_embeddings else (D, V)
+    w = dense_init(gen, shape, cfg.p_dtype).requires_grad_(True)
+    params = (types.SimpleNamespace(embed={"table": w}, lm_head=None) if cfg.tie_embeddings
+              else types.SimpleNamespace(embed={}, lm_head={"w": w}))
+    h = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
+    labels = torch.randint(0, V, (B, S), generator=gen, device=dev)
+
+    def grads(loss_fn):
+        w.grad = None
+        hg = h.detach().clone().requires_grad_(True)
+        loss = loss_fn(hg)
+        loss.backward()
+        return float(loss.detach()), hg.grad.float(), w.grad.float().clone()
+
+    def flops(part):
+        split = placement.model_split(part=part) if part else contextlib.nullcontext()
+        w.grad = None
+        with FlopCounterMode(display=False) as fc, split:
+            lm.lm_head_share(params, h.detach().clone().requires_grad_(True), cfg).sum().backward()
+        return fc.get_total_flops()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()),
+                                                                1e-30)
+
+    with torch.no_grad():
+        whole = lm.lm_head_apply(params, h, cfg)
+    want = grads(lambda x: chunked_ce(x, labels, lambda c: lm.lm_head_apply(params, c, cfg),
+                                      cfg)[0])
+    whole_flops = flops(None)
+    out = {}
+    for tp in tps:
+        with torch.no_grad():
+            shares = []
+            for r in range(tp):
+                with placement.model_split(part=(r, tp, None)):
+                    shares.append(lm.lm_head_apply(params, h, cfg))
+            cols = sorted({x.shape[-1] for x in shares})
+            logits_rel = rel(torch.cat(shares, -1), whole)
+            del shares
+        got = grads(lambda x: head_loss_by_hand(params, x, labels, cfg, tp))
+        share_flops = [flops((r, tp, None)) for r in range(tp)]
+        out[tp] = {"columns": cols, "logits_rel": logits_rel, "loss": got[0],
+                   "loss_whole": want[0], "loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+                   "dhidden_rel": rel(got[1], want[1]), "dweight_rel": rel(got[2], want[2]),
+                   "flops_whole": whole_flops, "flops_shares": share_flops}
+        torch.cuda.empty_cache()
+    del whole, want
+    return out
+
+
 def phase_split(seed, card):
     """Phase 16e: MESH_ARCH's first block at full width, its attention and
     its GLU MLP computed as every share of "model" through
@@ -3628,7 +3746,14 @@ def phase_split(seed, card):
     the whole layer's within MESH_SPLIT_RTOL, and each share's FLOPs
     (``FlopCounterMode``, forward and backward) beside the whole's: at most
     the whole's / tp plus the K/V projection where the KV heads stay whole
-    (tp = 16: 4 KV heads)."""
+    (tp = 16: 4 KV heads).  Then its head (V = 32,000, d = 2,048; its own
+    ``lm_head.w`` and tied to the embedding's table) as every share of the
+    same tps (:func:`head_split_check`): the shares' logits concatenated,
+    and the hidden-state and weight gradients of the loss combined by hand
+    from the shares, within MESH_SPLIT_RTOL of the whole head's; that loss
+    within MESH_HEAD_LOSS_RTOL (relative) of ``chunked_ce`` on the whole
+    logits; each share ``V / tp`` columns wide and its FLOPs at most the
+    whole head's / tp."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import lm
     from repro_torch.models.layers import attn_apply, mlp_apply, norm_apply, tp_plan
@@ -3685,6 +3810,33 @@ def phase_split(seed, card):
                       f"{r['flops_bound']:.4e}")
         del block, x, dy, layers_
         torch.cuda.empty_cache()
+        for tied in (False, True):
+            name = "head_tied" if tied else "head"
+            recs = head_split_check(cfg.replace(tie_embeddings=tied), gen, MESH_SPLIT_TPS)
+            for tp, r in recs.items():
+                rec[f"{name}|tp{tp}"] = r
+                worst = max(r["logits_rel"], r["dhidden_rel"], r["dweight_rel"])
+                log(f"{tag} e. {cfg.name} head ({'tied to the embedding' if tied else 'lm_head.w'}"
+                    f", V = {cfg.vocab}), {dtype} activations, B = {B}, S = {S}, tp = {tp}: "
+                    f"{r['columns']} columns a share; the shares' logits against the whole "
+                    f"head, largest |diff| / max {r['logits_rel']:.3e}, gradients of the loss "
+                    f"combined by hand against chunked_ce's: hidden {r['dhidden_rel']:.3e}, "
+                    f"weight {r['dweight_rel']:.3e} (tolerance {rtol:.0e}); loss "
+                    f"{r['loss']:.8f} against {r['loss_whole']:.8f}, relative "
+                    f"{r['loss_rel']:.3e} (tolerance {MESH_HEAD_LOSS_RTOL[dtype]:.0e}); FLOPs a "
+                    f"share {min(r['flops_shares']):.4e}-{max(r['flops_shares']):.4e} against "
+                    f"the whole's {r['flops_whole']:.4e} (ratio "
+                    f"{max(r['flops_shares']) / r['flops_whole']:.4f}); {card}")
+                check(r["columns"] == [cfg.vocab // tp],
+                      f"{tag} e. {name} tp = {tp}: shares of {r['columns']} columns")
+                check(worst <= rtol, f"{tag} e. {name} tp = {tp} {dtype}: the shares differ "
+                                     f"from the whole head ({r})")
+                check(r["loss_rel"] <= MESH_HEAD_LOSS_RTOL[dtype],
+                      f"{tag} e. {name} tp = {tp} {dtype}: loss {r['loss']} against "
+                      f"{r['loss_whole']}")
+                check(0 < max(r["flops_shares"]) <= r["flops_whole"] / tp,
+                      f"{tag} e. {name} tp = {tp}: a share's FLOPs {max(r['flops_shares'])} "
+                      f"pass {r['flops_whole'] / tp}")
     out["seconds"] = time.perf_counter() - t0
     log(f"{tag} e. {out['seconds']:.1f} s")
     return out

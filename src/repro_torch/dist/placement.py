@@ -28,13 +28,24 @@ The design:
   ``sanitize``).  The split layer's input goes through
   :func:`copy_to_group` and its output through :func:`all_reduce_sum`
   (Megatron's ``f`` and ``g``); it takes its share's columns of the
-  gathered weights and marks them (:func:`sum_over_model`).  The
-  embedding, the head, the norms, the rwkv6 and SSD layers compute whole
-  on each rank of a ``"model"`` group.  The MoE keeps its experts'
-  ``d_ff`` split over ``"model"`` and reduces with :func:`all_reduce_sum`
-  (:func:`repro_torch.models.moe._moe_sharded`).  The decode step runs in
+  gathered weights and marks them (:func:`sum_over_model`).  The head
+  computes this rank's ``V / tp`` logit columns (the ``"vocab"``
+  annotation, :func:`repro_torch.models.lm.vocab_part`): an untied
+  ``lm_head.w``'s columns, marked; the tied ``embed.table``'s rows through
+  :func:`take_share`, whose backward all-gathers their gradient over
+  ``"model"``, so the table's whole gradient (the lookup's, equal on every
+  rank, and the head's) is equal across a ``"model"`` group and the table
+  is left unmarked.  The loss consumes the share
+  (:func:`repro_torch.train.losses.chunked_ce`'s vocab-parallel chunks);
+  a step that returns logits gathers them (:func:`gather_shares`).  The
+  embedding lookup, the norms, the rwkv6 and SSD layers compute whole on
+  each rank of a ``"model"`` group.  The MoE keeps its experts' ``d_ff``
+  split over ``"model"`` and reduces with :func:`all_reduce_sum`
+  (:func:`repro_torch.models.moe._moe_sharded`).  The dry-run's prefill
+  step runs in :func:`model_split` too; its decode step runs in
   :func:`head_split`, where attention reads K/V that already hold this
-  rank's KV heads.
+  rank's KV heads, and in :func:`model_split`, where the MLP and the head
+  split.
 * **Gradients.**  The batch is split over the data axes
   (:func:`batch_split`); each rank's backward gives the gradient of its own
   rows.  The gather's backward turns it into the parameter's placement: a
@@ -67,7 +78,8 @@ __all__ = ["is_dtensor", "local", "like", "mesh_of", "local_device", "dp_axes", 
            "batch_split", "split_axes", "head_split", "head_part", "model_split",
            "model_part", "sum_over_model", "place_module", "distribute", "gather",
            "gathered", "gathered_call",
-           "all_reduce_sum", "copy_to_group", "batch_sum", "sum_over_shards",
+           "all_reduce_sum", "copy_to_group", "take_share", "gather_shares",
+           "batch_sum", "sum_over_shards",
            "describe"]
 
 
@@ -193,8 +205,8 @@ _MODEL: tuple | None = None
 
 @contextlib.contextmanager
 def model_split(mesh=None, *, part: tuple | None = None):
-    """Within the block, attention's cache-free path and the GLU MLP
-    compute this rank's share over ``"model"`` (see the module's
+    """Within the block, attention's cache-free path, the GLU MLP and the
+    head compute this rank's share over ``"model"`` (see the module's
     docstring; :func:`~repro_torch.models.layers.tp_plan` says what
     splits).  ``mesh``: the share is this rank's on the mesh's
     ``"model"`` axis, its collectives over that axis; where the rules
@@ -202,7 +214,8 @@ def model_split(mesh=None, *, part: tuple | None = None):
     reference's ``pure_dp``) nothing splits.  ``part``: ``(share, count,
     group)`` given outright; a group of None computes that share alone,
     with no collective, so one process can compute each share in turn.
-    The mesh train step runs its forward and backward in it."""
+    The mesh train step runs its forward and backward in it, the
+    dry-run's prefill and decode steps their forward."""
     global _MODEL
     if part is None:
         part = _model_part(mesh)
@@ -402,6 +415,69 @@ def copy_to_group(x: Tensor, group) -> Tensor:
     """``x`` (the same on every rank of ``group``) fed to a computation
     split over ``group``: its gradient is summed over the group."""
     return x if group is None else _CopyToGroup.apply(x, group)
+
+
+class _TakeShare(torch.autograd.Function):
+    """Share ``r`` of ``tp`` equal blocks of ``x`` along ``dim`` (forward);
+    the gradients of every rank's block all-gathered over the group into
+    one of ``x``'s shape (backward), zeros outside the block without a
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, dim, part):
+        r, tp, group = part
+        ctx.dim, ctx.part, ctx.shape = dim, part, x.shape
+        n = x.shape[dim] // tp
+        return x.narrow(dim, r * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        r, tp, group = ctx.part
+        if group is None:
+            whole = g.new_zeros(ctx.shape)
+            whole.narrow(ctx.dim, r * g.shape[ctx.dim], g.shape[ctx.dim]).copy_(g)
+            return whole, None, None
+        return _all_gather_cat(g, ctx.dim, tp, group), None, None
+
+
+class _GatherShares(torch.autograd.Function):
+    """Every rank's block all-gathered over the group along ``dim``
+    (forward); this rank's block of the gradient (backward: the whole
+    result feeds the same replicated computation on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, part):
+        r, tp, group = part
+        ctx.dim, ctx.r, ctx.n = dim, r, x.shape[dim]
+        return _all_gather_cat(x, dim, tp, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None
+
+
+def _all_gather_cat(x: Tensor, dim: int, tp: int, group) -> Tensor:
+    parts = [torch.empty_like(x) for _ in range(tp)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def take_share(x: Tensor, dim: int, part: tuple) -> Tensor:
+    """Share ``r`` of ``part = (r, tp, group)``: the ``r``-th of ``tp``
+    equal blocks of ``x`` (the same on every rank of ``group``) along
+    ``dim``.  Its gradient is every rank's block's gradient all-gathered
+    over the group, so ``x``'s whole gradient is equal across the group
+    and needs no sum over it (the tied embedding's rows the head takes,
+    beside the lookup's use of the whole table).  Without a group the
+    gradient holds the block's part alone."""
+    return _TakeShare.apply(x, dim, part)
+
+
+def gather_shares(x: Tensor, dim: int, part: tuple) -> Tensor:
+    """``x``, share ``r`` of ``part = (r, tp, group)``, all-gathered with
+    the other ranks' shares along ``dim`` (every rank holds the whole);
+    ``x`` itself without a group."""
+    return x if part[2] is None else _GatherShares.apply(x, dim, part)
 
 
 def batch_sum(x: Tensor) -> Tensor:

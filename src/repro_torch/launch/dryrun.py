@@ -35,23 +35,31 @@ module that ships with torch.
 The steps are the reference's:
 
 * **train**: the loss's gradient (``make_loss_fn``, ``REPRO_CAST_BF16``)
-  under the mesh train step's ``"model"`` split (attention's heads and the
-  GLU MLP's ffn columns per rank, :func:`~repro_torch.dist.placement.model_split`),
-  optionally cast to bf16 (``REPRO_BF16_GRAD_REDUCE``; the port reduces
-  inside the backward, so the cast lands after the reduce and changes
-  only the moment's input), then one fp32 moment ``0.9 m + g`` and
-  ``p - 1e-4 m``, on each rank's shards, in place (the reference donates
-  both).  The microbatch is the shape's batch cut by :data:`TRAIN_ACCUM`.
-* **prefill**: the forward, then ``lm_head`` of the last position.
+  under the mesh train step's ``"model"`` split
+  (:func:`~repro_torch.dist.placement.model_split`: attention's heads, the
+  GLU MLP's ffn columns and the head's vocab columns per rank, the loss
+  vocab-parallel), optionally cast to bf16 (``REPRO_BF16_GRAD_REDUCE``;
+  the port reduces inside the backward, so the cast lands after the
+  reduce and changes only the moment's input), then one fp32 moment
+  ``0.9 m + g`` and ``p - 1e-4 m``, on each rank's shards, in place (the
+  reference donates both).  The microbatch is the shape's batch cut by
+  :data:`TRAIN_ACCUM`.
+* **prefill**: the forward, then ``lm_head`` of the last position, under
+  the same ``"model"`` split (no gradient): attention's cache-free path
+  computes the rank's query heads, the GLU MLP its ffn columns, the head
+  its vocab columns.
 * **decode**: ``cache_init`` at the shape's seq and batch, placed by
   :func:`cache_shardings`, then one ``decode_step`` and ``lm_head``.
   Attention runs on the rank's own cache shard: its batch rows on the
   data axes and its KV heads on ``"model"``
   (:func:`~repro_torch.dist.placement.head_split`); the cache is never
-  gathered whole.  A recurrent state (Mamba2's, RWKV's) placed with its
-  heads on ``"model"`` is gathered over ``"model"`` for the step and its
-  new value cut back to the rank's heads.
-* The logits leave replicated (the reference's ``P()`` output), so they
+  gathered whole.  The MLP computes its ffn columns and the head its
+  vocab columns (``model_split``).  A recurrent state (Mamba2's, RWKV's)
+  placed with its heads on ``"model"`` is gathered over ``"model"`` for
+  the step and its new value cut back to the rank's heads; the rwkv6 and
+  SSD layers compute whole.
+* The logits leave replicated (the reference's ``P()`` output), so a
+  head split over ``"model"`` all-gathers its columns over it, and they
   are all-gathered over the data axes that split the batch.
 
 ``REPRO_TRAIN_BF16_PARAMS``, ``REPRO_SERVE_BF16`` and ``REPRO_PURE_DP``
@@ -563,7 +571,8 @@ def _train_step(model, cfg, fns, batch, moments, mesh, axes):
 
 def _prefill_step(model, fns, batch, mesh, axes):
     def step():
-        with torch.no_grad(), placement.batch_split(mesh, axes), placement.gathered(model):
+        with torch.no_grad(), placement.batch_split(mesh, axes), placement.model_split(mesh), \
+                placement.gathered(model):
             hidden, _, _ = fns.forward(model, batch)
             logits = fns.lm_head(model, hidden[:, -1:])
         return _replicated(logits, mesh, axes)
@@ -583,8 +592,8 @@ def _decode_step(model, cfg, fns, tokens, cache, cache_len, mesh, axes):
                                                zip(mesh.mesh_dim_names, x.placements))}
 
     def step():
-        with torch.no_grad(), placement.batch_split(mesh, axes), \
-                placement.head_split(mesh), placement.gathered(model):
+        with torch.no_grad(), placement.batch_split(mesh, axes), placement.head_split(mesh), \
+                placement.model_split(mesh), placement.gathered(model):
             cache_in = _cache_map(lambda p, x: x.redistribute(mesh, whole[p]).to_local()
                                   if p in whole else placement.local(x), cache)
             hidden, new = fns.decode_step(model, tokens, cache_in, cache_len)

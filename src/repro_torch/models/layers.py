@@ -21,7 +21,8 @@ they make GSPMD split over ``"model"`` the port computes per rank inside
 :func:`placement.model_split <repro_torch.dist.placement.model_split>`:
 attention's query heads and KV heads and the MLP's ffn columns, where
 :func:`tp_plan` (the reference's ``sanitize`` of those annotations) splits
-them.
+them (the head's ``"vocab"`` columns split in
+:mod:`repro_torch.models.lm`).
 """
 from __future__ import annotations
 
@@ -420,20 +421,22 @@ def attn_apply(
 
 def tp_plan(cfg: ModelConfig, tp: int, d_ff: int | None = None) -> dict:
     """What splits over ``tp`` ranks of ``"model"`` (the reference's
-    ``sanitize`` of its ``"heads"``, ``"kv_heads"`` and ``"ffn"``
-    annotations: a dim ``tp`` divides splits, any other is whole):
-    ``heads`` the padded query heads (``kv · q_group_pad``, or
+    ``sanitize`` of its ``"heads"``, ``"kv_heads"``, ``"ffn"`` and
+    ``"vocab"`` annotations: a dim ``tp`` divides splits, any other is
+    whole): ``heads`` the padded query heads (``kv · q_group_pad``, or
     ``n_heads``), ``kv_heads`` the repeated KV heads (``kv · kv_repeat``),
     ``ffn`` the MLP's ``d_ff`` columns (``d_ff`` if given, else
-    ``cfg.d_ff``).  Where the query heads stay whole the attention computes
-    whole; KV heads that split while the query heads do not have no such
-    layout, and raise."""
+    ``cfg.d_ff``), ``vocab`` the head's logit columns (``cfg.vocab``).
+    Where the query heads stay whole the attention computes whole; KV
+    heads that split while the query heads do not have no such layout, and
+    raise."""
     kv = cfg.n_kv_heads
     g = cfg.n_heads // kv
     heads = kv * max(cfg.q_group_pad or g, g)
     plan = {"heads": tp > 1 and heads % tp == 0,
             "kv_heads": tp > 1 and (kv * cfg.kv_repeat) % tp == 0,
-            "ffn": tp > 1 and (d_ff or cfg.d_ff) % tp == 0}
+            "ffn": tp > 1 and (d_ff or cfg.d_ff) % tp == 0,
+            "vocab": tp > 1 and cfg.vocab % tp == 0}
     if plan["kv_heads"] and not plan["heads"]:
         raise ValueError(f"{kv * cfg.kv_repeat} KV heads split over {tp} ranks, "
                          f"{heads} query heads do not")

@@ -31,11 +31,13 @@ Departures from the reference, all of them execution, not arithmetic:
   :mod:`repro_torch.dist.placement`) each layer gathers its own
   parameters inside its checkpointed body (``gathered_call``); the
   embedding, the final norm and the head are gathered by the caller (the
-  train step's loss function).  Under the train step's
-  ``placement.model_split`` the attention and GLU MLP of every block
-  (``"attn"``, ``"moe"``'s attention, the shared block) compute this
-  rank's heads and ffn columns of ``"model"``; the embedding, the head,
-  the MoE's own split, the Mamba2 and RWKV layers are unchanged.
+  train step's loss function).  Under ``placement.model_split`` (the
+  mesh train step, the dry-run's train, prefill and decode steps) the
+  attention and GLU MLP of every block (``"attn"``,
+  ``"moe"``'s attention, the shared block) compute this rank's heads and
+  ffn columns of ``"model"``, and the head its ``V / tp`` logit columns
+  (:func:`vocab_part`); the embedding lookup, the MoE's own split, the
+  Mamba2 and RWKV layers are unchanged.
 * The cache is one entry per layer (:func:`lm_cache_init`), not one per
   run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
   written in place at ``cache_len``; the recurrent states (Mamba2's,
@@ -63,10 +65,12 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, Attention, Norm, _param, attn_apply,
-                                       checkpointed, dense_init, mlp_apply, norm_apply)
+                                       checkpointed, dense_init, mlp_apply, norm_apply,
+                                       tp_plan)
 
 __all__ = ["Block", "SharedBlock", "LM", "lm_init", "lm_forward", "lm_head_apply",
-           "lm_cache_init", "embed_hidden", "params_from_reference", "load_reference"]
+           "vocab_part", "head_weight", "lm_head_share", "lm_cache_init", "embed_hidden",
+           "params_from_reference", "load_reference"]
 
 BLOCK_TYPES = ("attn", "moe", "mamba2", "rwkv6", "shared_attn")
 
@@ -277,12 +281,72 @@ def lm_forward(
 
 
 def lm_head_apply(params: LM, hidden: Tensor, cfg: ModelConfig) -> Tensor:
-    """hidden [B, S, D] -> logits [B, S, V] (fp32)."""
+    """hidden [B, S, D] -> logits [B, S, V] (fp32).
+
+    Inside :func:`placement.model_split
+    <repro_torch.dist.placement.model_split>`, where the vocabulary splits
+    (:func:`vocab_part`), this rank computes its ``V / tp`` columns
+    (:func:`lm_head_share`) and all-gathers them over ``"model"`` (the
+    reference's replicated output); without a group (one share computed
+    alone) the share is returned."""
+    logits = lm_head_share(params, hidden, cfg)
+    part = vocab_part(cfg)
+    return logits if part is None else placement.gather_shares(logits, -1, part)
+
+
+def vocab_part(cfg: ModelConfig) -> tuple | None:
+    """``(r, tp, group)`` where the head computes share ``r`` of ``tp``
+    of the logit columns, ``[r·V/tp, (r+1)·V/tp)``: inside
+    :func:`placement.model_split <repro_torch.dist.placement.model_split>`
+    where :func:`~repro_torch.models.layers.tp_plan` splits ``"vocab"``;
+    None (the whole head) otherwise."""
+    part = placement.model_part()
+    return part if part is not None and tp_plan(cfg, part[1])["vocab"] else None
+
+
+def head_weight(params: LM, cfg: ModelConfig) -> Tensor:
+    """The head's ``[D, V']`` weight in the parameter's dtype (each use
+    casts it to the activation dtype, as the reference's head does, so the
+    gradient of several uses adds up in the parameter's dtype): whole
+    (``V' = V``), or inside the vocabulary split (:func:`vocab_part`) this
+    share's ``V / tp`` columns: an untied ``lm_head.w``'s, marked
+    :func:`placement.sum_over_model
+    <repro_torch.dist.placement.sum_over_model>` (each rank's gradient
+    holds its columns alone), or the tied ``embed.table``'s rows through
+    :func:`placement.take_share <repro_torch.dist.placement.take_share>`,
+    whose backward all-gathers them over ``"model"`` (the lookup's use of
+    the whole table already gives each rank the whole, equal gradient, so
+    the table is not marked: a sum over ``"model"`` would count it ``tp``
+    times)."""
+    part = vocab_part(cfg)
     if cfg.tie_embeddings:
-        w = params.embed["table"].to(cfg.act_dtype).T
-    else:
-        w = params.lm_head["w"].to(cfg.act_dtype)
-    return shd.shard(hidden @ w, "batch", None, "vocab").float()
+        table = params.embed["table"]
+        if part is not None:
+            table = placement.take_share(table, 0, part)
+        return table.T
+    w = params.lm_head["w"]
+    if part is None:
+        return w
+    r, tp, _ = part
+    n = w.shape[-1] // tp
+    return placement.sum_over_model(w)[:, r * n:(r + 1) * n]
+
+
+def lm_head_share(params: LM, hidden: Tensor, cfg: ModelConfig,
+                  w: Tensor | None = None) -> Tensor:
+    """hidden [B, S, D] -> this share's logits [B, S, V'] (fp32): the
+    whole head outside the vocabulary split, else share ``r``'s ``V / tp``
+    columns, its input through :func:`placement.copy_to_group
+    <repro_torch.dist.placement.copy_to_group>` (Megatron's ``f``: the
+    hidden states' gradient summed over ``"model"``).  ``w``: the
+    :func:`head_weight` to use, made once for several calls (the loss's
+    chunks)."""
+    part = vocab_part(cfg)
+    if w is None:
+        w = head_weight(params, cfg)
+    if part is not None:
+        hidden = placement.copy_to_group(hidden, part[2])
+    return shd.shard(hidden @ w.to(cfg.act_dtype), "batch", None, "vocab").float()
 
 
 def lm_cache_init(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> list:

@@ -14,13 +14,15 @@ On a mesh (:func:`place_state`: the parameters, moments and error feedback
 DTensors placed by ``launch.dryrun.param_shardings``) the same step runs
 the reference's partitioned program by hand
 (:mod:`repro_torch.dist.placement`): the batch is split over the data axes,
-each layer gathers its parameters, attention and the GLU MLP compute this
-rank's heads and ffn columns of the ``"model"`` axis
-(:func:`placement.model_split`), the loss is the global batch's
-token-weighted mean (an all-reduce of the token sums, not a mean of the
-ranks' means), and each gradient arrives summed over the data axes (and
-over ``"model"`` for the split layers' weights) and placed as its
-parameter (reduce-scattered over its FSDP axes).
+each layer gathers its parameters, attention, the GLU MLP and the head
+compute this rank's heads, ffn columns and vocab columns of the
+``"model"`` axis (:func:`placement.model_split`), the cross-entropy is
+vocab-parallel over them, the loss is the global batch's token-weighted
+mean (an all-reduce of the token sums, not a mean of the ranks' means),
+and each gradient arrives summed over the data axes (and over ``"model"``
+for the split layers' weights; the tied embedding's head rows all-gathered
+over it) and placed as its parameter (reduce-scattered over its FSDP
+axes).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import placement
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelFns
@@ -74,8 +77,12 @@ def make_loss_fn(fns: ModelFns, cfg: ModelConfig, *, aux_weight: float = 0.01,
         if off:
             # prefix positions (vision/audio) carry no next-token loss
             hidden = hidden[:, off:]
-        loss, metrics = chunked_ce(hidden, labels, lambda h: fns.lm_head(params, h), cfg,
-                                   psum=placement.batch_sum)
+        # the head's weight (inside model_split this rank's vocab columns,
+        # which the loss consumes as they are), taken once for every chunk
+        w = lm_mod.head_weight(params, cfg)
+        head_fn = functools.partial(lm_mod.lm_head_share, params, cfg=cfg, w=w)
+        loss, metrics = chunked_ce(hidden, labels, head_fn, cfg, psum=placement.batch_sum,
+                                   vocab=lm_mod.vocab_part(cfg))
         loss = loss + aux_weight * aux
         metrics["aux"] = aux
         return loss, metrics
@@ -125,11 +132,14 @@ def _local_batch(batch: dict, device):
 
 @contextlib.contextmanager
 def _on_mesh(params, mesh, axes):
-    """The batch split over ``axes``, attention's heads and the MLP's ffn
-    columns split over ``"model"`` (:func:`placement.model_split`), and
-    the model's top-level parameters (embedding, final norm, head)
-    gathered, for a forward and backward; each layer gathers its own in
-    the model's forward."""
+    """The batch split over ``axes``; attention's heads, the GLU MLP's ffn
+    columns and the head's vocab columns split over ``"model"``
+    (:func:`placement.model_split`; the loss then takes the vocab-parallel
+    cross-entropy, :func:`make_loss_fn`); and the model's top-level
+    parameters (embedding, final norm, head) gathered whole, for a forward
+    and backward; each layer gathers its own in the model's forward.  The
+    rwkv6 and SSD layers, the norms and the embedding lookup compute
+    whole."""
     with placement.batch_split(mesh, axes), placement.model_split(mesh), \
             placement.gathered(params):
         yield

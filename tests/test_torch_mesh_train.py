@@ -13,12 +13,17 @@ process, and its sharded MoE against the reference's.
   ``LOSS_RTOL``, the first step's gradients within ``GRAD_RTOL`` of each
   leaf's largest (the compressed ones within one quantizer step of their
   leaf, where a rounding near a half step may flip), the parameters after
-  three steps within ``PARAM_ATOL``.  Attention and the GLU MLP compute
-  each rank's share of the query heads and ffn columns over ``"model"``
-  (``placement.model_split``): every parameter replicated over
-  ``"model"`` is bitwise equal across the ranks of a model group after the
-  steps, and ``flash_attention`` sees ``n_heads / tp`` query heads on each
-  rank.  The MoE's capacity comes from each
+  three steps within ``PARAM_ATOL``.  Attention, the GLU MLP and the head
+  compute each rank's share of the query heads, ffn columns and logit
+  columns over ``"model"`` (``placement.model_split``; the cross-entropy
+  vocab-parallel): every parameter replicated over ``"model"`` is bitwise
+  equal across the ranks of a model group after the steps,
+  ``flash_attention`` sees ``n_heads / tp`` query heads on each rank and
+  each chunk of the loss ``V / tp`` logit columns.  The tied arch run
+  again with its ``embed.table`` placed replicated over ``"model"`` (the
+  head takes the table's rows, the lookup the whole table): its table
+  bitwise equal across each model group, its losses and parameters those
+  of one process.  The MoE's capacity comes from each
   rank's tokens and its aux loss is averaged over the data ranks (the
   reference's ``_moe_sharded``), so the one-process run applies the MoE
   to each data shard's rows of the batch apart (``split_moe``).
@@ -35,6 +40,13 @@ process, and its sharded MoE against the reference's.
   bit for bit; the dense arch's placed train state the same way.
 * A sharded search over ``("pod", "data")`` of the ``(1, 2, 2)`` mesh,
   ``"model"`` replicated, equals the brute force on every rank.
+* The dry-run's prefill and decode steps (``launch.dryrun.build_cell``
+  at ``SERVE_SEQ`` tokens, ``SERVE_BATCH`` rows, smoke configs in float32:
+  an untied, a tied and an rwkv6 arch) on both meshes: every rank's
+  logits (gathered whole over ``"model"`` and the data axes) equal one
+  process's within ``SERVE_RTOL`` of the largest |logit|, and each rank
+  computes ``n_heads / tp`` query heads, ``d_ff / tp`` ffn columns and
+  ``V / tp`` logit columns.
 """
 from __future__ import annotations
 
@@ -70,6 +82,10 @@ GRAD_RTOL = 1e-5
 PARAM_ATOL = 1e-4
 MOE_ATOL = 2e-4     # the reference's own (tests/test_distributed.py:107)
 SEARCH_K = 7
+TIED_ARCH = "granite-moe-1b-a400m"
+SERVE_ARCHS = ("tinyllama-1.1b", "granite-3-2b", "rwkv6-1.6b")
+SERVE_SEQ, SERVE_BATCH = 64, 4
+SERVE_RTOL = 1e-5
 
 
 def batches() -> dict:
@@ -136,14 +152,16 @@ def runs(tmp_path_factory):
     """Both meshes' spawns (the 2x2 one with the MoE, the elastic case and
     the reference's MoE beside it; the 1x2x2 one with the search)."""
     db, q = corpus(seed=21, n=900)
-    common = dict(archs=np.asarray(ARCHS), steps=STEPS, **batches())
+    common = dict(archs=np.asarray(ARCHS), steps=STEPS, tied_arch=TIED_ARCH,
+                  serve_archs=np.asarray(SERVE_ARCHS), serve_seq=SERVE_SEQ,
+                  serve_batch=SERVE_BATCH, **batches())
     out = {}
     wd = tmp_path_factory.mktemp("mesh_2x2")
     ref = start_reference_moe(wd, moe_inputs())
     try:
         out["2x2"] = run_ranks(4, wd, dict(
             common, **moe_inputs(),
-            parts=np.asarray(["train", "replicated", "moe", "elastic"]),
+            parts=np.asarray(["train", "replicated", "moe", "serve", "elastic"]),
             mesh_shape=np.asarray(MESHES["2x2"][0]), mesh_dims=np.asarray(MESHES["2x2"][1])),
             worker=WORKER)
         log, _ = ref.communicate(timeout=300)
@@ -154,7 +172,8 @@ def runs(tmp_path_factory):
     assert ref.returncode == 0, log[-3000:]
     out["reference_moe"] = dict(np.load(wd / "moe_out.npz"))
     out["1x2x2"] = run_ranks(4, tmp_path_factory.mktemp("mesh_1x2x2"), dict(
-        common, db=db, q=q, n_shards=4, k=SEARCH_K, parts=np.asarray(["train", "search"]),
+        common, db=db, q=q, n_shards=4, k=SEARCH_K,
+        parts=np.asarray(["train", "serve", "search"]),
         mesh_shape=np.asarray(MESHES["1x2x2"][0]), mesh_dims=np.asarray(MESHES["1x2x2"][1])),
         worker=WORKER)
     out["search"] = (db, q)
@@ -248,7 +267,9 @@ def test_mesh_train_matches_one_process(runs, one_process, mesh, arch, compress)
 def test_replicated_parameters_agree_across_each_model_group(runs, mesh):
     """The gradients of the split layers' weights are summed over
     ``"model"``, so a weight replicated over it (the dense MLP's, FSDP
-    only) stays bitwise equal on every rank of a model group."""
+    only) stays bitwise equal on every rank of a model group; so does the
+    tied ``embed.table`` placed replicated over ``"model"``, whose head
+    rows' gradients are all-gathered over it."""
     outs = runs[mesh]
     groups: dict = {}
     for rank, out in enumerate(outs):
@@ -259,11 +280,103 @@ def test_replicated_parameters_agree_across_each_model_group(runs, mesh):
         first = outs[ranks[0]]
         keys = [k for k in first if "|replicated|" in k]
         assert any("|replicated|blocks.0.mlp.w_up" in k for k in keys)
+        assert f"{TIED_ARCH}|table_replicated|replicated|embed.table" in keys
         for rank in ranks[1:]:
             for k in keys:
                 np.testing.assert_array_equal(outs[rank][k], first[k], err_msg=k)
                 checked += 1
     assert checked > 0
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_tied_table_replicated_over_model_matches_one_process(runs, one_process, mesh):
+    """The tied arch with its table replicated over ``"model"``: the
+    table's whole gradient is the lookup's plus every share's head rows,
+    once (a sum over ``"model"`` would count the lookup's ``tp`` times):
+    the losses, the first step's gradients and the parameters after three
+    steps within the tolerances of the runs above."""
+    want = one_process[TIED_ARCH, False]
+    tag = f"{TIED_ARCH}|table_replicated"
+    for out in runs[mesh]:
+        np.testing.assert_allclose(out[f"{tag}|loss"], want["loss"], rtol=LOSS_RTOL)
+    got = runs[mesh][0]
+    for name, g in want["update"].items():
+        g = g.numpy()
+        np.testing.assert_allclose(got[f"{tag}|grad|{name}"], g,
+                                   atol=GRAD_RTOL * max(float(np.abs(g).max()), 1e-30), rtol=0,
+                                   err_msg=name)
+        np.testing.assert_allclose(got[f"{tag}|param|{name}"], want["params"][name].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_loss_sees_its_share_of_the_vocabulary(runs, mesh):
+    """Each chunk of each rank's loss holds ``V / tp`` logit columns (the
+    smoke configs' 128 over the mesh's 2 ``"model"`` ranks), never the
+    whole ``[B, c, V]``."""
+    tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
+    for arch in ARCHS:
+        for out in runs[mesh]:
+            for compress in (0, 1):
+                got = out[f"{arch}|{compress}|vocab_cols"].tolist()
+                assert got == [smoke_config(arch).vocab // tp], (arch, got)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_serve_steps_match_one_process(runs, mesh, arch, kind):
+    tag = f"serve|{arch}|{kind}"
+    outs = runs[mesh]
+    want = outs[0][f"{tag}|one_process"]
+    assert want.shape == (SERVE_BATCH, 1, smoke_config(arch).vocab)
+    top = float(np.abs(want).max())
+    for out in outs:
+        np.testing.assert_allclose(out[f"{tag}|logits"], want, atol=SERVE_RTOL * top, rtol=0)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_serve_steps_compute_their_shares(runs, mesh):
+    """Prefill's attention (cache-free) and decode's (the rank's KV heads
+    of the cache) see ``n_heads / tp`` query heads; the GLU MLP
+    ``d_ff / tp`` columns; the head ``V / tp`` columns.  rwkv6 has no
+    attention and its layers compute whole: its ``"ffn"`` annotations, the
+    time mix's gate (``d_model`` wide) and the channel mix's key
+    (``d_ff``), see every column."""
+    tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
+    for arch in SERVE_ARCHS:
+        cfg = smoke_config(arch)
+        dense = "attn" in cfg.layer_types
+        for out in runs[mesh]:
+            for kind in ("prefill", "decode"):
+                tag = f"serve|{arch}|{kind}"
+                assert out[f"{tag}|heads"].tolist() == ([cfg.n_heads // tp] if dense else [])
+                assert out[f"{tag}|ffn"].tolist() == ([cfg.d_ff // tp] if dense else
+                                                      sorted({cfg.d_model, cfg.d_ff}))
+                assert out[f"{tag}|vocab"].tolist() == [cfg.vocab // tp], (arch, kind)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_share_collectives_and_their_gradients(runs, mesh):
+    """``gather_shares``: every rank of a model group holds the blocks of
+    all its ranks in rank order, and its gradient is its own block of the
+    whole's; ``take_share``: rank r's block of a tensor equal on every
+    rank, and the tensor's gradient every rank's block's, all-gathered
+    (block q scaled by q + 1 on every rank)."""
+    tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
+    weights = np.arange(2 * 3 * tp, dtype=np.float32).reshape(2, 3 * tp)
+    whole = np.arange(tp * 2 * 3, dtype=np.float32).reshape(tp * 2, 3)
+    assert sorted(int(out["model_index"]) for out in runs[mesh]) == sorted(list(range(tp)) * 2)
+    for out in runs[mesh]:
+        r = int(out["model_index"])
+        np.testing.assert_array_equal(out["gather_shares"],
+                                      np.repeat(np.arange(tp, dtype=np.float32), 3)[None]
+                                      .repeat(2, 0))
+        np.testing.assert_array_equal(out["gather_shares_grad"], weights[:, 3 * r:3 * (r + 1)])
+        np.testing.assert_array_equal(out["take_share"], whole[2 * r:2 * (r + 1)])
+        np.testing.assert_array_equal(out["take_share_grad"],
+                                      np.repeat(np.arange(1, tp + 1, dtype=np.float32), 2)[:, None]
+                                      .repeat(3, 1))
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

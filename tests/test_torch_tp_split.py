@@ -16,14 +16,26 @@
   are at most the whole's / tp, plus, for attention, the K/V projection
   where the KV heads stay whole; ``flash_attention`` sees ``n_heads / tp``
   query heads.
+* The head's shares (``lm.lm_head_apply`` under a part: share ``r``'s
+  ``V / tp`` logit columns, from an untied ``lm_head.w``'s columns or the
+  tied ``embed.table``'s rows), concatenated, equal the whole head's
+  logits within ``SUM_RTOL``; the vocab-parallel cross-entropy combined by
+  hand from the shares (``chip_smoke.head_loss_by_hand``: the max over
+  the shares, the sum of their ``exp(logit - max)``, the gold logit from
+  the share holding the label) equals ``chunked_ce`` on the whole logits, and its hidden-state and
+  weight gradients, summed over the shares, the whole head's; each
+  share's FLOPs are at most the whole head's / tp.  Float64 smoke
+  configs at tp 2 and 4.
 * The split choice (:func:`repro_torch.models.layers.tp_plan`: query
-  heads, KV heads, ffn columns split or whole) equals the reference's
-  ``sanitize`` of its activation annotations (``shd.shard(q, "batch",
-  None, "heads", None)``, ``kv_heads``, ``ffn``), read by tracing its
-  ``attn_apply`` and ``mlp_apply`` with ``jax.eval_shape`` at full size
-  under its rules on ``AbstractMesh``es, for every arch on the pod and
-  multipod meshes, at the arch's own config and at the train_4k cell's
-  (``launch.dryrun.prepare_cfg``: the KV heads repeated for ``"model"``).
+  heads, KV heads, ffn columns, vocab columns split or whole) equals the
+  reference's ``sanitize`` of its activation annotations
+  (``shd.shard(q, "batch", None, "heads", None)``, ``kv_heads``, ``ffn``,
+  the logits' ``vocab``), read by tracing its ``attn_apply``,
+  ``mlp_apply`` and ``lm_head_apply`` with ``jax.eval_shape`` at full
+  size under its rules on ``AbstractMesh``es, for every arch on the pod
+  and multipod meshes, at the arch's own config and at the train_4k,
+  prefill_32k and decode_32k cells' (``launch.dryrun.prepare_cfg``: the KV
+  heads repeated for ``"model"``).
 """
 from __future__ import annotations
 
@@ -40,14 +52,17 @@ from jax.sharding import AbstractMesh as JAbstractMesh  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from repro.configs import ARCHS as J_ARCHS  # noqa: E402
 from repro.dist import sharding as j_shd  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
+from repro.models import lm as j_lm  # noqa: E402
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.dist import placement  # noqa: E402
 from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import layers, lm, model_fns  # noqa: E402
+from repro_torch.train.losses import chunked_ce  # noqa: E402
 
 SUM_RTOL = 1e-6
 B, S = 2, 24
@@ -99,6 +114,14 @@ def grads(m, fn, x, dy, parts):
     return total, xg.grad, {n: p.grad.clone() for n, p in m.named_parameters()}
 
 
+def assert_close_to(got, want, what):
+    """``got`` within ``SUM_RTOL`` of ``want``'s largest magnitude."""
+    top = float(want.abs().max())
+    assert top > 0, what
+    err = float((got - want).abs().max())
+    assert err <= SUM_RTOL * top, (what, err, top)
+
+
 @pytest.mark.parametrize("which", ["attn", "mlp"])
 @pytest.mark.parametrize("arch,over,tp", CASES,
                          ids=[f"{a.split('-')[0]}{'-pad' if o else ''}{o.get('kv_repeat', '')}-tp{t}"
@@ -112,10 +135,7 @@ def test_shares_sum_to_the_whole_layer(arch, over, tp, which):
     pairs = [("y", got[0], want[0]), ("dx", got[1], want[1])]
     pairs += [(f"d{n}", got[2][n], want[2][n]) for n in want[2]]
     for name, a, b in pairs:
-        top = float(b.abs().max())
-        assert top > 0, name
-        err = float((a - b).abs().max())
-        assert err <= SUM_RTOL * top, (name, err, top)
+        assert_close_to(a, b, name)
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -151,9 +171,67 @@ def test_share_flops_and_heads(tp, monkeypatch):
             assert all(share < whole / 1.5 for share in shares)
 
 
+def head_model(tied: bool):
+    """A float64 smoke LM (tinyllama's, tied or not: its head is what is
+    used) with gradients on, and hidden states and labels from a seed."""
+    cfg = smoke_config("tinyllama-1.1b").replace(dtype="float64", tie_embeddings=tied)
+    model = model_fns(cfg).init(7, device="cpu").requires_grad_(True)
+    rng = np.random.default_rng(2)
+    hidden = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+    return cfg, model, hidden, labels
+
+
+def head_grads(model, cfg, hidden, loss_fn):
+    """(the loss, the hidden states' gradient, the head weight's)."""
+    name = "embed.table" if cfg.tie_embeddings else "lm_head.w"
+    w = dict(model.named_parameters())[name]
+    w.grad = None
+    h = hidden.clone().requires_grad_(True)
+    loss = loss_fn(h)
+    loss.backward()
+    return loss.detach(), h.grad, w.grad.clone()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_head_shares_concatenate_to_the_whole_head(tied, tp):
+    cfg, model, hidden, labels = head_model(tied)
+    n = cfg.vocab // tp
+    with torch.no_grad():
+        whole = lm.lm_head_apply(model, hidden, cfg)
+        shares = []
+        for r in range(tp):
+            with placement.model_split(part=(r, tp, None)):
+                assert lm.vocab_part(cfg) == (r, tp, None)
+                shares.append(lm.lm_head_apply(model, hidden, cfg))
+    assert all(x.shape == (B, S, n) for x in shares)
+    assert_close_to(torch.cat(shares, -1), whole, "logits")
+
+    # the vocab-parallel loss, its three reductions over the shares by hand
+    want = head_grads(model, cfg, hidden, lambda h: chunked_ce(
+        h, labels, lambda c: lm.lm_head_apply(model, c, cfg), cfg)[0])
+    got = head_grads(model, cfg, hidden,
+                     lambda h: chip_smoke.head_loss_by_hand(model, h, labels, cfg, tp))
+    for what, a, b in zip(("loss", "dhidden", "dweight"), got, want):
+        assert_close_to(a, b, what)
+
+    # each share's FLOPs, forward and backward
+    counts = []
+    for part in (None, (0, tp, None), (tp - 1, tp, None)):
+        with FlopCounterMode(display=False) as fc:
+            split = placement.model_split(part=part) if part else contextlib.nullcontext()
+            with split:
+                h = hidden.clone().requires_grad_(True)
+                lm.lm_head_share(model, h, cfg).sum().backward()
+        counts.append(fc.get_total_flops())
+    whole_flops, *share_flops = counts
+    assert all(0 < f <= whole_flops / tp for f in share_flops), counts
+
+
 def reference_choice(cfg, mesh_name) -> dict:
-    """The reference's sanitized annotations of its attention and MLP at
-    ``cfg``: {logical name: whether "model" splits the dim}."""
+    """The reference's sanitized annotations of its attention, MLP and
+    head at ``cfg``: {logical name: whether "model" splits the dim}."""
     jmesh = JAbstractMesh(*MESHES[mesh_name])
     seen = {}
 
@@ -161,7 +239,7 @@ def reference_choice(cfg, mesh_name) -> dict:
         spec = P(*[j_shd.rule(n) if n else None for n in names])
         spec = tuple(j_shd.sanitize(spec, x.shape, jmesh)) + (None,) * len(names)
         for i, n in enumerate(names):
-            if n in ("heads", "kv_heads", "ffn"):
+            if n in ("heads", "kv_heads", "ffn", "vocab"):
                 seen.setdefault(n, set()).add(spec[i] == "model")
         return x
 
@@ -174,6 +252,10 @@ def reference_choice(cfg, mesh_name) -> dict:
         jax.eval_shape(lambda p, x_: j_layers.attn_apply(p, x_, cfg)[0], pa, x)
         pm = jax.eval_shape(lambda k: j_layers.mlp_init(k, cfg), key)
         jax.eval_shape(lambda p, x_: j_layers.mlp_apply(p, x_, cfg), pm, x)
+        ph = {"embed": {"table": jax.ShapeDtypeStruct((cfg.vocab, cfg.d_model), jnp.float32)}}
+        if not cfg.tie_embeddings:
+            ph["lm_head"] = {"w": jax.ShapeDtypeStruct((cfg.d_model, cfg.vocab), jnp.float32)}
+        jax.eval_shape(lambda p, x_: j_lm.lm_head_apply(p, x_, cfg), ph, x)
     finally:
         j_shd.shard = shard
         j_shd.set_rules(None, None)
@@ -181,12 +263,12 @@ def reference_choice(cfg, mesh_name) -> dict:
     return {n: v.pop() for n, v in seen.items()}
 
 
-@pytest.mark.parametrize("variant", ["arch", "train_4k"])
+@pytest.mark.parametrize("variant", ["arch", "train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_split_choice_equals_the_reference_sanitize(arch, mesh, variant):
     m = shd.AbstractMesh(*MESHES[mesh])
-    cfg = ARCHS[arch] if variant == "arch" else dryrun.prepare_cfg(arch, "train_4k", m)
+    cfg = ARCHS[arch] if variant == "arch" else dryrun.prepare_cfg(arch, variant, m)
     jcfg = J_ARCHS[arch].replace(kv_repeat=cfg.kv_repeat, q_group_pad=cfg.q_group_pad)
     want = reference_choice(jcfg, mesh)
     got = layers.tp_plan(cfg, shd.mesh_shape(m)["model"])

@@ -16,8 +16,23 @@ gloo group through a file store in ``workdir``, lays a ``DeviceMesh``
   losses, the first step's gradients (as AdamW receives them) and the
   parameters after the three steps, gathered whole; this rank's parts of
   the parameters replicated over ``"model"``, its coordinates on the
-  other axes, and the query head counts that reached ``flash_attention``
-  (attention and the GLU MLP compute this rank's share of ``"model"``);
+  other axes, the query head counts that reached ``flash_attention`` and
+  the logit columns each chunk of the loss saw (attention, the GLU MLP
+  and the head compute this rank's share of ``"model"``); then three
+  plain steps of the tied arch ``tied_arch`` with its ``embed.table``
+  placed replicated over ``"model"`` (its data axes kept), whose head
+  takes the table's rows while the lookup takes it whole: the losses, the
+  first step's gradients and the parameters after (rank 0) and the
+  table's local part;
+* ``serve``: for each arch of ``serve_archs`` (smoke configs in
+  ``launch.dryrun.ARCHS``), the dry-run's prefill and decode cells at
+  ``serve_seq`` tokens and ``serve_batch`` rows (``build_cell`` with
+  weights from ``ARCH_SEED``): the step's logits on this rank (whole,
+  every rank), the query heads, ffn columns and logit columns each rank
+  computed, and, on rank 0, the same step in one process with no mesh
+  (``fns.forward`` / ``decode_step`` and ``lm_head``) on the same inputs;
+  then ``placement.gather_shares`` and ``take_share`` over the rank's
+  ``"model"`` group on small tensors, with their gradients;
 * ``replicated``: one step of the MoE arch (``archs[1]``) on the plain
   batch ``odd_tokens`` / ``odd_labels``, whose rows the data axes do not
   divide: every rank takes the whole batch and the MoE the local path
@@ -65,16 +80,14 @@ def _full(t):
 
 
 def train_part(inp, out, mesh, rank):
-    import torch
-
     from repro_torch.configs import smoke_config
     from repro_torch.core.distributed import shard_layout
     from repro_torch.dist import placement
     from repro_torch.dist import sharding as shd
-    from repro_torch.dist.compat import make_process_local_array
-    from repro_torch.launch.dryrun import param_shardings
+    from repro_torch.launch.dryrun import param_shardings, param_specs
     from repro_torch.models import layers, model_fns
     from repro_torch.optim import adamw
+    from repro_torch.train import losses
     from repro_torch.train.train_step import init_state, make_train_step, place_state
 
     multi = "pod" in mesh.mesh_dim_names
@@ -100,7 +113,13 @@ def train_part(inp, out, mesh, rank):
         heads.add(q.shape[2])
         return flash(q, *a, **kw)
 
-    adamw.update, layers.flash_attention = spy, seen
+    lse_gold, cols = losses._lse_gold, set()
+
+    def seen_cols(logits, *a, **kw):
+        cols.add(logits.shape[-1])
+        return lse_gold(logits, *a, **kw)
+
+    adamw.update, layers.flash_attention, losses._lse_gold = spy, seen, seen_cols
     try:
         for arch in (str(a) for a in inp["archs"]):
             cfg = smoke_config(arch)
@@ -111,22 +130,16 @@ def train_part(inp, out, mesh, rank):
                 state = place_state(state, param_shardings(state["params"], mesh, cfg))
                 step = make_train_step(fns, cfg, compress_grads=compress)
                 heads.clear()
-                losses = []
-                for i in range(int(inp["steps"])):
-                    b = {k: inp[f"{k}_{i}"] for k in ("tokens", "labels")}
-                    rows = b["tokens"].shape[0] // n_dp
-                    b = {k: make_process_local_array(
-                        batch_sh, torch.from_numpy(x[pos * rows:(pos + 1) * rows]), x.shape)
-                        for k, x in b.items()}
-                    state, m = step(state, b)
-                    losses.append(float(m["loss"]))
+                cols.clear()
+                out[f"{tag}|loss"] = np.asarray(run_steps(step, state, inp, batch_sh,
+                                                          n_dp, pos))
                 grads = captured.pop()
                 params = {n: _full(p) for n, p in state["params"].named_parameters()}
-                out[f"{tag}|loss"] = np.asarray(losses)
                 out[f"{tag}|local"] = np.asarray(json.dumps(
                     {n: list(placement.local(p).shape)
                      for n, p in state["params"].named_parameters()}))
                 out[f"{tag}|q_heads"] = np.asarray(sorted(heads), dtype=np.int64)
+                out[f"{tag}|vocab_cols"] = np.asarray(sorted(cols), dtype=np.int64)
                 for n, p in state["params"].named_parameters():
                     if p.placements[at].is_replicate():
                         out[f"{tag}|replicated|{n}"] = placement.local(p).detach().numpy().copy()
@@ -136,9 +149,146 @@ def train_part(inp, out, mesh, rank):
                         out[f"{tag}|param|{n}"] = params[n]
                 if arch == str(inp["archs"][0]) and not compress:
                     out["_dense_state"] = state
+        # the tied table replicated over "model": each rank's whole table
+        # takes the lookup's gradient and the head's of every share
+        cfg = smoke_config(str(inp["tied_arch"]))
+        fns = model_fns(cfg)
+        state = init_state(fns, ARCH_SEED, device="cpu")
+        sh = param_shardings(state["params"], mesh, cfg)
+        spec = tuple(None if a == "model" else a
+                     for a in param_specs(state["params"], cfg, mesh)["embed.table"])
+        sh["embed.table"] = shd.NamedSharding(mesh, spec)
+        state = place_state(state, sh)
+        tag = f"{cfg.name}|table_replicated"
+        out[f"{tag}|loss"] = np.asarray(run_steps(make_train_step(fns, cfg), state, inp,
+                                                  batch_sh, n_dp, pos))
+        table = state["params"].embed["table"]
+        assert table.placements[at].is_replicate()
+        out[f"{tag}|replicated|embed.table"] = placement.local(table).detach().numpy().copy()
+        grads = captured.pop()
+        params = {n: _full(p) for n, p in state["params"].named_parameters()}
+        if rank == 0:
+            for n, p in params.items():
+                out[f"{tag}|grad|{n}"] = grads[n]
+                out[f"{tag}|param|{n}"] = p
     finally:
-        adamw.update, layers.flash_attention = update, flash
+        adamw.update, layers.flash_attention, losses._lse_gold = update, flash, lse_gold
         shd.set_rules(None, None)
+
+
+def run_steps(step, state, inp, batch_sh, n_dp, pos) -> list:
+    """``inp["steps"]`` train steps over the global batches ``tokens_<i>``
+    / ``labels_<i>``, each rank's rows a DTensor; the losses."""
+    import torch
+
+    from repro_torch.dist.compat import make_process_local_array
+
+    losses = []
+    for i in range(int(inp["steps"])):
+        b = {k: inp[f"{k}_{i}"] for k in ("tokens", "labels")}
+        rows = b["tokens"].shape[0] // n_dp
+        b = {k: make_process_local_array(
+            batch_sh, torch.from_numpy(x[pos * rows:(pos + 1) * rows]), x.shape)
+            for k, x in b.items()}
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def serve_part(inp, out, mesh, rank):
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import Shape, smoke_config
+    from repro_torch.core.distributed import shard_layout
+    from repro_torch.dist import placement
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers, lm, model_fns
+
+    seq, bsz = int(inp["serve_seq"]), int(inp["serve_batch"])
+    archs = [str(a) for a in inp["serve_archs"]]
+    shapes = {"prefill_32k": Shape("prefill_32k", "prefill", seq, bsz),
+              "decode_32k": Shape("decode_32k", "decode", seq, bsz)}
+    n_dp, pos = shard_layout(mesh, placement.dp_axes(mesh))
+    flash, shard = layers.flash_attention, shd.shard
+    seen: dict = {}
+
+    def heads(q, *a, **kw):
+        seen.setdefault("heads", set()).add(q.shape[2])
+        return flash(q, *a, **kw)
+
+    def annotated(x, *names):
+        for n in ("ffn", "vocab"):
+            if n in names:
+                seen.setdefault(n, set()).add(x.shape[-1])
+        return shard(x, *names)
+
+    saved = dryrun.ARCHS, dryrun.SHAPES
+    dryrun.ARCHS = {**dryrun.ARCHS, **{a: smoke_config(a) for a in archs}}
+    dryrun.SHAPES = {**dryrun.SHAPES, **shapes}
+    try:
+        for arch in archs:
+            for name, shape in shapes.items():
+                tag = f"serve|{arch}|{shape.kind}"
+                gen = torch.Generator().manual_seed(11)
+                with dryrun.cell_rules(name, mesh):
+                    cell = dryrun.build_cell(arch, name, mesh, seed=ARCH_SEED)
+                    local_tokens = cell.args["batch"]["tokens"]
+                    tokens = torch.randint(0, cell.cfg.vocab, (bsz, local_tokens.shape[1]),
+                                           generator=gen, dtype=local_tokens.dtype)
+                    rows = local_tokens.shape[0]
+                    local_tokens.copy_(tokens[pos * rows:(pos + 1) * rows] if rows < bsz
+                                       else tokens)
+                    whole_cache = None
+                    if cell.cache is not None:
+                        whole_cache = {}
+                        for p, x in dryrun.cache_leaves(cell.cache).items():
+                            t = torch.randn(x.shape, generator=gen, dtype=x.dtype) * 0.5
+                            whole_cache[p] = t
+                            placement.local(x).copy_(placement.local(distribute_tensor(
+                                t, mesh, x.placements, src_data_rank=None)))
+                    seen.clear()
+                    layers.flash_attention, shd.shard = heads, annotated
+                    try:
+                        res = cell.step()
+                    finally:
+                        layers.flash_attention, shd.shard = flash, shard
+                logits = res if cell.cache is None else res[0]
+                out[f"{tag}|logits"] = logits.numpy().copy()
+                for n in ("heads", "ffn", "vocab"):
+                    out[f"{tag}|{n}"] = np.asarray(sorted(seen.get(n, ())), dtype=np.int64)
+                if rank != 0:
+                    continue
+                # the same step in one process, no mesh
+                cfg = cell.cfg
+                fns = model_fns(cfg)
+                params = fns.init(ARCH_SEED, device="cpu")
+                with torch.no_grad():
+                    if whole_cache is None:
+                        hidden, _, _ = fns.forward(params, {"tokens": tokens})
+                        want = fns.lm_head(params, hidden[:, -1:])
+                    else:
+                        hcache = lm.lm_cache_init(cfg, bsz, shape.seq, device="cpu")
+                        for p, t in dryrun.cache_leaves(hcache).items():
+                            t.copy_(whole_cache[p])
+                        hidden, _ = fns.decode_step(params, tokens, hcache, shape.seq - 1)
+                        want = fns.lm_head(params, hidden)
+                out[f"{tag}|one_process"] = want.numpy()
+    finally:
+        dryrun.ARCHS, dryrun.SHAPES = saved
+    # the two share collectives alone, over this rank's "model" group
+    part = placement._model_part(mesh)
+    r, tp, _ = part
+    x = torch.full((2, 3), float(r), requires_grad=True)
+    y = placement.gather_shares(x, -1, part)
+    (y * torch.arange(y.numel(), dtype=y.dtype).view_as(y)).sum().backward()
+    out["model_index"] = np.asarray(r)
+    out["gather_shares"], out["gather_shares_grad"] = y.detach().numpy(), x.grad.numpy()
+    w = torch.arange(tp * 2 * 3, dtype=torch.float32).view(tp * 2, 3).requires_grad_(True)
+    share = placement.take_share(w, 0, part)
+    (share * (r + 1)).sum().backward()
+    out["take_share"], out["take_share_grad"] = share.detach().numpy(), w.grad.numpy()
 
 
 def replicated_part(inp, out, mesh, rank):
@@ -297,6 +447,8 @@ def main(rank: int, world: int, workdir: Path) -> None:
             train_part(inp, out, mesh, rank)
         if "replicated" in parts:
             replicated_part(inp, out, mesh, rank)
+        if "serve" in parts:
+            serve_part(inp, out, mesh, rank)
         if "moe" in parts:
             moe_part(inp, out, mesh)
         if "search" in parts:
