@@ -183,7 +183,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    make_process_local_array and the mesh train step, each loss within
    1e-5 relative of the same seed's host steps in this process, the
    largest parameter difference after them reported, every leaf's
-   placement (local shape against global) printed; b. granite-moe-1b-a400m
+   placement (local shape against global) printed; then one step of
+   rwkv6-1.6b (4 layers) and zamba2-1.2b (6 layers, one shared block) at
+   full width, B = 8, S = 1,024, on the same mesh, loss and every
+   parameter bit for bit with the host path's; b. granite-moe-1b-a400m
    at full width, B = 2, on the (1, 1, 1) mesh: every MoE layer through
    _moe_sharded, one step's loss and gradients equal to the local path's
    within 1e-5; c. b's parameters checkpointed and restored with
@@ -205,7 +208,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    by hand from the shares (the max, the sum of exps, the gold logit),
    against the whole head's within the same 3e-2 / 1e-4, that loss against
    chunked_ce on the whole logits within 1e-3 / 1e-5 relative, each share
-   V / tp columns wide and its FLOPs at most the whole head's / tp.  The
+   V / tp columns wide and its FLOPs at most the whole head's / tp; then
+   rwkv6-1.6b's first time mix and channel mix and zamba2-1.2b's first
+   Mamba2 layer the same way (the SSD's shares fed their gate norm's
+   summed statistic by hand), within 3e-2 (bf16) and 1e-3 (fp32), each
+   share's FLOPs at most the whole's / tp plus what every share computes
+   whole, each row beside the whole layer's own change under a one-ulp
+   perturbation of its input.  The
    training path launches no kernel (counted: 0); d launches pruned_topk
    and block_bounds_select once per shard.  It prints ms a step beside
    phase 14's and the host path's, peak GB, and the card's name and power
@@ -3566,6 +3575,19 @@ MESH_SEARCH = dict(n=200_000, d=64, m=1_000, k=10, centers=64, noise=0.05, shard
 #: before the sum, a few bf16 steps; fp32: the sums' order)
 MESH_SPLIT_TPS = (2, 4, 16)
 MESH_SPLIT_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
+#: phase 16e also: rwkv6-1.6b's first block (its time mix and its channel
+#: mix) and zamba2-1.2b's first Mamba2 layer, the same way; phase 16a: a
+#: one-rank mesh train step of each at full width and the depth given
+#: (zamba2's keeps one shared block), bit for bit with the host path
+MESH_RECURRENT_LAYERS = {"rwkv6-1.6b": 4, "zamba2-1.2b": 6}
+#: their shares' sums against the whole, by activation dtype: fp32 is
+#: looser than MESH_SPLIT_RTOL's, since these layers' gradients move with
+#: the rounding of the shares' smaller GEMMs more than attention's do (the
+#: time mix's per-head norm divides outputs near 0; the SSD's A_log and
+#: dt_bias gradients sum every token's decay): up to 1.1e-4 read on an
+#: H100; each row prints the whole layer's own change under a one-ulp
+#: perturbation of its input beside it
+MESH_RECURRENT_RTOL = {"bfloat16": 3e-2, "float32": 1e-3}
 #: phase 16e: MESH_ARCH's head (its own lm_head.w, then tied to the
 #: embedding) and the vocab-parallel loss at B = MESH_BATCH, S = MESH_SEQ
 #: over each tp of MESH_SPLIT_TPS: the shares' logits, hidden-state and
@@ -3608,33 +3630,113 @@ def mesh_host_steps(fns, cfg, seed, batches, dev, schedule_fn):
     return losses, ms, params
 
 
+def mesh_steps(fns, cfg, seed, batches, mesh, schedule_fn):
+    """:func:`mesh_host_steps` on the one-rank ``mesh`` ("data", "model")
+    under default_rules(fsdp=True): the state placed by
+    launch.dryrun.param_shardings (place_state), each batch a DTensor
+    (make_process_local_array, the launcher's make_global), the mesh train
+    step; (losses, ms, the parameters after, on the host, the leaves'
+    placements)."""
+    from repro_torch.dist import placement
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.compat import make_process_local_array
+    from repro_torch.launch.dryrun import param_shardings
+    from repro_torch.train.train_step import init_state, make_train_step, place_state
+
+    shd.set_rules(mesh, shd.default_rules(fsdp=True))
+    try:
+        state = init_state(fns, seed, device=placement.local_device(mesh))
+        state = place_state(state, param_shardings(state["params"], mesh, cfg))
+        placed = leaf_placements(state["params"])
+        step = make_train_step(fns, cfg, lr_schedule=schedule_fn)
+        batch_sh = shd.NamedSharding(mesh, (("data",),))
+        losses, ms = [], []
+        for b in batches:
+            gb_ = {k: make_process_local_array(batch_sh, x, x.shape) for k, x in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, gb_)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+    finally:
+        shd.set_rules(None, None)
+    params = {n: placement.local(p).detach().cpu() for n, p in state["params"].named_parameters()}
+    return losses, ms, params, placed
+
+
 def split_shares(layer, fn, x, dy, parts):
     """``fn`` (a layer's ``x -> y``) forward and backward against ``dy``
     once per share in ``parts`` (``(r, tp, None)`` under
     ``placement.model_split``, None for the whole layer): (the outputs
     summed, the input's gradient summed, each parameter's gradient summed,
-    the FLOPs of each share, forward and backward)."""
+    the FLOPs of each share, forward and backward), in float32 or wider.
+
+    A share whose compute sums a statistic over its group
+    (``placement.sum_over_group``: the SSD's gate norm) cannot run alone.
+    Its FLOPs are counted with its own term as the sum; its values come
+    from every share run against the group's sum, fed by hand
+    (``placement.fed_sums``): a pass without gradients adds up the shares'
+    terms, a second runs each share against that sum, held as a leaf, and
+    once all have run the leaf's gradient, which is the group's, is pushed
+    back into each share's term (the all-reduce forward and backward)."""
     import contextlib
 
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.dist import placement
 
+    def wide(t):
+        return t.detach().to(torch.promote_types(t.dtype, torch.float32))
+
     for w in layer.parameters():
         w.grad = None
     xg = x.detach().clone().requires_grad_(True)
-    total, flops = None, []
-    for part in parts:
+
+    def run(part, feed):
         split = placement.model_split(part=part) if part else contextlib.nullcontext()
-        with FlopCounterMode(display=False) as fc, split:
-            y = fn(xg)
+        with split, placement.fed_sums(feed):
+            return fn(xg)
+
+    total, flops, summed = None, [], []
+    for part in parts:
+        with FlopCounterMode(display=False) as fc:
+            y = run(part, lambda t: summed.append(True) or t)
             torch.sum(y * dy).backward()
         flops.append(fc.get_total_flops())
-        total = y.detach().float() if total is None else total + y.detach().float()
-    grads = {n: w.grad.detach().clone() for n, w in layer.named_parameters()}
+        total = wide(y) if total is None else total + wide(y)
+    if summed:
+        # the group's sums by hand: every share's terms, then every share
+        # against them
+        for w in layer.parameters():
+            w.grad = None
+        xg.grad = None
+        sums = []
+        with torch.no_grad():
+            for part in parts:
+                terms = []
+                run(part, lambda t: terms.append(t) or t)
+                sums = [a + b for a, b in zip(sums, terms)] if sums else terms
+        leaves = [t.clone().requires_grad_(True) for t in sums]
+        own, total, loss = [], None, 0
+        for part in parts:
+            calls = iter(range(len(leaves)))
+
+            def feed(t):
+                k = next(calls)
+                own.append((t, k))
+                return leaves[k]
+
+            y = run(part, feed)
+            loss = loss + torch.sum(y * dy)
+            total = wide(y) if total is None else total + wide(y)
+        dsum = torch.autograd.grad(loss, leaves, retain_graph=True)
+        (loss + sum(torch.sum(t * dsum[k]) for t, k in own)).backward()
+    grads = {n: w.grad.detach().clone() for n, w in layer.named_parameters()
+             if w.grad is not None}
     for w in layer.parameters():
         w.grad = None
-    return total, xg.grad.float(), grads, flops
+    return total, wide(xg.grad), grads, flops
 
 
 def head_loss_by_hand(params, h, labels, cfg, tp, z_weight=1e-4):
@@ -3736,9 +3838,53 @@ def head_split_check(cfg, gen, tps):
     return out
 
 
+def recurrent_split_layers(cfgs, gen, B, S):
+    """Phase 16e's rwkv6 and Mamba2 layers: for each config of ``cfgs``
+    (an rwkv6 arch, a Mamba2 one) its first such layer drawn from ``gen``,
+    as ``(name, layer, fn, x, whole_flops, what)``: ``fn`` the layer's ``x
+    -> y`` (the time mix and the channel mix before their residuals; the
+    Mamba2 layer after its pre-norm), ``x`` its input ``[B, S, d]`` from
+    ``gen``, ``whole_flops(tp)`` the FLOPs (forward and backward) that
+    every share computes whole (the time mix's token-shift and decay
+    LoRAs, the channel mix's ``cm_r``, the B/C columns of the SSD's
+    ``in_proj``), ``what(plan)`` how ``tp_plan`` splits it."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.rwkv import LORA_R, MIX_R, rwkv6_channel_mix, rwkv6_time_mix
+    from repro_torch.models.ssm import mamba2_apply
+
+    def split(key, noun):
+        return lambda plan: f"{'split' if plan[key] else 'whole'} {noun}"
+
+    out = []
+    for cfg in cfgs:
+        D, dev = cfg.d_model, gen.device
+        x = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
+        gemm = 3 * 2 * B * S * D                 # a [B·S, D] x [D, 1] product, fwd + bwd
+        if "rwkv6" in cfg.layer_types:
+            m = lm.Block("rwkv6", cfg, gen).requires_grad_(True).rwkv
+            out.append(("rwkv_time_mix", m, lambda h, m=m, c=cfg: rwkv6_time_mix(m, h, c)[0], x,
+                        lambda tp, g=gemm: g * (10 * MIX_R + LORA_R),
+                        split("rwkv_heads", "heads")))
+            out.append(("rwkv_channel_mix", m,
+                        lambda h, m=m, c=cfg: rwkv6_channel_mix(m, h, c)[0], x,
+                        lambda tp, g=gemm, D=D: g * D, split("rwkv_cm_ffn", "d_ff columns")))
+        else:
+            block = lm.Block("mamba2", cfg, gen).requires_grad_(True)
+            with torch.no_grad():
+                h = norm_apply(block.ln1, x, cfg)
+            gn = cfg.ssm.n_groups * cfg.ssm.state_dim
+            out.append(("ssd", block.ssm, lambda h_, m=block.ssm, c=cfg: mamba2_apply(m, h_, c)[0],
+                        h, lambda tp, g=gemm, gn=gn: g * 2 * gn, split("ssd_heads", "SSD heads")))
+    return out
+
+
 def phase_split(seed, card):
     """Phase 16e: MESH_ARCH's first block at full width, its attention and
-    its GLU MLP computed as every share of "model" through
+    its GLU MLP, and the first rwkv6 block's time and channel mix and the
+    first Mamba2 layer of MESH_RECURRENT_LAYERS' archs
+    (:func:`recurrent_split_layers`, within MESH_RECURRENT_RTOL), computed
+    as every share of "model" through
     ``placement.model_split(part=(r, tp, None))`` (the train step's split
     code, one share at a time, no collective) for each tp of
     MESH_SPLIT_TPS, in bf16 activations (the model's) and fp32: the sum of
@@ -3764,20 +3910,42 @@ def phase_split(seed, card):
     base = ARCHS[MESH_ARCH]
     gen = torch.Generator(dev).manual_seed(seed)
     B, S, D = MESH_BATCH, MESH_SEQ, base.d_model
-    out = {"arch": base.name, "batch": [B, S], "card": card, "dtypes": {}}
+    out = {"arch": base.name, "recurrent_archs": sorted(MESH_RECURRENT_LAYERS),
+           "batch": [B, S], "card": card, "dtypes": {}}
     for dtype, rtol in MESH_SPLIT_RTOL.items():
         cfg = base.replace(dtype=dtype)
         block = lm.Block("attn", cfg, gen).requires_grad_(True)
         x = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
-        dy = torch.randn((B, S, D), generator=gen, device=dev).to(cfg.act_dtype)
-        layers_ = {"attn": (block.attn, lambda h: attn_apply(block.attn, h, cfg)[0],
-                            norm_apply(block.ln1, x, cfg)),
-                   "mlp": (block.mlp, lambda h: mlp_apply(block.mlp, h, cfg),
-                           norm_apply(block.ln2, x, cfg))}
+        kv_flops = 3 * 2 * 2 * B * S * D * cfg.n_kv_heads * cfg.head_dim
+        layers_ = [
+            ("attn", block.attn, lambda h: attn_apply(block.attn, h, cfg)[0],
+             norm_apply(block.ln1, x, cfg), lambda tp: 0 if tp_plan(cfg, tp)["kv_heads"]
+             else kv_flops,
+             lambda plan: f"{'split' if plan['heads'] else 'whole'} query heads, "
+                          f"{'split' if plan['kv_heads'] else 'whole'} KV heads"),
+            ("mlp", block.mlp, lambda h: mlp_apply(block.mlp, h, cfg),
+             norm_apply(block.ln2, x, cfg), lambda tp: 0,
+             lambda plan: f"{'split' if plan['ffn'] else 'whole'} ffn columns")]
+        layers_ += recurrent_split_layers(
+            [ARCHS[a].replace(dtype=dtype) for a in MESH_RECURRENT_LAYERS], gen, B, S)
         rec = out["dtypes"][dtype] = {"rtol": rtol}
-        for name, (layer, fn, h) in layers_.items():
+        for name, layer, fn, h, whole_part, what in layers_:
+            lcfg = layer.cfg
+            tol = rtol if name in ("attn", "mlp") else MESH_RECURRENT_RTOL[dtype]
             h = h.detach()
+            dy = torch.randn(h.shape, generator=gen, device=dev).to(h.dtype)
             want_y, want_dx, want_g, (whole,) = split_shares(layer, fn, h, dy, [None])
+            # the whole layer's own sensitivity: its input perturbed by
+            # about one ulp of the activation dtype
+            eps = torch.finfo(h.dtype).eps
+            hp = (h.float() * (1 + eps * torch.randn(h.shape, generator=gen, device=dev))
+                  ).to(h.dtype)
+            p_y, p_dx, p_g, _ = split_shares(layer, fn, hp, dy, [None])
+            floor = {k: float((a.float() - b.float()).abs().max())
+                     / max(float(b.float().abs().max()), 1e-30)
+                     for k, a, b in [("y", p_y, want_y), ("dx", p_dx, want_dx)]
+                     + [(f"d{n}", p_g[n], want_g[n]) for n in want_g]}
+            del hp, p_y, p_dx, p_g
             for tp in MESH_SPLIT_TPS:
                 got_y, got_dx, got_g, flops = split_shares(
                     layer, fn, h, dy, [(r, tp, None) for r in range(tp)])
@@ -3786,29 +3954,29 @@ def phase_split(seed, card):
                 rels = {k: float((a.float() - b.float()).abs().max())
                         / max(float(b.float().abs().max()), 1e-30) for k, a, b in pairs}
                 worst = max(rels, key=rels.get)
-                plan = tp_plan(cfg, tp)
-                kv_flops = (0 if name == "mlp" or plan["kv_heads"] else
-                            3 * 2 * 2 * B * S * D * cfg.n_kv_heads * cfg.head_dim)
+                plan = tp_plan(lcfg, tp)
                 rec[f"{name}|tp{tp}"] = r = {
-                    "plan": plan, "max_rel": rels[worst], "worst": worst, "rels": rels,
+                    "arch": lcfg.name, "plan": plan, "rtol": tol, "max_rel": rels[worst],
+                    "worst": worst,
+                    "rels": rels, "floor": floor, "grads": sorted(got_g) == sorted(want_g),
                     "flops_whole": whole, "flops_shares": flops,
-                    "flops_bound": whole / tp + kv_flops}
-                what = (f"{'split' if plan['heads'] else 'whole'} query heads, "
-                        f"{'split' if plan['kv_heads'] else 'whole'} KV heads" if name == "attn"
-                        else f"{'split' if plan['ffn'] else 'whole'} ffn columns")
-                log(f"{tag} e. {cfg.name} block 0 {name}, {dtype} activations, B = {B}, "
-                    f"S = {S}, tp = {tp} ({what}): the {tp} shares summed "
+                    "flops_bound": whole / tp + whole_part(tp)}
+                log(f"{tag} e. {lcfg.name} layer 0 {name}, {dtype} activations, B = {B}, "
+                    f"S = {S}, tp = {tp} ({what(plan)}): the {tp} shares summed "
                     f"against the whole layer, largest |diff| / max {r['max_rel']:.3e} ({worst}; "
-                    f"tolerance {rtol:.0e}); FLOPs a share {min(flops):.4e}-{max(flops):.4e} "
-                    f"against the whole's {whole:.4e} (ratio {max(flops) / whole:.4f}, "
-                    f"1/tp {1 / tp:.4f}); {card}")
-                check(r["max_rel"] <= rtol,
+                    f"tolerance {tol:.0e}; the whole under a one-ulp input perturbation "
+                    f"{floor[worst]:.3e}, at most {max(floor.values()):.3e}); FLOPs a share "
+                    f"{min(flops):.4e}-{max(flops):.4e} against the whole's {whole:.4e} (ratio "
+                    f"{max(flops) / whole:.4f}, 1/tp {1 / tp:.4f}, bound "
+                    f"{r['flops_bound']:.4e}); {card}")
+                check(r["max_rel"] <= tol and r["grads"],
                       f"{tag} e. {name} tp = {tp} {dtype}: the shares' sum differs from the "
                       f"whole ({worst} {r['max_rel']:.3e})")
                 check(0 < max(flops) <= r["flops_bound"],
                       f"{tag} e. {name} tp = {tp}: a share's FLOPs {max(flops):.4e} pass "
                       f"{r['flops_bound']:.4e}")
-        del block, x, dy, layers_
+            del want_y, want_dx, want_g, got_y, got_dx, got_g
+        del block, x, layers_
         torch.cuda.empty_cache()
         for tied in (False, True):
             name = "head_tied" if tied else "head"
@@ -3856,7 +4024,9 @@ def phase_mesh_train(seed, card, kernels, host_ms):
        (make_process_local_array, the launcher's make_global), the mesh
        train step; against the same seed's host steps in this process:
        losses within MESH_LOSS_RTOL at every step, the largest parameter
-       difference after the steps;
+       difference after the steps; then one step of each of
+       MESH_RECURRENT_LAYERS' archs at full width and that depth,
+       bit for bit with the host path (:func:`mesh_steps`);
     b. MESH_MOE_ARCH at full width, B = MESH_MOE_BATCH, on the (1, 1, 1)
        mesh under default_rules(multi_pod=True, fsdp=True): one step's
        loss and gradients (as AdamW receives them) against the local
@@ -3867,8 +4037,8 @@ def phase_mesh_train(seed, card, kernels, host_ms):
     d. one sharded search over ("pod", "data") of the (1, 1, 1) mesh
        ("model" replicated) at MESH_SEARCH: every answer equal to a brute
        force on the card;
-    e. the "model" split of attention and the MLP, share by share
-       (:func:`phase_split`).
+    e. the "model" split of attention, the MLP, rwkv6's mixes and the
+       Mamba2 layer, share by share (:func:`phase_split`).
 
     On the one-rank meshes of a-c "model" has one rank, so nothing splits.
     The training path (a-c, e) launches no kernel: the counts are zeroed
@@ -3923,30 +4093,12 @@ def phase_mesh_train(seed, card, kernels, host_ms):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         tally.discard()
-        shd.set_rules(mesh2, shd.default_rules(fsdp=True))
-        try:
-            state = init_state(fns, seed, device=dev)
-            state = place_state(state, param_shardings(state["params"], mesh2, cfg))
-            placed = leaf_placements(state["params"])
-            step = make_train_step(fns, cfg, lr_schedule=lr)
-            batch_sh = shd.NamedSharding(mesh2, (("data",),))
-            m_losses, m_ms = [], []
-            for b in host_batches:
-                gb_ = {k: make_process_local_array(batch_sh, x, x.shape) for k, x in b.items()}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = step(state, gb_)
-                torch.cuda.synchronize()
-                m_ms.append((time.perf_counter() - t0) * 1e3)
-                m_losses.append(float(m["loss"]))
-        finally:
-            shd.set_rules(None, None)
+        m_losses, m_ms, m_params, placed = mesh_steps(fns, cfg, seed, host_batches, mesh2, lr)
         peak = gb(torch.cuda.max_memory_allocated())
-        diff = max(float((placement.local(p).detach().cpu() - h_params[n]).abs().max())
-                   for n, p in state["params"].named_parameters())
+        diff = max(float((m_params[n] - h_params[n]).abs().max()) for n in h_params)
         rel = max(abs(a - b) / abs(b) for a, b in zip(m_losses, h_losses))
         launches_a = tally.counts()
-        del state, step, h_params
+        del h_params, m_params
         torch.cuda.empty_cache()
         out["dense"] = {"arch": cfg.name, "batch": [MESH_BATCH, MESH_SEQ],
                         "losses_mesh": m_losses, "losses_host": h_losses,
@@ -3967,6 +4119,29 @@ def phase_mesh_train(seed, card, kernels, host_ms):
             log(f"{tag} a. placement {key} (x{n}): local {loc} of global {glob}, {pl}")
         check(rel <= MESH_LOSS_RTOL, f"{tag} a. the mesh losses differ from the host path's")
         check(all(np.isfinite(m_losses)), f"{tag} a. a mesh loss is not finite")
+        # a'. rwkv6 and zamba2 at full width, their depth cut: one step each
+        out["recurrent"] = {}
+        for arch, n_layers in MESH_RECURRENT_LAYERS.items():
+            r_cfg = ARCHS[arch].replace(n_layers=n_layers)
+            r_fns = model_fns(r_cfg)
+            batch = [SyntheticLM(r_cfg.vocab, MESH_SEQ, MESH_BATCH, seed=seed + 2).batch(0)]
+            h_loss, h_ms1, h_params = mesh_host_steps(r_fns, r_cfg, seed + 2, batch, dev, lr)
+            torch.cuda.empty_cache()
+            m_loss, m_ms1, m_params, _ = mesh_steps(r_fns, r_cfg, seed + 2, batch, mesh2, lr)
+            unequal = [n for n in h_params if not torch.equal(m_params[n], h_params[n])]
+            out["recurrent"][arch] = r = {
+                "layers": list(r_cfg.layer_types), "batch": [MESH_BATCH, MESH_SEQ],
+                "loss_host": h_loss[0], "loss_mesh": m_loss[0], "ms_host": h_ms1[0],
+                "ms_mesh": m_ms1[0], "params": len(h_params), "params_unequal": unequal}
+            log(f"{tag} a'. {arch} at full width (d {r_cfg.d_model}), {n_layers} layers "
+                f"{r['layers']}, one step at B = {MESH_BATCH}, S = {MESH_SEQ} on the (1, 1) "
+                f"mesh against the host path: loss {m_loss[0]!r} / {h_loss[0]!r}, parameters "
+                f"not bit for bit {len(unequal)} of {len(h_params)}; {m_ms1[0]:.1f} / "
+                f"{h_ms1[0]:.1f} ms; {card}")
+            check(m_loss == h_loss and not unequal and all(np.isfinite(m_loss)),
+                  f"{tag} a'. {arch}'s mesh step differs from the host path's: {unequal[:4]}")
+            del h_params, m_params
+            torch.cuda.empty_cache()
 
         # b. the MoE through _moe_sharded on the (1, 1, 1) mesh
         m_cfg = ARCHS[MESH_MOE_ARCH]

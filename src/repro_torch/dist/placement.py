@@ -37,15 +37,24 @@ The design:
   rank, and the head's) is equal across a ``"model"`` group and the table
   is left unmarked.  The loss consumes the share
   (:func:`repro_torch.train.losses.chunked_ce`'s vocab-parallel chunks);
-  a step that returns logits gathers them (:func:`gather_shares`).  The
-  embedding lookup, the norms, the rwkv6 and SSD layers compute whole on
-  each rank of a ``"model"`` group.  The MoE keeps its experts' ``d_ff``
+  a step that returns logits gathers them (:func:`gather_shares`).  rwkv6's
+  time mix computes this rank's heads (``"heads"`` on r, k, v and w; the
+  gate's ``"ffn"`` on ``d_model`` is their channels) and its channel mix
+  its ``d_ff / tp`` key columns, with and without a cache
+  (:func:`repro_torch.models.rwkv.rwkv6_apply`); the cache-free Mamba2
+  layer its SSD heads, whose gate norm's statistic, a sum over every
+  head's channels, is summed over ``"model"`` forward and backward
+  (:func:`sum_over_group`; :func:`repro_torch.models.ssm.mamba2_apply`).
+  The embedding lookup and the norms compute whole on each rank of a
+  ``"model"`` group.  The MoE keeps its experts' ``d_ff``
   split over ``"model"`` and reduces with :func:`all_reduce_sum`
   (:func:`repro_torch.models.moe._moe_sharded`).  The dry-run's prefill
   step runs in :func:`model_split` too; its decode step runs in
   :func:`head_split`, where attention reads K/V that already hold this
-  rank's KV heads, and in :func:`model_split`, where the MLP and the head
-  split.
+  rank's KV heads, and in :func:`model_split`, where the MLP, rwkv6's
+  mixes (reading the rank's heads of its ``wkv_state``) and the head
+  split; the Mamba2 layer's cached path computes whole, as the
+  reference's.
 * **Gradients.**  The batch is split over the data axes
   (:func:`batch_split`); each rank's backward gives the gradient of its own
   rows.  The gather's backward turns it into the parameter's placement: a
@@ -61,7 +70,8 @@ The design:
 Without a placed model none of this runs: :func:`gathered_call` calls the
 function directly and :func:`batch_sum` is the identity.  Inside
 :func:`model_split` with a part whose group is None, one process computes
-one share alone, with no collective.
+one share alone, with no collective; a share that sums a statistic over
+its group (:func:`sum_over_group`) is then fed the sum (:func:`fed_sums`).
 """
 from __future__ import annotations
 
@@ -78,7 +88,8 @@ __all__ = ["is_dtensor", "local", "like", "mesh_of", "local_device", "dp_axes", 
            "batch_split", "split_axes", "head_split", "head_part", "model_split",
            "model_part", "sum_over_model", "place_module", "distribute", "gather",
            "gathered", "gathered_call",
-           "all_reduce_sum", "copy_to_group", "take_share", "gather_shares",
+           "all_reduce_sum", "copy_to_group", "sum_over_group", "fed_sums",
+           "take_share", "gather_shares",
            "batch_sum", "sum_over_shards",
            "describe"]
 
@@ -205,8 +216,9 @@ _MODEL: tuple | None = None
 
 @contextlib.contextmanager
 def model_split(mesh=None, *, part: tuple | None = None):
-    """Within the block, attention's cache-free path, the GLU MLP and the
-    head compute this rank's share over ``"model"`` (see the module's
+    """Within the block, attention's cache-free path, the GLU MLP, rwkv6's
+    time and channel mix, the cache-free Mamba2 layer and the head compute
+    this rank's share over ``"model"`` (see the module's
     docstring; :func:`~repro_torch.models.layers.tp_plan` says what
     splits).  ``mesh``: the share is this rank's on the mesh's
     ``"model"`` axis, its collectives over that axis; where the rules
@@ -415,6 +427,55 @@ def copy_to_group(x: Tensor, group) -> Tensor:
     """``x`` (the same on every rank of ``group``) fed to a computation
     split over ``group``: its gradient is summed over the group."""
     return x if group is None else _CopyToGroup.apply(x, group)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce sum forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+_FEED = None
+
+
+@contextlib.contextmanager
+def fed_sums(feed):
+    """Within the block, :func:`sum_over_group` over a part whose group is
+    None (one process computing one share alone) returns ``feed(x)``, ``x``
+    being the share's own term: the caller supplies the group's sum (see
+    ``chip_smoke.split_shares``)."""
+    global _FEED
+    old, _FEED = _FEED, feed
+    try:
+        yield
+    finally:
+        _FEED = old
+
+
+def sum_over_group(x: Tensor, part: tuple) -> Tensor:
+    """``x``, this share's term of a statistic that every share of ``part =
+    (r, tp, group)`` consumes (the SSD gate norm's sum of squares), summed
+    over the group; the backward sums the gradient over the group too,
+    since each rank's holds only its own share's use of the sum.  Without
+    a group the sum comes from :func:`fed_sums` (a ``ValueError`` outside
+    it)."""
+    if part[2] is not None:
+        return _SumOverGroup.apply(x, part[2])
+    if _FEED is None:
+        raise ValueError("a share computed alone needs its group's sum: "
+                         "placement.fed_sums supplies it")
+    return _FEED(x)
 
 
 class _TakeShare(torch.autograd.Function):

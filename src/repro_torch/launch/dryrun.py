@@ -37,7 +37,8 @@ The steps are the reference's:
 * **train**: the loss's gradient (``make_loss_fn``, ``REPRO_CAST_BF16``)
   under the mesh train step's ``"model"`` split
   (:func:`~repro_torch.dist.placement.model_split`: attention's heads, the
-  GLU MLP's ffn columns and the head's vocab columns per rank, the loss
+  GLU MLP's ffn columns, rwkv6's and the cache-free SSD's heads and the
+  channel mix's ffn columns, and the head's vocab columns per rank, the loss
   vocab-parallel), optionally cast to bf16 (``REPRO_BF16_GRAD_REDUCE``;
   the port reduces inside the backward, so the cast lands after the
   reduce and changes only the moment's input), then one fp32 moment
@@ -46,18 +47,20 @@ The steps are the reference's:
   :data:`TRAIN_ACCUM`.
 * **prefill**: the forward, then ``lm_head`` of the last position, under
   the same ``"model"`` split (no gradient): attention's cache-free path
-  computes the rank's query heads, the GLU MLP its ffn columns, the head
-  its vocab columns.
+  computes the rank's query heads, the GLU MLP its ffn columns, rwkv6's
+  mixes and the SSD their heads and columns, the head its vocab columns.
 * **decode**: ``cache_init`` at the shape's seq and batch, placed by
   :func:`cache_shardings`, then one ``decode_step`` and ``lm_head``.
   Attention runs on the rank's own cache shard: its batch rows on the
   data axes and its KV heads on ``"model"``
   (:func:`~repro_torch.dist.placement.head_split`); the cache is never
-  gathered whole.  The MLP computes its ffn columns and the head its
-  vocab columns (``model_split``).  A recurrent state (Mamba2's, RWKV's)
-  placed with its heads on ``"model"`` is gathered over ``"model"`` for
-  the step and its new value cut back to the rank's heads; the rwkv6 and
-  SSD layers compute whole.
+  gathered whole.  The MLP computes its ffn columns, rwkv6's time mix its
+  heads, reading them from the rank's own ``wkv_state`` shard (never
+  gathered where they split), its channel mix its ffn columns, and the
+  head its vocab columns (``model_split``).  Mamba2's state, placed with
+  its heads on ``"model"``, is gathered over ``"model"`` for the step and
+  its new value cut back to the rank's heads: the cached SSD computes
+  whole, as the reference's does.
 * The logits leave replicated (the reference's ``P()`` output), so a
   head split over ``"model"`` all-gathers its columns over it, and they
   are all-gathered over the data axes that split the batch.
@@ -582,18 +585,27 @@ def _prefill_step(model, fns, batch, mesh, axes):
 def _decode_step(model, cfg, fns, tokens, cache, cache_len, mesh, axes):
     from torch.distributed.tensor import DTensor, Replicate
 
+    from repro_torch.models.layers import tp_plan
+
     leaves = cache_leaves(cache)
-    # the recurrent states placed with their heads on "model": gathered over
-    # it for the step, their new values cut back to the rank's heads
-    # (attention K/V stay the rank's shard: placement.head_split)
-    whole = {p: _replace_axis(x.placements, mesh, "model", Replicate())
-             for p, x in leaves.items()
-             if not _attention_leaf(p) and any(n == "model" and pl.is_shard() for n, pl in
-                                               zip(mesh.mesh_dim_names, x.placements))}
+
+    def gathered_states(part) -> dict:
+        """The recurrent states placed with their heads on "model" that the
+        step computes whole (Mamba2's; RWKV's where its heads do not split
+        under ``part``): gathered over it for the step, their new values
+        cut back to the rank's heads.  Attention K/V stay the rank's shard
+        (placement.head_split), and so does a split RWKV's ``wkv_state``."""
+        rwkv_split = part is not None and tp_plan(cfg, part[1]).get("rwkv_heads", False)
+        return {p: _replace_axis(x.placements, mesh, "model", Replicate())
+                for p, x in leaves.items()
+                if not _attention_leaf(p) and not (rwkv_split and "wkv_state" in p)
+                and any(n == "model" and pl.is_shard()
+                        for n, pl in zip(mesh.mesh_dim_names, x.placements))}
 
     def step():
         with torch.no_grad(), placement.batch_split(mesh, axes), placement.head_split(mesh), \
                 placement.model_split(mesh), placement.gathered(model):
+            whole = gathered_states(placement.model_part())
             cache_in = _cache_map(lambda p, x: x.redistribute(mesh, whole[p]).to_local()
                                   if p in whole else placement.local(x), cache)
             hidden, new = fns.decode_step(model, tokens, cache_in, cache_len)

@@ -22,7 +22,8 @@ they make GSPMD split over ``"model"`` the port computes per rank inside
 attention's query heads and KV heads and the MLP's ffn columns, where
 :func:`tp_plan` (the reference's ``sanitize`` of those annotations) splits
 them (the head's ``"vocab"`` columns split in
-:mod:`repro_torch.models.lm`).
+:mod:`repro_torch.models.lm`, rwkv6's and the SSD's heads in
+:mod:`~repro_torch.models.rwkv` and :mod:`~repro_torch.models.ssm`).
 """
 from __future__ import annotations
 
@@ -429,17 +430,35 @@ def tp_plan(cfg: ModelConfig, tp: int, d_ff: int | None = None) -> dict:
     ``cfg.d_ff``), ``vocab`` the head's logit columns (``cfg.vocab``).
     Where the query heads stay whole the attention computes whole; KV
     heads that split while the query heads do not have no such layout, and
-    raise."""
+    raise.
+
+    With an rwkv6 layer: ``rwkv_heads`` the time mix's ``n_heads`` (the
+    ``"heads"`` of r, k, v and w), ``rwkv_ffn`` its ``d_model`` (the
+    ``"ffn"`` of the gate and the gated output), ``rwkv_cm_ffn`` the
+    channel mix's ``d_ff`` (the ``"ffn"`` of its key).  The time mix
+    splits where its heads do; ``d_model = n_heads · m`` then splits too,
+    so no layout of split heads over a whole ``d_model`` exists.  Where
+    ``d_model`` splits and the heads do not (the reference then splits the
+    gate alone) the time mix computes whole.  With a Mamba2 layer:
+    ``ssd_heads`` its ``expand · d_model / head_dim`` heads (the
+    ``"heads"`` of the cache-free SSD input)."""
     kv = cfg.n_kv_heads
     g = cfg.n_heads // kv
     heads = kv * max(cfg.q_group_pad or g, g)
-    plan = {"heads": tp > 1 and heads % tp == 0,
-            "kv_heads": tp > 1 and (kv * cfg.kv_repeat) % tp == 0,
-            "ffn": tp > 1 and (d_ff or cfg.d_ff) % tp == 0,
-            "vocab": tp > 1 and cfg.vocab % tp == 0}
+
+    def splits(n):
+        return tp > 1 and n % tp == 0
+
+    plan = {"heads": splits(heads), "kv_heads": splits(kv * cfg.kv_repeat),
+            "ffn": splits(d_ff or cfg.d_ff), "vocab": splits(cfg.vocab)}
     if plan["kv_heads"] and not plan["heads"]:
         raise ValueError(f"{kv * cfg.kv_repeat} KV heads split over {tp} ranks, "
                          f"{heads} query heads do not")
+    if "rwkv6" in cfg.layer_types:
+        plan.update(rwkv_heads=splits(cfg.n_heads), rwkv_ffn=splits(cfg.d_model),
+                    rwkv_cm_ffn=splits(cfg.d_ff))
+    if "mamba2" in cfg.layer_types:
+        plan["ssd_heads"] = splits(cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim)
     return plan
 
 
@@ -498,16 +517,24 @@ def _attn_share(p: Attention, x: Tensor, cfg: ModelConfig, positions: Tensor,
     # the KV head each of the share's queries reads (the whole layer's query
     # head i reads repeated KV head i // G), as an index into kx
     G = kv * g_pad // n_kv
-    reads = [i // G - base for i in ids]
-    n = reads[-1] - reads[0] + 1
-    if hq % n == 0 and reads == [reads[0] + j // (hq // n) for j in range(hq)]:
-        kx, vx = kx[:, :, reads[0]:reads[0] + n], vx[:, :, reads[0]:reads[0] + n]
-    else:                                                  # one KV head per query
-        kx, vx = kx[:, :, reads], vx[:, :, reads]
+    reads = _reads_index([i // G - base for i in ids])
+    kx, vx = kx[:, :, reads], vx[:, :, reads]
 
     out = flash_attention(q, kx, vx, causal=causal, window=cfg.sliding_window,
                           chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
     return _head_split_out(p, out, share, g_orig, g_pad, x.dtype)
+
+
+def _reads_index(reads: list) -> slice | list:
+    """The heads ``reads[j]`` that a share's ``j``-th head reads (K/V heads
+    of its queries, B/C groups of its SSD heads), as an index into the read
+    dim under which the layer repeats each read head onto its readers: the
+    slice of the read heads where each is read by as many of the share's
+    heads in turn, else the list, one read head per head."""
+    n, k = len(reads), reads[-1] - reads[0] + 1
+    if n % k == 0 and reads == [reads[0] + j // (n // k) for j in range(n)]:
+        return slice(reads[0], reads[0] + k)
+    return reads
 
 
 def _head_split_out(p: Attention, out: Tensor, split: tuple, g_orig: int,

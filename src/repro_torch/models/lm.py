@@ -35,9 +35,10 @@ Departures from the reference, all of them execution, not arithmetic:
   mesh train step, the dry-run's train, prefill and decode steps) the
   attention and GLU MLP of every block (``"attn"``,
   ``"moe"``'s attention, the shared block) compute this rank's heads and
-  ffn columns of ``"model"``, and the head its ``V / tp`` logit columns
-  (:func:`vocab_part`); the embedding lookup, the MoE's own split, the
-  Mamba2 and RWKV layers are unchanged.
+  ffn columns of ``"model"``, RWKV's time and channel mix its heads and
+  ffn columns, the cache-free Mamba2 layer its SSD heads, and the head
+  its ``V / tp`` logit columns (:func:`vocab_part`); the embedding lookup
+  and the MoE's own split are unchanged.
 * The cache is one entry per layer (:func:`lm_cache_init`), not one per
   run.  Attention K/V are preallocated ``[B, Smax, KV, Dh]`` tensors
   written in place at ``cache_len``; the recurrent states (Mamba2's,

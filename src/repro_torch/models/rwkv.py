@@ -15,6 +15,15 @@ from 256 tokens on, as the reference does.
 
 The cache ``{"shift_tm", "shift_cm", "wkv_state"}`` is never written in
 place: each call returns new tensors.
+
+The reference's ``"heads"`` (r, k, v, w) and ``"ffn"`` (the gate, the
+gated output, the channel mix's key) annotations stand where it has them.
+What they make GSPMD split over ``"model"`` the port computes per rank
+inside :func:`placement.model_split
+<repro_torch.dist.placement.model_split>`, with a cache or without:
+:func:`rwkv6_time_mix` this rank's heads, :func:`rwkv6_channel_mix` its
+``d_ff`` columns, where :func:`~repro_torch.models.layers.tp_plan` splits
+them.
 """
 from __future__ import annotations
 
@@ -24,24 +33,27 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.dist import placement
 from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Norm, _param, dense_init, norm_apply
+from repro_torch.models.layers import Norm, _param, dense_init, norm_apply, tp_plan
 
-__all__ = ["LORA_R", "MIX_R", "RWKV6", "rwkv6_init", "rwkv6_apply", "rwkv6_cache_init"]
+__all__ = ["LORA_R", "MIX_R", "RWKV6", "rwkv6_init", "rwkv6_apply", "rwkv6_time_mix",
+           "rwkv6_channel_mix", "rwkv6_cache_init"]
 
 LORA_R = 32     # decay LoRA rank
 MIX_R = 32      # token-shift mix LoRA rank
 
 
-def _head_norm(p: Norm, x: Tensor, h: int) -> Tensor:
-    """Per-head RMS normalization (RWKV's GroupNorm(n_heads), scale-only)."""
+def _head_norm(scale: Tensor, x: Tensor, h: int) -> Tensor:
+    """Per-head RMS normalization (RWKV's GroupNorm(n_heads), scale-only)
+    of ``x [B, S, h·m]`` by ``scale [h·m]``."""
     B, S, D = x.shape
     m = D // h
     xf = x.float().reshape(B, S, h, m)
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + 1e-6)
-    y = y * p.scale.float().reshape(h, m)
+    y = y * scale.float().reshape(h, m)
     return y.reshape(B, S, D).to(x.dtype)
 
 
@@ -158,55 +170,14 @@ def rwkv6_apply(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = N
     """Time-mix + channel-mix (residuals internal).  x: [B,S,D] -> (y, cache).
 
     The returned y is the full block output: the LM must NOT add another
-    residual around this block."""
-    B, S, D = x.shape
-    h = cfg.n_heads
-    m = D // h
-    if chunked is None:
-        chunked = S >= 256
-
-    # ---- time-mix ------------------------------------------------------
-    xin = norm_apply(p.ln1, x, cfg)
-    last_tm = cache["shift_tm"].to(xin.dtype) if cache else xin.new_zeros((B, 1, D))
-    sx = torch.cat([last_tm, xin[:, :-1]], dim=1) - xin     # shifted minus x
-    base = xin + sx * p.mu[0].to(xin.dtype)
-    lora = torch.tanh(base @ p.mix_w1.to(xin.dtype)).view(B, S, 5, MIX_R)
-    # the five [B,S,D] mixes one at a time (the reference's order)
-    w2 = p.mix_w2.to(xin.dtype)                             # [5, R, D]
-    mu = p.mu.to(xin.dtype)                                 # [5, D]
-    xr, xk, xv, xg, xw = (xin + sx * (mu[i] + lora[:, :, i] @ w2[i]) for i in range(5))
-
-    def hs(t):
-        return shd.shard(t, "batch", None, "heads", None)
-
-    r = hs((xr @ p.wr.to(x.dtype)).view(B, S, h, m))
-    k = hs((xk @ p.wk.to(x.dtype)).view(B, S, h, m))
-    v = hs((xv @ p.wv.to(x.dtype)).view(B, S, h, m))
-    g = shd.shard(F.silu(xg @ p.wg.to(x.dtype)), "batch", None, "ffn")
-    dec = p.w0 + (torch.tanh(xw @ p.decay_w1.to(x.dtype))
-                  @ p.decay_w2.to(x.dtype)).float()
-    w = hs(torch.exp(-torch.exp(dec)).view(B, S, h, m))     # (0,1)
-
-    state = (cache["wkv_state"] if cache
-             else torch.zeros((B, h, m, m), dtype=torch.float32, device=x.device))
-    rf, kf, vf = r.float(), k.float(), v.float()
-    if chunked and S > 1:
-        out, new_state = _wkv_chunked(rf, kf, vf, w, p.u, state)
-    else:
-        out, new_state = _wkv_scan(rf, kf, vf, w, p.u, state)
-    out = _head_norm(p.ln_x, out.reshape(B, S, D), h).to(x.dtype) * g
-    out = shd.shard(out, "batch", None, "ffn")
-    x = x + shd.shard(out @ p.wo.to(x.dtype), "batch", None, "model_embed")
-
-    # ---- channel-mix ---------------------------------------------------
-    xc = norm_apply(p.ln2, x, cfg)
-    last_cm = cache["shift_cm"].to(xc.dtype) if cache else xc.new_zeros((B, 1, D))
-    sx2 = torch.cat([last_cm, xc[:, :-1]], dim=1) - xc
-    xk2 = xc + sx2 * p.cm_mu[0].to(xc.dtype)
-    xr2 = xc + sx2 * p.cm_mu[1].to(xc.dtype)
-    kk = shd.shard(torch.square(F.relu(xk2 @ p.cm_k.to(x.dtype))), "batch", None, "ffn")
-    cmix = torch.sigmoid(xr2 @ p.cm_r.to(x.dtype)) * (kk @ p.cm_v.to(x.dtype))
-    y = x + shd.shard(cmix, "batch", None, "model_embed")
+    residual around this block.  Inside :func:`placement.model_split
+    <repro_torch.dist.placement.model_split>` each mix computes this rank's
+    share (:func:`rwkv6_time_mix`, :func:`rwkv6_channel_mix`); a cache's
+    ``wkv_state`` then comes back holding the rank's heads."""
+    y_tm, xin, new_state = rwkv6_time_mix(p, x, cfg, cache=cache, chunked=chunked)
+    x = x + y_tm
+    y_cm, xc = rwkv6_channel_mix(p, x, cfg, cache=cache)
+    y = x + y_cm
 
     new_cache = None
     if cache is not None:
@@ -216,6 +187,128 @@ def rwkv6_apply(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = N
             "wkv_state": new_state,
         }
     return y, new_cache
+
+
+def _share(cfg: ModelConfig, key: str) -> tuple | None:
+    """``(r, tp, group)`` inside :func:`placement.model_split
+    <repro_torch.dist.placement.model_split>` where :func:`tp_plan` splits
+    ``key``, else None."""
+    part = placement.model_part()
+    return part if part is not None and tp_plan(cfg, part[1])[key] else None
+
+
+def rwkv6_time_mix(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = None,
+                   chunked: bool | None = None):
+    """The time mix's output (before the residual), its normed input
+    ``xin`` and the new WKV state: (y [B,S,D], xin, state).
+
+    Where :func:`tp_plan` splits ``rwkv_heads`` over ``"model"``, share
+    ``r`` of ``tp`` computes its ``h / tp`` heads, i.e. the ``D / tp``
+    channels ``C_r`` from ``r · D / tp`` on: r, k, v and g from those
+    columns of ``wr``, ``wk``, ``wv`` and ``wg``, the decay from those
+    columns of ``decay_w2`` and entries of ``w0``, the bonus ``u``'s rows
+    of its heads, ``ln_x`` on ``C_r`` (the norm is per head), the WKV
+    recurrence on ``[B, S, h / tp, m]`` from the state's rows of those
+    heads (a cache's state holding only the share's heads is taken as it
+    is), and the output over ``wo``'s rows ``C_r``, summed over the group
+    (Megatron's ``g``).  The token-shift mixes and both LoRAs are computed
+    whole on every rank from ``xin`` put through Megatron's ``f`` (one
+    all-reduce of its gradient), so every weight the share uses (``mu``,
+    ``mix_w1``, ``mix_w2``, ``decay_w1`` whole, the split ones by their
+    share) has a gradient holding this share's part alone and is marked
+    :func:`placement.sum_over_model
+    <repro_torch.dist.placement.sum_over_model>`; ``ln1``, before the
+    ``f``, is not.  The returned state then holds the share's heads."""
+    B, S, D = x.shape
+    h = cfg.n_heads
+    m = D // h
+    if chunked is None:
+        chunked = S >= 256
+    share = _share(cfg, "rwkv_heads")
+    xin = norm_apply(p.ln1, x, cfg)
+    xs, group = xin, None
+    wr, wk, wv, wg, wo, w0, decay_w2, u, ln_scale = (
+        p.wr, p.wk, p.wv, p.wg, p.wo, p.w0, p.decay_w2, p.u, p.ln_x.scale)
+    if share is not None:
+        r_, tp, group = share
+        xs = placement.copy_to_group(xin, group)
+        for w in (p.mu, p.mix_w1, p.mix_w2, p.decay_w1, wr, wk, wv, wg, wo, w0, decay_w2, u,
+                  ln_scale):
+            placement.sum_over_model(w)
+        cols = slice(r_ * D // tp, (r_ + 1) * D // tp)
+        heads = slice(r_ * h // tp, (r_ + 1) * h // tp)
+        wr, wk, wv, wg, decay_w2 = (w[:, cols] for w in (wr, wk, wv, wg, decay_w2))
+        wo, w0, ln_scale, u = wo[cols], w0[cols], ln_scale[cols], u[heads]
+        h, D = h // tp, D // tp
+
+    last_tm = cache["shift_tm"].to(xs.dtype) if cache else xs.new_zeros((B, 1, x.shape[2]))
+    sx = torch.cat([last_tm, xs[:, :-1]], dim=1) - xs        # shifted minus x
+    base = xs + sx * p.mu[0].to(xs.dtype)
+    lora = torch.tanh(base @ p.mix_w1.to(xs.dtype)).view(B, S, 5, MIX_R)
+    # the five [B,S,D] mixes one at a time (the reference's order)
+    w2 = p.mix_w2.to(xs.dtype)                              # [5, R, D]
+    mu = p.mu.to(xs.dtype)                                  # [5, D]
+    xr, xk, xv, xg, xw = (xs + sx * (mu[i] + lora[:, :, i] @ w2[i]) for i in range(5))
+
+    def hs(t):
+        return shd.shard(t, "batch", None, "heads", None)
+
+    r = hs((xr @ wr.to(x.dtype)).view(B, S, h, m))
+    k = hs((xk @ wk.to(x.dtype)).view(B, S, h, m))
+    v = hs((xv @ wv.to(x.dtype)).view(B, S, h, m))
+    g = shd.shard(F.silu(xg @ wg.to(x.dtype)), "batch", None, "ffn")
+    dec = w0 + (torch.tanh(xw @ p.decay_w1.to(x.dtype)) @ decay_w2.to(x.dtype)).float()
+    w = hs(torch.exp(-torch.exp(dec)).view(B, S, h, m))     # (0,1)
+
+    if cache:
+        state = cache["wkv_state"]
+        if share is not None and state.shape[1] != h:       # every head: the share's rows
+            state = state[:, heads]
+    else:
+        state = torch.zeros((B, h, m, m), dtype=torch.float32, device=x.device)
+    rf, kf, vf = r.float(), k.float(), v.float()
+    if chunked and S > 1:
+        out, new_state = _wkv_chunked(rf, kf, vf, w, u, state)
+    else:
+        out, new_state = _wkv_scan(rf, kf, vf, w, u, state)
+    out = _head_norm(ln_scale, out.reshape(B, S, D), h).to(x.dtype) * g
+    out = shd.shard(out, "batch", None, "ffn")
+    y = placement.all_reduce_sum(out @ wo.to(x.dtype), group)
+    return shd.shard(y, "batch", None, "model_embed"), xin, new_state
+
+
+def rwkv6_channel_mix(p: RWKV6, x: Tensor, cfg: ModelConfig, *, cache: dict | None = None):
+    """The channel mix's output (before the residual) and its normed input
+    ``xc``: (y [B,S,D], xc).
+
+    Where :func:`tp_plan` splits ``rwkv_cm_ffn`` over ``"model"``, share
+    ``r`` of ``tp`` computes its ``d_ff / tp`` columns of the key (``cm_k``)
+    and the matching rows of ``cm_v``, summed over the group (Megatron's
+    ``g``) before the product with ``sigmoid(xr2 @ cm_r)``, which every
+    rank computes whole.  The key's input ``xk2`` goes through Megatron's
+    ``f``, so ``cm_mu`` (whose row 0 makes ``xk2`` and row 1 the whole
+    ``xr2``) keeps a whole gradient and only ``cm_k`` and ``cm_v`` are
+    marked :func:`placement.sum_over_model
+    <repro_torch.dist.placement.sum_over_model>`."""
+    B, S, D = x.shape
+    share = _share(cfg, "rwkv_cm_ffn")
+    xc = norm_apply(p.ln2, x, cfg)
+    last_cm = cache["shift_cm"].to(xc.dtype) if cache else xc.new_zeros((B, 1, D))
+    sx2 = torch.cat([last_cm, xc[:, :-1]], dim=1) - xc
+    xk2 = xc + sx2 * p.cm_mu[0].to(xc.dtype)
+    xr2 = xc + sx2 * p.cm_mu[1].to(xc.dtype)
+    cm_k, cm_v, group = p.cm_k, p.cm_v, None
+    if share is not None:
+        r_, tp, group = share
+        f = cm_k.shape[1]
+        cols = slice(r_ * f // tp, (r_ + 1) * f // tp)
+        xk2 = placement.copy_to_group(xk2, group)
+        cm_k = placement.sum_over_model(cm_k)[:, cols]
+        cm_v = placement.sum_over_model(cm_v)[cols]
+    kk = shd.shard(torch.square(F.relu(xk2 @ cm_k.to(x.dtype))), "batch", None, "ffn")
+    cmix = torch.sigmoid(xr2 @ p.cm_r.to(x.dtype)) * placement.all_reduce_sum(
+        kk @ cm_v.to(x.dtype), group)
+    return shd.shard(cmix, "batch", None, "model_embed"), xc
 
 
 def rwkv6_cache_init(cfg: ModelConfig, batch: int, *, device=None) -> dict:

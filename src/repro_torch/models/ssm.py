@@ -16,6 +16,12 @@ state, a cache-filling prefill), and the recurrent update token by token.
 The cache ``{"ssm_state": [B, H, N, P] fp32, "conv_state": [B, W-1, C]}``
 is never written in place: each call returns new tensors, so decoding
 twice from one cache starts both times from the same state.
+
+The reference annotates the cache-free SSD input's heads ``"heads"``;
+inside :func:`placement.model_split
+<repro_torch.dist.placement.model_split>` that path computes this rank's
+heads where :func:`~repro_torch.models.layers.tp_plan` splits them
+(:func:`_mamba2_share`).
 """
 from __future__ import annotations
 
@@ -25,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from repro_torch.dist import placement
 from repro_torch.dist import sharding as shd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Norm, _param, dense_init, norm_apply
+from repro_torch.models.layers import (Norm, _param, _reads_index, dense_init, norm_apply,
+                                       tp_plan)
 
 __all__ = ["Mamba2", "mamba2_init", "mamba2_apply", "mamba2_cache_init"]
 
@@ -149,8 +157,16 @@ def mamba2_apply(p: Mamba2, x: Tensor, cfg: ModelConfig, *, cache: dict | None =
     """x: [B, S, D].  Train/prefill when cache is None; else the
     cache-filling chunked path (S > 4) or the recurrent update.
 
-    Returns (y, new_cache); the new cache holds new tensors."""
+    Returns (y, new_cache); the new cache holds new tensors.  Inside
+    :func:`placement.model_split <repro_torch.dist.placement.model_split>`
+    the cache-free path computes this rank's SSD heads where
+    :func:`~repro_torch.models.layers.tp_plan` splits them
+    (:func:`_mamba2_share`); the cached paths compute whole, as the
+    reference annotates nothing there."""
     s, d_in, nh, conv_dim = _dims(cfg)
+    share = placement.model_part() if cache is None else None
+    if share is not None and tp_plan(cfg, share[1])["ssd_heads"]:
+        return _mamba2_share(p, x, cfg, share), None
     B_, S_, D_ = x.shape
     gn = s.n_groups * s.state_dim
     proj = x @ p.in_proj.to(x.dtype)                        # [B,S,*]
@@ -199,6 +215,63 @@ def mamba2_apply(p: Mamba2, x: Tensor, cfg: ModelConfig, *, cache: dict | None =
     new_cache = ({"ssm_state": new_state, "conv_state": new_conv} if cache is not None
                  else None)
     return out, new_cache
+
+
+def _mamba2_share(p: Mamba2, x: Tensor, cfg: ModelConfig, share: tuple) -> Tensor:
+    """Share ``r`` of ``share = (r, tp, group)`` of the cache-free layer,
+    summed over the group: its ``nh / tp`` heads ``H_r`` and their ``d_in /
+    tp`` channels ``C_r``: ``in_proj``'s z, x and dt columns of those,
+    ``conv_w``/``conv_b``'s x channels ``C_r``, ``dt_bias``, ``A_log`` and
+    ``D`` on ``H_r``, ``gate_norm.scale`` on ``C_r``, ``out_proj``'s rows
+    ``C_r`` (Megatron's ``g``).  The B and C columns and their conv
+    channels are computed whole, and each head reads its own group
+    (:func:`~repro_torch.models.layers._reads_index`).  The gate norm is an
+    RMS over all of ``d_in``: the share's sum of squares is summed over
+    the group forward and backward (:func:`placement.sum_over_group
+    <repro_torch.dist.placement.sum_over_group>`).  ``x`` goes through
+    Megatron's ``f``; every weight's gradient holds this share's part
+    alone (the whole B/C columns too: only the share's heads read them
+    here), so each is marked :func:`placement.sum_over_model
+    <repro_torch.dist.placement.sum_over_model>`."""
+    if cfg.norm_kind != "rmsnorm":
+        raise ValueError(f"the SSD split sums an RMS statistic, not a {cfg.norm_kind}'s")
+    s, d_in, nh, _ = _dims(cfg)
+    r, tp, group = share
+    B_, S_, _ = x.shape
+    gn = s.n_groups * s.state_dim
+    hq = nh // tp
+    c = hq * s.head_dim
+    x = placement.copy_to_group(x, group)
+    for w in (p.in_proj, p.out_proj, p.dt_bias, p.A_log, p.D, p.conv_w, p.conv_b,
+              p.gate_norm.scale):
+        placement.sum_over_model(w)
+    ch, hs = slice(r * c, (r + 1) * c), slice(r * hq, (r + 1) * hq)
+    w = p.in_proj
+    dt0 = 2 * d_in + 2 * gn
+    w = torch.cat([w[:, ch], w[:, d_in + r * c:d_in + (r + 1) * c], w[:, 2 * d_in:dt0],
+                   w[:, dt0 + r * hq:dt0 + (r + 1) * hq]], dim=1)
+    z, xin, Bc, Cc, dt = torch.split(x @ w.to(x.dtype), [c, c, gn, gn, hq], dim=-1)
+    conv_w = torch.cat([p.conv_w[:, ch], p.conv_w[:, d_in:]], dim=1)
+    conv_b = torch.cat([p.conv_b[ch], p.conv_b[d_in:]])
+    conv_out, _ = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1), conv_w, conv_b, None)
+    conv_out = F.silu(conv_out)
+    xin, Bc, Cc = torch.split(conv_out, [c, gn, gn], dim=-1)
+
+    heads_x = shd.shard(xin.reshape(B_, S_, hq, s.head_dim), "batch", None, "heads", None)
+    reads = _reads_index([(r * hq + j) // (nh // s.n_groups) for j in range(hq)])
+    Bh = Bc.reshape(B_, S_, s.n_groups, s.state_dim)[:, :, reads]
+    Ch = Cc.reshape(B_, S_, s.n_groups, s.state_dim)[:, :, reads]
+    dt = F.softplus(dt.float() + p.dt_bias[hs])             # [B,S,hq]
+    A = -torch.exp(p.A_log[hs])
+    y, _ = _ssd_chunked(heads_x, dt, A, Bh, Ch, s.chunk)
+    y = y + heads_x.float() * p.D[hs][None, None, :, None]
+    y = y.reshape(B_, S_, c).to(x.dtype)
+    # the gate norm over all d_in channels: the sum of squares of every share
+    yf = (y * F.silu(z)).float()
+    sq = placement.sum_over_group((yf * yf).sum(-1, keepdim=True), share)
+    y = (yf * torch.rsqrt(sq / d_in + 1e-6) * p.gate_norm.scale[ch].float()).to(x.dtype)
+    out = placement.all_reduce_sum(y @ p.out_proj[ch].to(x.dtype), group)
+    return shd.shard(out, "batch", None, "model_embed")
 
 
 def mamba2_cache_init(cfg: ModelConfig, batch: int, *, device=None) -> dict:

@@ -1,8 +1,9 @@
 """Training on a (data, model) mesh: the port on 4 gloo ranks against one
 process, and its sharded MoE against the reference's.
 
-* Three train steps of a dense (tinyllama), an MoE (granite-moe) and an
-  rwkv6 smoke config in float32, with and without int8 gradient
+* Three train steps of a dense (tinyllama), an MoE (granite-moe), an
+  rwkv6 and a zamba2 smoke config in float32 (rwkv6 in float64:
+  ``TRAIN_DTYPES``), with and without int8 gradient
   compression, on a ``(2, 2)`` ``("data", "model")`` mesh and on a
   ``(1, 2, 2)`` ``("pod", "data", "model")`` mesh (one spawn each,
   tests/torch_mesh_worker.py): parameters, moments and error feedback
@@ -13,13 +14,15 @@ process, and its sharded MoE against the reference's.
   ``LOSS_RTOL``, the first step's gradients within ``GRAD_RTOL`` of each
   leaf's largest (the compressed ones within one quantizer step of their
   leaf, where a rounding near a half step may flip), the parameters after
-  three steps within ``PARAM_ATOL``.  Attention, the GLU MLP and the head
-  compute each rank's share of the query heads, ffn columns and logit
-  columns over ``"model"`` (``placement.model_split``; the cross-entropy
+  three steps within ``PARAM_ATOL``.  Attention, the GLU MLP, rwkv6's
+  time and channel mix, the SSD and the head compute each rank's share of
+  the query heads, ffn columns, rwkv6 and SSD heads and logit columns over
+  ``"model"`` (``placement.model_split``; the cross-entropy
   vocab-parallel): every parameter replicated over ``"model"`` is bitwise
   equal across the ranks of a model group after the steps,
-  ``flash_attention`` sees ``n_heads / tp`` query heads on each rank and
-  each chunk of the loss ``V / tp`` logit columns.  The tied arch run
+  ``flash_attention`` sees ``n_heads / tp`` query heads on each rank, the
+  WKV recurrence ``n_heads / tp``, the SSD scan ``nh / tp``, and each
+  chunk of the loss ``V / tp`` logit columns.  The tied arch run
   again with its ``embed.table`` placed replicated over ``"model"`` (the
   head takes the table's rows, the lookup the whole table): its table
   bitwise equal across each model group, its losses and parameters those
@@ -42,11 +45,12 @@ process, and its sharded MoE against the reference's.
   ``"model"`` replicated, equals the brute force on every rank.
 * The dry-run's prefill and decode steps (``launch.dryrun.build_cell``
   at ``SERVE_SEQ`` tokens, ``SERVE_BATCH`` rows, smoke configs in float32:
-  an untied, a tied and an rwkv6 arch) on both meshes: every rank's
-  logits (gathered whole over ``"model"`` and the data axes) equal one
-  process's within ``SERVE_RTOL`` of the largest |logit|, and each rank
-  computes ``n_heads / tp`` query heads, ``d_ff / tp`` ffn columns and
-  ``V / tp`` logit columns.
+  an untied, a tied, an rwkv6 and a zamba2 arch) on both meshes: every
+  rank's logits (gathered whole over ``"model"`` and the data axes) equal
+  one process's within ``SERVE_RTOL`` of the largest |logit|, and each
+  rank computes ``n_heads / tp`` query heads, ``d_ff / tp`` ffn columns,
+  its share of rwkv6's and the cache-free SSD's heads and ``V / tp``
+  logit columns.
 """
 from __future__ import annotations
 
@@ -73,7 +77,13 @@ from tests.torch_dist_worker import run_ranks  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = str(ROOT / "tests" / "torch_mesh_worker.py")
-ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m", "rwkv6-1.6b")
+ARCHS = ("tinyllama-1.1b", "granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-1.2b")
+#: the train runs' activation dtype where it is not float32: rwkv6's smoke
+#: gradients move by up to 4.5e-5 of their largest when its weights are
+#: perturbed by 1e-7, relative (its per-head norm divides small outputs),
+#: so in float32 a split that only reorders sums cannot be told from one
+#: that is wrong at GRAD_RTOL; in float64 its gradients meet it
+TRAIN_DTYPES = {"rwkv6-1.6b": "float64"}
 MESHES = {"2x2": ([2, 2], ["data", "model"]), "1x2x2": ([1, 2, 2], ["pod", "data", "model"])}
 N_DP = 2            # the data ranks of both meshes
 B, S, STEPS = 4, 32, 3
@@ -83,9 +93,14 @@ PARAM_ATOL = 1e-4
 MOE_ATOL = 2e-4     # the reference's own (tests/test_distributed.py:107)
 SEARCH_K = 7
 TIED_ARCH = "granite-moe-1b-a400m"
-SERVE_ARCHS = ("tinyllama-1.1b", "granite-3-2b", "rwkv6-1.6b")
+SERVE_ARCHS = ("tinyllama-1.1b", "granite-3-2b", "rwkv6-1.6b", "zamba2-1.2b")
 SERVE_SEQ, SERVE_BATCH = 64, 4
 SERVE_RTOL = 1e-5
+
+
+def train_config(arch: str):
+    """The smoke config the train runs use (``TRAIN_DTYPES``)."""
+    return smoke_config(arch).replace(dtype=TRAIN_DTYPES.get(arch, "float32"))
 
 
 def batches() -> dict:
@@ -152,7 +167,9 @@ def runs(tmp_path_factory):
     """Both meshes' spawns (the 2x2 one with the MoE, the elastic case and
     the reference's MoE beside it; the 1x2x2 one with the search)."""
     db, q = corpus(seed=21, n=900)
-    common = dict(archs=np.asarray(ARCHS), steps=STEPS, tied_arch=TIED_ARCH,
+    common = dict(archs=np.asarray(ARCHS),
+                  dtypes=np.asarray([train_config(a).dtype for a in ARCHS]),
+                  steps=STEPS, tied_arch=TIED_ARCH,
                   serve_archs=np.asarray(SERVE_ARCHS), serve_seq=SERVE_SEQ,
                   serve_batch=SERVE_BATCH, **batches())
     out = {}
@@ -209,7 +226,7 @@ def one_process():
     out, data = {}, batches()
     try:
         for arch in ARCHS:
-            cfg = smoke_config(arch)
+            cfg = train_config(arch)
             fns = model_fns(cfg)
             for compress in (False, True):
                 seen.clear()
@@ -335,25 +352,38 @@ def test_serve_steps_match_one_process(runs, mesh, arch, kind):
         np.testing.assert_allclose(out[f"{tag}|logits"], want, atol=SERVE_RTOL * top, rtol=0)
 
 
+def ssd_heads(cfg) -> int:
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_serve_steps_compute_their_shares(runs, mesh):
     """Prefill's attention (cache-free) and decode's (the rank's KV heads
-    of the cache) see ``n_heads / tp`` query heads; the GLU MLP
-    ``d_ff / tp`` columns; the head ``V / tp`` columns.  rwkv6 has no
-    attention and its layers compute whole: its ``"ffn"`` annotations, the
-    time mix's gate (``d_model`` wide) and the channel mix's key
-    (``d_ff``), see every column."""
+    of the cache) see ``n_heads / tp`` query heads (zamba2's shared block
+    too); the GLU MLP ``d_ff / tp`` columns; the head ``V / tp`` columns.
+    rwkv6's WKV recurrence sees ``n_heads / tp`` heads in both steps (the
+    decode reads the rank's heads of its ``wkv_state``) and its ``"ffn"``
+    annotations, the time mix's gate and the channel mix's key, ``d_model
+    / tp`` and ``d_ff / tp`` columns.  zamba2's cache-free SSD (prefill)
+    sees ``nh / tp`` heads; its cached decode computes whole and takes no
+    chunked scan."""
     tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
     for arch in SERVE_ARCHS:
         cfg = smoke_config(arch)
-        dense = "attn" in cfg.layer_types
+        attn = "attn" in cfg.layer_types or "shared_attn" in cfg.layer_types
+        rwkv = "rwkv6" in cfg.layer_types
         for out in runs[mesh]:
             for kind in ("prefill", "decode"):
                 tag = f"serve|{arch}|{kind}"
-                assert out[f"{tag}|heads"].tolist() == ([cfg.n_heads // tp] if dense else [])
-                assert out[f"{tag}|ffn"].tolist() == ([cfg.d_ff // tp] if dense else
-                                                      sorted({cfg.d_model, cfg.d_ff}))
+                assert out[f"{tag}|heads"].tolist() == ([cfg.n_heads // tp] if attn else [])
+                assert out[f"{tag}|ffn"].tolist() == (
+                    sorted({cfg.d_model // tp, cfg.d_ff // tp}) if rwkv else [cfg.d_ff // tp])
                 assert out[f"{tag}|vocab"].tolist() == [cfg.vocab // tp], (arch, kind)
+                assert out[f"{tag}|rwkv_heads"].tolist() == ([cfg.n_heads // tp] if rwkv
+                                                             else [])
+                ssd = "mamba2" in cfg.layer_types and kind == "prefill"
+                assert out[f"{tag}|ssd_heads"].tolist() == ([ssd_heads(cfg) // tp] if ssd
+                                                            else []), (arch, kind)
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -382,17 +412,25 @@ def test_share_collectives_and_their_gradients(runs, mesh):
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_attention_computes_its_share_of_the_heads(runs, mesh):
     """On each rank flash attention sees ``n_heads / tp`` query heads
-    (tp = 2, the mesh's ``"model"``), on both attention archs: tinyllama's
-    one KV head stays whole (1 % 2), granite-moe's two split."""
+    (tp = 2, the mesh's ``"model"``), on the attention archs: tinyllama's
+    one KV head stays whole (1 % 2), granite-moe's two split, zamba2's
+    shared block's four split; rwkv6's WKV recurrence sees ``n_heads /
+    tp`` heads, zamba2's SSD ``nh / tp``."""
     tp = dict(zip(MESHES[mesh][1], MESHES[mesh][0]))["model"]
     for arch in ARCHS:
         cfg = smoke_config(arch)
+        types = cfg.layer_types
         for out in runs[mesh]:
             for compress in (0, 1):
-                got = out[f"{arch}|{compress}|q_heads"].tolist()
-                want = [] if "attn" not in cfg.layer_types and "moe" not in cfg.layer_types \
-                    else [cfg.n_heads // tp]
+                tag = f"{arch}|{compress}"
+                got = out[f"{tag}|q_heads"].tolist()
+                want = ([cfg.n_heads // tp] if {"attn", "moe", "shared_attn"} & set(types)
+                        else [])
                 assert got == want, (arch, got)
+                assert out[f"{tag}|rwkv_heads"].tolist() == (
+                    [cfg.n_heads // tp] if "rwkv6" in types else []), arch
+                assert out[f"{tag}|ssd_heads"].tolist() == (
+                    [ssd_heads(cfg) // tp] if "mamba2" in types else []), arch
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -26,16 +26,41 @@
   weight gradients, summed over the shares, the whole head's; each
   share's FLOPs are at most the whole head's / tp.  Float64 smoke
   configs at tp 2 and 4.
+* rwkv6's time mix and channel mix (``rwkv.rwkv6_time_mix`` /
+  ``rwkv6_channel_mix`` under a part: the share's heads, its ``d_ff / tp``
+  key columns) and the cache-free Mamba2 layer (``ssm.mamba2_apply``: the
+  share's SSD heads) the same way, float64 smoke configs: the time mix at
+  tp 2 and 4, by the scan and the chunked form, and from a cache (the
+  shares' new ``wkv_state`` rows, concatenated, the whole's); the channel
+  mix at tp 2 and 4, with and without a cache; the SSD at tp 2, 4 and 8,
+  with one B/C group, two (each share's heads read one group, or half of
+  its heads each) and, at 12 heads over 3 groups, a share whose heads
+  read its groups unevenly (one group per head).  The SSD's gate norm
+  sums its statistic over the group (``placement.sum_over_group``), which
+  one process feeds by hand (``chip_smoke.split_shares``).  The layers'
+  recurrences and norms run in fp32 in every dtype and some of their
+  parameters are float32 (rwkv6's ``w0`` and ``u``, the SSD's ``A_log``,
+  ``dt_bias`` and ``D``), so a float32 gradient is held to
+  ``FP32_SUM_RTOL``: the whole layer's own ``A_log`` gradient moves by
+  1.6e-6 of its largest when its input is perturbed by 1e-7, relative.
+  Each share's FLOPs are at most the whole's / tp plus the parts every
+  share computes whole: the token-shift and decay LoRAs of the time mix,
+  ``cm_r`` of the channel mix, the B/C columns of the SSD's ``in_proj``.
 * The split choice (:func:`repro_torch.models.layers.tp_plan`: query
-  heads, KV heads, ffn columns, vocab columns split or whole) equals the
-  reference's ``sanitize`` of its activation annotations
+  heads, KV heads, ffn columns, vocab columns, rwkv6's heads, gate
+  channels and channel-mix columns, the SSD's heads, split or whole)
+  equals the reference's ``sanitize`` of its activation annotations
   (``shd.shard(q, "batch", None, "heads", None)``, ``kv_heads``, ``ffn``,
-  the logits' ``vocab``), read by tracing its ``attn_apply``,
-  ``mlp_apply`` and ``lm_head_apply`` with ``jax.eval_shape`` at full
-  size under its rules on ``AbstractMesh``es, for every arch on the pod
-  and multipod meshes, at the arch's own config and at the train_4k,
-  prefill_32k and decode_32k cells' (``launch.dryrun.prepare_cfg``: the KV
-  heads repeated for ``"model"``).
+  the logits' ``vocab``; rwkv6's ``heads`` on r, k, v, w and ``ffn`` on
+  the gate, the gated output and the channel mix's key; the SSD input's
+  ``heads``), read by tracing its ``attn_apply``, ``mlp_apply`` and
+  ``lm_head_apply``, and where the arch has them ``rwkv6_apply`` (with and
+  without a cache) and ``mamba2_apply``, with ``jax.eval_shape`` at full
+  size under its rules on ``AbstractMesh``es, recorded per layer (the
+  three layers' ``"heads"`` are three different dims), for every arch on
+  the pod and multipod meshes, at the arch's own config and at the
+  train_4k, prefill_32k and decode_32k cells' (``launch.dryrun.prepare_cfg``:
+  the KV heads repeated for ``"model"``).
 """
 from __future__ import annotations
 
@@ -57,14 +82,18 @@ from repro.configs import ARCHS as J_ARCHS  # noqa: E402
 from repro.dist import sharding as j_shd  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
+from repro.models import rwkv as j_rwkv  # noqa: E402
+from repro.models import ssm as j_ssm  # noqa: E402
 from repro_torch.configs import ARCHS, smoke_config  # noqa: E402
 from repro_torch.dist import placement  # noqa: E402
 from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.models import layers, lm, model_fns  # noqa: E402
+from repro_torch.models import layers, lm, model_fns, rwkv, ssm  # noqa: E402
+from repro_torch.models.config import SSMConfig  # noqa: E402
 from repro_torch.train.losses import chunked_ce  # noqa: E402
 
 SUM_RTOL = 1e-6
+FP32_SUM_RTOL = 1e-5
 B, S = 2, 24
 PAD = dict(n_heads=6, n_kv_heads=2, q_group_pad=4, kv_repeat=2, d_head=16)
 CASES = [("tinyllama-1.1b", {}, 2), ("tinyllama-1.1b", {}, 4),
@@ -229,18 +258,160 @@ def test_head_shares_concatenate_to_the_whole_head(tied, tp):
     assert all(0 < f <= whole_flops / tp for f in share_flops), counts
 
 
+def assert_shares_match(got, want, what=""):
+    """The shares' sums (``chip_smoke.split_shares``) against the whole
+    layer's: the output, the input's gradient, every parameter's gradient
+    (a float32 one within ``FP32_SUM_RTOL``)."""
+    pairs = [("y", got[0], want[0]), ("dx", got[1], want[1])]
+    assert set(got[2]) == set(want[2]), what
+    pairs += [(f"d{n}", got[2][n], want[2][n]) for n in want[2]]
+    for name, a, b in pairs:
+        top = float(b.abs().max())
+        assert top > 0, (what, name)
+        tol = FP32_SUM_RTOL if b.dtype == torch.float32 else SUM_RTOL
+        err = float((a - b).abs().max())
+        assert err <= tol * top, (what, name, err, top)
+
+
+def rwkv_block(cached: bool):
+    """A float64 rwkv6 smoke block with gradients on, and a cache from a
+    seed (None without one)."""
+    cfg = smoke_config("rwkv6-1.6b").replace(dtype="float64")
+    m = rwkv.RWKV6(cfg, torch.Generator().manual_seed(3)).requires_grad_(True)
+    cache = None
+    if cached:
+        g = torch.Generator().manual_seed(4)
+        h, d = cfg.n_heads, cfg.d_model
+        cache = {"shift_tm": torch.randn((B, 1, d), generator=g, dtype=torch.float64),
+                 "shift_cm": torch.randn((B, 1, d), generator=g, dtype=torch.float64),
+                 "wkv_state": torch.randn((B, h, d // h, d // h), generator=g) * 0.1}
+    return cfg, m, cache
+
+
+RWKV_CASES = [("time", 2, False, False), ("time", 4, False, False), ("time", 2, True, False),
+              ("time", 4, True, False), ("time", 2, False, True), ("time", 4, False, True),
+              ("channel", 2, False, False), ("channel", 4, False, False),
+              ("channel", 2, False, True)]
+
+
+@pytest.mark.parametrize("mix,tp,chunked,cached", RWKV_CASES,
+                         ids=[f"{m}-tp{t}{'-chunked' if c else ''}{'-cache' if k else ''}"
+                              for m, t, c, k in RWKV_CASES])
+def test_rwkv_shares_sum_to_the_whole_mix(mix, tp, chunked, cached):
+    cfg, m, cache = rwkv_block(cached)
+    x, dy = inputs(cfg, torch.float64)
+    if mix == "time":
+        def fn(h):
+            return rwkv.rwkv6_time_mix(m, h, cfg, cache=cache, chunked=chunked)[0]
+    else:
+        def fn(h):
+            return rwkv.rwkv6_channel_mix(m, h, cfg, cache=cache)[0]
+    parts = [(r, tp, None) for r in range(tp)]
+    assert_shares_match(chip_smoke.split_shares(m, fn, x, dy, parts),
+                        chip_smoke.split_shares(m, fn, x, dy, [None]), mix)
+    if mix == "time" and cached:
+        with torch.no_grad():
+            want = rwkv.rwkv6_time_mix(m, x, cfg, cache=cache)[2]
+            got = []
+            for part in parts:
+                with placement.model_split(part=part):
+                    got.append(rwkv.rwkv6_time_mix(m, x, cfg, cache=cache)[2])
+        assert all(s.shape[1] == cfg.n_heads // tp for s in got)
+        assert_close_to(torch.cat(got, 1), want, "wkv_state")
+
+
+SSD_CASES = [({}, 2), ({}, 4), ({}, 8), ({"n_groups": 2}, 2), ({"n_groups": 2}, 4),
+             ({"n_groups": 2}, 8), ({"n_groups": 3, "expand": 3}, 2),
+             ({"n_groups": 3, "expand": 3}, 4)]
+
+
+def ssd_layer(over: dict):
+    """A float64 Mamba2 smoke layer (zamba2's: 8 heads of 16, one group,
+    unless ``over`` changes its SSM config) with gradients on."""
+    base = smoke_config("zamba2-1.2b")
+    kw = dict(state_dim=16, head_dim=16, expand=2, n_groups=1, chunk=16)
+    cfg = base.replace(dtype="float64", ssm=SSMConfig(**{**kw, **over}))
+    return cfg, ssm.Mamba2(cfg, torch.Generator().manual_seed(3)).requires_grad_(True)
+
+
+@pytest.mark.parametrize("over,tp", SSD_CASES,
+                         ids=[f"g{o.get('n_groups', 1)}{'-ragged' if 'expand' in o else ''}-tp{t}"
+                              for o, t in SSD_CASES])
+def test_ssd_shares_sum_to_the_whole_layer(over, tp):
+    cfg, m = ssd_layer(over)
+    nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    assert layers.tp_plan(cfg, tp)["ssd_heads"]
+    x, dy = inputs(cfg, torch.float64)
+
+    def fn(h):
+        return ssm.mamba2_apply(m, h, cfg)[0]
+
+    seen = []
+    chunked = ssm._ssd_chunked
+
+    def spy(xh, dt, A, Bh, Ch, *a, **kw):
+        seen.append((xh.shape[2], Bh.shape[2]))
+        return chunked(xh, dt, A, Bh, Ch, *a, **kw)
+
+    ssm._ssd_chunked = spy
+    try:
+        got = chip_smoke.split_shares(m, fn, x, dy, [(r, tp, None) for r in range(tp)])
+    finally:
+        ssm._ssd_chunked = chunked
+    assert_shares_match(got, chip_smoke.split_shares(m, fn, x, dy, [None]), over)
+    # each share's heads, and the groups passed for them: the groups its
+    # heads read, where each is read by as many of them, else one a head
+    hq, rep = nh // tp, nh // cfg.ssm.n_groups
+    want = set()
+    for r in range(tp):
+        reads = [(r * hq + j) // rep for j in range(hq)]
+        k = len(set(reads))
+        even = reads == [reads[0] + j // (hq // k) for j in range(hq)] and hq % k == 0
+        want.add((hq, k if even else hq))
+    assert set(seen) == want
+    with placement.model_split(part=(0, tp, None)), pytest.raises(ValueError, match="fed_sums"):
+        fn(x)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rwkv_and_ssd_share_flops(tp):
+    """Each share's FLOPs (forward and backward) are at most the whole's /
+    tp plus what every share computes whole."""
+    cfg, m, _ = rwkv_block(False)
+    x, dy = inputs(cfg, torch.float64)
+    d, tokens = cfg.d_model, B * S
+    cases = [(m, lambda h: rwkv.rwkv6_time_mix(m, h, cfg)[0],
+              3 * 2 * tokens * d * (10 * rwkv.MIX_R + rwkv.LORA_R)),
+             (m, lambda h: rwkv.rwkv6_channel_mix(m, h, cfg)[0], 3 * 2 * tokens * d * d)]
+    scfg, sm = ssd_layer({})
+    gn = scfg.ssm.n_groups * scfg.ssm.state_dim
+    cases.append((sm, lambda h: ssm.mamba2_apply(sm, h, scfg)[0], 3 * 2 * tokens * d * 2 * gn))
+    for layer, fn, whole_part in cases:
+        (whole,) = chip_smoke.split_shares(layer, fn, x, dy, [None])[3]
+        shares = chip_smoke.split_shares(layer, fn, x, dy,
+                                         [(r, tp, None) for r in range(tp)])[3]
+        assert all(0 < f <= whole / tp + whole_part for f in shares), (shares, whole)
+        assert all(f < whole / 1.2 for f in shares), (shares, whole)
+
+
 def reference_choice(cfg, mesh_name) -> dict:
     """The reference's sanitized annotations of its attention, MLP and
-    head at ``cfg``: {logical name: whether "model" splits the dim}."""
+    head at ``cfg``, and of its rwkv6 and Mamba2 layers where the arch has
+    them: {``tp_plan``'s name: whether "model" splits the dim}, each
+    layer's annotations under its own names."""
     jmesh = JAbstractMesh(*MESHES[mesh_name])
     seen = {}
+    names_of = [lambda n, x: n if n in ("heads", "kv_heads", "ffn", "vocab") else None]
+    in_rwkv = {"heads": lambda x: "rwkv_heads",
+               "ffn": lambda x: "rwkv_cm_ffn" if x.shape[-1] == cfg.d_ff else "rwkv_ffn"}
 
     def record(x, *names):
         spec = P(*[j_shd.rule(n) if n else None for n in names])
         spec = tuple(j_shd.sanitize(spec, x.shape, jmesh)) + (None,) * len(names)
         for i, n in enumerate(names):
-            if n in ("heads", "kv_heads", "ffn", "vocab"):
-                seen.setdefault(n, set()).add(spec[i] == "model")
+            key = names_of[0](n, x)
+            if key is not None:
+                seen.setdefault(key, set()).add(spec[i] == "model")
         return x
 
     key = jax.random.PRNGKey(0)
@@ -256,6 +427,17 @@ def reference_choice(cfg, mesh_name) -> dict:
         if not cfg.tie_embeddings:
             ph["lm_head"] = {"w": jax.ShapeDtypeStruct((cfg.d_model, cfg.vocab), jnp.float32)}
         jax.eval_shape(lambda p, x_: j_lm.lm_head_apply(p, x_, cfg), ph, x)
+        if "rwkv6" in cfg.layer_types:
+            names_of[0] = lambda n, x_: in_rwkv[n](x_) if n in in_rwkv else None
+            pr = jax.eval_shape(lambda k: j_rwkv.rwkv6_init(k, cfg), key)
+            cache = jax.eval_shape(lambda: j_rwkv.rwkv6_cache_init(cfg, x.shape[0]))
+            jax.eval_shape(lambda p, x_: j_rwkv.rwkv6_apply(p, x_, cfg)[0], pr, x)
+            jax.eval_shape(lambda p, x_, c: j_rwkv.rwkv6_apply(p, x_, cfg, cache=c)[0],
+                           pr, x, cache)
+        if "mamba2" in cfg.layer_types:
+            names_of[0] = lambda n, x_: "ssd_heads" if n == "heads" else None
+            ps = jax.eval_shape(lambda k: j_ssm.mamba2_init(k, cfg), key)
+            jax.eval_shape(lambda p, x_: j_ssm.mamba2_apply(p, x_, cfg)[0], ps, x)
     finally:
         j_shd.shard = shard
         j_shd.set_rules(None, None)

@@ -8,7 +8,8 @@ gloo group through a file store in ``workdir``, lays a ``DeviceMesh``
 (``mesh_shape``, ``mesh_dims``) over the ranks and runs the case's
 ``parts``:
 
-* ``train``: for each arch of ``archs``, with and without int8 gradient
+* ``train``: for each arch of ``archs`` (its smoke config in the
+  activation dtype of ``dtypes``), with and without int8 gradient
   compression, the train state placed by ``launch.dryrun.param_shardings``
   under ``default_rules(fsdp=True)``, three steps over the global batches
   ``tokens_<i>`` / ``labels_<i>``, each rank's rows made a DTensor by
@@ -16,9 +17,10 @@ gloo group through a file store in ``workdir``, lays a ``DeviceMesh``
   losses, the first step's gradients (as AdamW receives them) and the
   parameters after the three steps, gathered whole; this rank's parts of
   the parameters replicated over ``"model"``, its coordinates on the
-  other axes, the query head counts that reached ``flash_attention`` and
-  the logit columns each chunk of the loss saw (attention, the GLU MLP
-  and the head compute this rank's share of ``"model"``); then three
+  other axes, the query head counts that reached ``flash_attention``,
+  rwkv6's WKV recurrence and the SSD's chunked scan, and the logit columns
+  each chunk of the loss saw (attention, the GLU MLP, rwkv6's mixes, the
+  SSD and the head compute this rank's share of ``"model"``); then three
   plain steps of the tied arch ``tied_arch`` with its ``embed.table``
   placed replicated over ``"model"`` (its data axes kept), whose head
   takes the table's rows while the lookup takes it whole: the losses, the
@@ -28,8 +30,9 @@ gloo group through a file store in ``workdir``, lays a ``DeviceMesh``
   ``launch.dryrun.ARCHS``), the dry-run's prefill and decode cells at
   ``serve_seq`` tokens and ``serve_batch`` rows (``build_cell`` with
   weights from ``ARCH_SEED``): the step's logits on this rank (whole,
-  every rank), the query heads, ffn columns and logit columns each rank
-  computed, and, on rank 0, the same step in one process with no mesh
+  every rank), the query heads, ffn columns, rwkv6 and SSD heads and logit
+  columns each rank computed, and, on rank 0, the same step in one
+  process with no mesh
   (``fns.forward`` / ``decode_step`` and ``lm_head``) on the same inputs;
   then ``placement.gather_shares`` and ``take_share`` over the rank's
   ``"model"`` group on small tensors, with their gradients;
@@ -79,6 +82,28 @@ def _full(t):
         return (t.full_tensor() if placement.is_dtensor(t) else t).detach().numpy().copy()
 
 
+def spy_recurrent_heads(seen: dict):
+    """Patches rwkv6's WKV recurrences and the SSD's chunked scan to add
+    the head count each is given to ``seen["rwkv_heads"]`` /
+    ``seen["ssd_heads"]``; returns the function that undoes it."""
+    from repro_torch.models import rwkv, ssm
+
+    saved = rwkv._wkv_scan, rwkv._wkv_chunked, ssm._ssd_chunked
+
+    def spy(key, fn):
+        def counted(x, *a, **kw):
+            seen.setdefault(key, set()).add(x.shape[2])
+            return fn(x, *a, **kw)
+        return counted
+
+    rwkv._wkv_scan, rwkv._wkv_chunked = (spy("rwkv_heads", f) for f in saved[:2])
+    ssm._ssd_chunked = spy("ssd_heads", saved[2])
+
+    def undo():
+        rwkv._wkv_scan, rwkv._wkv_chunked, ssm._ssd_chunked = saved
+    return undo
+
+
 def train_part(inp, out, mesh, rank):
     from repro_torch.configs import smoke_config
     from repro_torch.core.distributed import shard_layout
@@ -120,9 +145,11 @@ def train_part(inp, out, mesh, rank):
         return lse_gold(logits, *a, **kw)
 
     adamw.update, layers.flash_attention, losses._lse_gold = spy, seen, seen_cols
+    recurrent: dict = {}
+    undo = spy_recurrent_heads(recurrent)
     try:
-        for arch in (str(a) for a in inp["archs"]):
-            cfg = smoke_config(arch)
+        for arch, dtype in zip((str(a) for a in inp["archs"]), (str(d) for d in inp["dtypes"])):
+            cfg = smoke_config(arch).replace(dtype=dtype)
             fns = model_fns(cfg)
             for compress in (False, True):
                 tag = f"{arch}|{int(compress)}"
@@ -131,8 +158,12 @@ def train_part(inp, out, mesh, rank):
                 step = make_train_step(fns, cfg, compress_grads=compress)
                 heads.clear()
                 cols.clear()
+                recurrent.clear()
                 out[f"{tag}|loss"] = np.asarray(run_steps(step, state, inp, batch_sh,
                                                           n_dp, pos))
+                for key in ("rwkv_heads", "ssd_heads"):
+                    out[f"{tag}|{key}"] = np.asarray(sorted(recurrent.get(key, ())),
+                                                     dtype=np.int64)
                 grads = captured.pop()
                 params = {n: _full(p) for n, p in state["params"].named_parameters()}
                 out[f"{tag}|local"] = np.asarray(json.dumps(
@@ -173,6 +204,7 @@ def train_part(inp, out, mesh, rank):
                 out[f"{tag}|param|{n}"] = p
     finally:
         adamw.update, layers.flash_attention, losses._lse_gold = update, flash, lse_gold
+        undo()
         shd.set_rules(None, None)
 
 
@@ -250,13 +282,15 @@ def serve_part(inp, out, mesh, rank):
                                 t, mesh, x.placements, src_data_rank=None)))
                     seen.clear()
                     layers.flash_attention, shd.shard = heads, annotated
+                    undo = spy_recurrent_heads(seen)
                     try:
                         res = cell.step()
                     finally:
                         layers.flash_attention, shd.shard = flash, shard
+                        undo()
                 logits = res if cell.cache is None else res[0]
                 out[f"{tag}|logits"] = logits.numpy().copy()
-                for n in ("heads", "ffn", "vocab"):
+                for n in ("heads", "ffn", "vocab", "rwkv_heads", "ssd_heads"):
                     out[f"{tag}|{n}"] = np.asarray(sorted(seen.get(n, ())), dtype=np.int64)
                 if rank != 0:
                     continue
